@@ -5,15 +5,24 @@
 
 Builds the CUDA kernels from ``gpmpc_tpu_torch/ops/csrc`` (one nvcc call,
 into ``build/gpmpc_tpu_torch/``), holds each kernel against its plain
-PyTorch version at the flagship shapes, drives the port's main path (one
-refresh of the factorization cache, then steady-state f32 planning steps of
-the pendulum flagship: Ns=3, Na=1, horizon 15, 300 stored points in the 384
-bucket, one L-BFGS-B restart at maxiter=maxfun=maxls=maxcor=4), checks that
-every kernel was launched on that path, holds the planning step against
-the same steps run by the port on the CPU in float64, and times the step.
-The f64 comparison is held to a tolerance at 24 stored points, where the
-f32 arithmetic is well conditioned; at the flagship's 300 points f32 itself
-breaks down (see ACC_TOL) and the f32 objective is printed.
+PyTorch version at the flagship shapes (phase 3), then drives the port's
+two main paths, each with the launch counts set to 0 just before it and
+read just after:
+
+* the f32 flagship (phase 4): one refresh of the factorization cache, then
+  steady-state f32 planning steps of the pendulum flagship (Ns=3, Na=1,
+  horizon 15, 300 stored points in the 384 bucket, one L-BFGS-B restart at
+  maxiter=maxfun=maxls=maxcor=4), held to the port's float64 CPU run at 24
+  stored points, where f32 is well conditioned (at 300 points f32 itself
+  breaks down, see ACC_TOL, and the f32 objective is printed);
+* the trained-GP flagship in mixed mode (phase 4, mixed): an f64 master
+  refreshed on the card, then steady-state steps whose rollout runs in
+  double-float32 through the df32 cov kernels, held to the card's own
+  float64 plan of the same steps (MIXED_TOL); the first step's f64 plan is
+  replayed with parts of the mixed objective and optimizer, to show which
+  of them moves a_opt (``a_opt_witness``).
+
+Phase 5 times the blocked planning step of both paths.
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -35,19 +44,24 @@ import numpy as np
 import torch
 
 from gpmpc_tpu_torch import ops
-from gpmpc_tpu_torch.controllers.planner import Planner, _objective_and_info
-from gpmpc_tpu_torch.flagship import flagship_problem, run_steps
+from gpmpc_tpu_torch.controllers.lbfgs import lbfgs_b_minimize
+from gpmpc_tpu_torch.controllers.planner import Planner, _cast_cache, _objective_and_info
+from gpmpc_tpu_torch.flagship import flagship_problem, plan_step, run_steps, start_steps, trained_gp_problem
 from gpmpc_tpu_torch.models import gp as gp_mod
 from gpmpc_tpu_torch.models.gp import constrained_params
-from gpmpc_tpu_torch.ops import _build
+from gpmpc_tpu_torch.ops import _build, df_cov
 from gpmpc_tpu_torch.ops import gram_rbf as gram_mod
 from gpmpc_tpu_torch.ops import moment_cov
 
 WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 PLAN_STEPS = 5
-TIMED_STEPS = 20
+TIMED_STEPS = 10
+MIXED_STEPS = 2  # mixed-mode steps, each checked and timed
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+# f32 add or multiply instructions per second that cannot fuse into an FMA:
+# 16,896 FP32 lanes x 1.98 GHz boost, half the 67 TFLOP/s FMA figure
+H100_F32_INSTR_PER_S = 33.5e12
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -85,6 +99,47 @@ MIN_RESOLVED = 5e-4
 ACC_POINTS, ACC_BUCKET = 24, 32
 ACC_TOL = 1e-3
 
+# df32 kernels. Each E element is computed by the kernel with the same
+# uncontracted f32 operations as by the plain twin, so the two differ only
+# in the order of their compensated sums, whose error is a small multiple of
+# eps32^2 = 3.6e-15 of each output's sum of |terms| (df_cov.df_cov_abs_terms):
+# max |kernel - plain| <= DF_TOL * that scale, output by output. On an H100
+# the error was at most 5.2e-15 of the scale. Planted faults missed by far
+# more: a contracted two_prod (a Veltkamp split fused into an FMA) turned
+# the rollout's operands to NaN, a dropped lo half of the row residuals
+# missed by 1.6e-8 of the scale, a wrong iK slot by 7.3e-3 (on the random
+# operands only: the trained-GP flagship's three models share one iK).
+DF_TOL = 1e-11
+# DfCovCore's gradients collapse to f32 after the df combination: held to
+# DF_GRAD_TOL of their largest entry against autograd of the plain core, as
+# tests/test_torch_df32.py holds them against JAX on the CPU
+DF_GRAD_TOL = 3e-6
+
+# Mixed mode against the card's float64 plan of the same trained-GP step.
+# objective and gradient: at the initial actions on the caches after the
+# step (relative; the gradient to its largest entry). info: the mixed
+# plan's TrajectoryInfo against the f64 rollout at the same actions (each
+# field relative to its largest entry). plan: the f64 objective at the
+# mixed plan's a_opt may exceed the f64 objective at the f64 plan's a_opt by
+# this much of its magnitude (the largest over the steps; negative when the
+# mixed plan is better). The a_opt gap itself is printed per step, not
+# held: L-BFGS-B stops after maxfun=4 evaluations, and the mixed gradient's
+# f32-grade error alone can send it down another path. a_opt_witness shows
+# it on each run. On an H100 the first step's mixed a_opt differed from the
+# f64 plan's by 0.17; the f64 plan replayed with the mixed gradient (f64
+# values) landed 0.18 from the f64 plan's a_opt and 0.019 from the mixed
+# plan's, while the replays with mixed values (f64 gradient) or with the
+# optimizer in f32 stayed within 1.1e-5 of the f64 plan.
+# The objective is a df32 value, f64-grade (measured 8.9e-6 to 3.1e-5 of
+# f64 on an H100); the gradient is f32-grade by design (the df32 custom
+# derivatives carry plain f32 tangents; only the cov core's residuals stay
+# df until the cotangents are applied): measured 2.6e-4 to 5.7e-4, and the
+# gradient tolerance is about 5x that. A cov core whose gradient is summed
+# in plain f32 (autograd through the plain df core, as the JAX package's
+# XLA twin is differentiated) missed it by 7.5 of its largest entry on the
+# card (a planted fault of the dispatch), and a plain f32 rollout is NaN.
+MIXED_TOL = {"objective": 1e-4, "gradient": 3e-3, "info": 1e-3, "plan": 1e-2}
+
 _T0 = time.perf_counter()
 
 
@@ -100,10 +155,11 @@ def card_line() -> str:
 
 
 def objective_and_grad(prob, cache, actions):
-    """The planning objective and its gradient at fixed actions."""
+    """The planning objective and its gradient at fixed actions, on the cache
+    cast as the planner casts it (split into df32 in mixed mode)."""
     a = actions.detach().clone().requires_grad_(True)
-    cost, _ = _objective_and_info(prob.spec, cache, a, prob.state_mu, prob.state_var,
-                                  prob.action_prev, 0)
+    cost, _ = _objective_and_info(prob.spec, _cast_cache(cache, prob.state_mu.dtype), a, prob.state_mu,
+                                  prob.state_var, prob.action_prev, 0)
     (g,) = torch.autograd.grad(cost, a)
     return float(cost.detach()), g.double().cpu()
 
@@ -146,6 +202,23 @@ def cuda_ms(fn, reps=16, rounds=5, warmup=5) -> tuple[float, float]:
     return statistics.median(times), host_ms / reps
 
 
+def event_ms(fn, reps=3, warmup=1) -> float:
+    """Device-timeline ms per call between CUDA events around ``reps``
+    back-to-back calls. For a plain version of thousands of small launches
+    the card waits on the host between them, so this includes those gaps
+    (it is what a caller of that version waits for)."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def max_err(out, ref, scale=None) -> tuple[float, float]:
     """(max |out - ref|, that over max |scale|), scale defaulting to ref."""
     diff = float((out.double() - ref.double()).abs().max())
@@ -153,11 +226,30 @@ def max_err(out, ref, scale=None) -> tuple[float, float]:
     return diff, diff / max(float(s.double().abs().max()), 1e-30)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time the card could take: bytes over HBM rate or f32
-    operations over the f32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+def bound_ms(nbytes: float, flops: float, ops_per_s: float = H100_F32_FLOPS) -> tuple[float, str]:
+    """The least time the card could take: bytes over HBM rate or operations
+    over the card's peak rate for them, whichever is larger."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def df_instructions_per_element(ns: int) -> dict:
+    """f32 add, multiply and logic instructions per slab element of the df32
+    kernels, counted from csrc/df32.cuh and csrc/df_cov.cu (none may fuse
+    into an FMA): per element of every pair, and the extra on the diagonal
+    pairs (the iK terms)."""
+    two_sum, fast_two_sum = 6, 3
+    two_prod = 2 * 2 + 4 + 2 * two_sum + 2 + fast_two_sum  # 2 splits, 4 products, 2 two_sums
+    df_add = two_sum + 2 + fast_two_sum
+    df_mul = two_prod + 4 + fast_two_sum
+    # rint(x / ln2), k ln2 in df, r = x - k ln2, 12 Horner steps, 2^k, 2 scales
+    df_exp = 2 + two_prod + 2 + fast_two_sum + df_add + 12 * (df_mul + df_add) + 5 + 2
+    e = two_sum + 2 + fast_two_sum + ns * (df_mul + df_add) + 1 + df_exp
+    return {
+        "df_fwd": (e + 2 * df_mul + df_add, df_mul + df_add),
+        "df_fwdres": (e + 2 * df_mul + 2 * df_add + 2 * ns * (df_mul + df_add),
+                      df_mul + 2 * df_add + 2 * ns * (df_mul + df_add)),
+    }
 
 
 def flagship_cov_operands(device):
@@ -170,25 +262,25 @@ def flagship_cov_operands(device):
     cache = Planner(prob.spec, dtype=torch.float64, device=cpu).refresh_cache(
         prob.x, prob.y, prob.mask, prob.params, prob.bounds)
     seen = []
-    dispatch = ops.cov_core
+    dispatch = gp_mod._cov_core
 
     def record(*args):
         seen.append(args)
         return dispatch(*args)
 
-    gp_mod.ops.cov_core = record
+    gp_mod._cov_core = record
     try:
         with torch.no_grad():
             _objective_and_info(prob.spec, cache, prob.inits[0], prob.state_mu,
                                 prob.state_var, prob.action_prev, 0)
     finally:
-        gp_mod.ops.cov_core = dispatch
+        gp_mod._cov_core = dispatch
     *tensors, diag_pos = seen[-1]
     return [t.to(device=device, dtype=torch.float32).contiguous() for t in tensors], tuple(diag_pos)
 
 
 def check_kernels(dev):
-    """Each kernel against its plain version on the card at flagship shapes."""
+    """Each f32 kernel against its plain version on the card at flagship shapes."""
     results = {}
     prob = flagship_problem(dev, torch.float32)
     ls, outs, _ = constrained_params(prob.params, prob.bounds)
@@ -307,6 +399,130 @@ def check_cov_bwd(label, operands, diag_pos) -> float:
                for name, out, ref, scale in zip(("ga", "gc", "gU", "gXj", "gbi", "gbj"), g_k, g_r, scales))
 
 
+def trained_gp_df_operands(dev):
+    """The df cov-core operands of the last (15th) rollout step of the
+    trained-GP flagship in mixed mode at the initial actions, recorded on the
+    card from the dispatch (the lean forward kernel serves that rollout)."""
+    prob = trained_gp_problem(dev)
+    cache = Planner(prob.spec, dtype=torch.float32, device=dev, master_dtype=torch.float64).refresh_cache(
+        prob.x, prob.y, prob.mask, prob.params, prob.bounds)
+    seen = []
+    dispatch = ops.df_cov_core
+
+    def record(*args):
+        seen.append(args)
+        return dispatch(*args)
+
+    gp_mod.ops.df_cov_core = record
+    try:
+        with torch.no_grad():
+            _objective_and_info(prob.spec, _cast_cache(cache, torch.float32), prob.inits[0], prob.state_mu,
+                                prob.state_var, prob.action_prev, 0)
+    finally:
+        gp_mod.ops.df_cov_core = dispatch
+    *tensors, diag_pos = seen[-1]
+    return [t.contiguous() for t in tensors], tuple(diag_pos)
+
+
+def random_df_operands(dev, p, n, ns, diag_pos, seed=1):
+    """df operands of the flagship's shapes whose outputs do not cancel (f64
+    draws split into f32 halves): every output is at least MIN_RESOLVED of
+    its sum of |terms|."""
+    rng = np.random.default_rng(seed)
+    ikh = rng.normal(0, 0.1, (len(diag_pos), n, n))
+    draws = (rng.normal(-2, 0.5, (p, n)), rng.normal(-2, 0.5, (p, n)), rng.normal(0, 0.3, (p, n, ns)),
+             rng.normal(0, 0.3, (p, n, ns)), rng.normal(0, 1, (p, n)), rng.normal(0, 1, (p, n)),
+             (ikh + ikh.transpose(0, 2, 1)) / 2)
+    out = []
+    for x in draws:
+        hi = x.astype(np.float32)
+        lo = (x - hi.astype(np.float64)).astype(np.float32)
+        out += [torch.tensor(hi, device=dev), torch.tensor(lo, device=dev)]
+    return out
+
+
+def hold_df(what, label, out_h, out_l, ref_h, ref_l, scale) -> float:
+    """Hold one df output (hi + lo, in f64) to DF_TOL of its largest sum of
+    |terms|; on the random operands also require it to be resolvable."""
+    out = out_h.double() + out_l.double()
+    ref = ref_h.double() + ref_l.double()
+    abs_e, rel_e = max_err(out, ref, scale)
+    resolved = float(ref.abs().max()) / max(float(scale.abs().max()), 1e-300)
+    log(f"kernel {what} [{label}]: max abs err {abs_e:.3e} = {rel_e:.3e} of max sum|terms| "
+        f"{float(scale.abs().max()):.4g} (tol {DF_TOL}); max |ref| {float(ref.abs().max()):.4g} "
+        f"= {resolved:.3e} of it")
+    if not rel_e <= DF_TOL:
+        raise AssertionError(f"{what} [{label}] disagrees with its plain version")
+    if label == "random" and float(scale.abs().max()) > 0 and not resolved >= MIN_RESOLVED:
+        raise AssertionError(f"{what} [random]: output {resolved:.3e} of its scale, not resolvable")
+    return abs_e
+
+
+def check_df_operands(label, args, diag_pos) -> tuple[float, float]:
+    """Both df kernels against their plain twins on one operand set, and
+    DfCovCore's gradients (the residual kernel and the df backward) against
+    autograd through the plain core. Returns (fwd err, fwdres err)."""
+    (s_abs, co_abs), (row_abs, col_abs) = df_cov.df_cov_abs_terms(*args, diag_pos)
+    out = df_cov.df_cov_fwd(*args, diag_pos)
+    ref = df_cov.df_cov_fwd_plain(*args, diag_pos)
+    err_fwd = max(hold_df("df_fwd S_p", label, out[0], out[1], ref[0], ref[1], s_abs),
+                  hold_df("df_fwd corr", label, out[2], out[3], ref[2], ref[3], co_abs))
+    rows, cols = df_cov.df_cov_fwdres(*args, diag_pos)
+    rows_r, cols_r = df_cov.df_cov_fwdres_plain(*args, diag_pos)
+    names = ["A1", "A2"] + [f"B1_{e}" for e in range(3)] + [f"B2_{e}" for e in range(3)]
+    names_c = ["C1", "C2"] + [f"D1_{e}" for e in range(3)] + [f"D2_{e}" for e in range(3)]
+    err_res = 0.0
+    for outs, refs, scales, nm in ((rows, rows_r, row_abs, names), (cols, cols_r, col_abs, names_c)):
+        for k in range(0, len(outs), 2):
+            err_res = max(err_res, hold_df(f"df_fwdres {nm[k // 2]}", label, outs[k], outs[k + 1],
+                                           refs[k], refs[k + 1], scales[k]))
+    if label == "random":
+        p = args[0].shape[0]
+        w = torch.linspace(1.0, 2.0, p, device=args[0].device)
+        wc = torch.linspace(1.0, 3.0, len(diag_pos), device=args[0].device)
+
+        def grads(core):
+            a = [t.clone() for t in args]
+            leaves = [a[i].requires_grad_(True) for i in (0, 2, 4, 6)]
+            sh, sl, ch, cl = core(*a, diag_pos)
+            return torch.autograd.grad((w * (sh + sl)).sum() + (wc * (ch + cl)).sum(), leaves)
+
+        for name, g, r in zip(("ga", "gc", "gU", "gXj"), grads(df_cov.DfCovCore.apply),
+                              grads(df_cov.df_cov_core_ref)):
+            abs_e, rel_e = max_err(g, r)
+            log(f"kernel df_fwdres via DfCovCore {name} [{label}]: max abs err {abs_e:.3e} = {rel_e:.3e} "
+                f"of max |grad| (tol {DF_GRAD_TOL})")
+            if not rel_e <= DF_GRAD_TOL:
+                raise AssertionError(f"DfCovCore {name} disagrees with autograd of the plain core")
+    return err_fwd, err_res
+
+
+def check_df_kernels(dev):
+    """The two df32 kernels against their plain twins on the card: on the
+    trained-GP flagship's operands and on random operands of its shapes."""
+    flag, diag_pos = trained_gp_df_operands(dev)
+    p, n = flag[0].shape
+    ns = flag[4].shape[2]
+    rand = random_df_operands(dev, p, n, ns, diag_pos)
+    errs = [check_df_operands("flagship", flag, diag_pos), check_df_operands("random", rand, diag_pos)]
+    results = {}
+    counts = df_instructions_per_element(ns)
+    nd = len(diag_pos)
+    in_bytes = 4 * 2 * (4 * p * n + 2 * p * n * ns + nd * n * n)
+    for i, (name, kern, plain) in enumerate((("df_fwd", df_cov.df_cov_fwd, df_cov.df_cov_fwd_plain),
+                                            ("df_fwdres", df_cov.df_cov_fwdres, df_cov.df_cov_fwdres_plain))):
+        ms, host = cuda_ms(lambda: kern(*flag, diag_pos))
+        plain_ms = event_ms(lambda: plain(*flag, diag_pos))
+        per, per_diag = counts[name]
+        out_bytes = 4 * 2 * (2 * p + nd) if name == "df_fwd" else 4 * 2 * 2 * (2 + 2 * ns) * p * n
+        b, by = bound_ms(in_bytes + out_bytes, (p * per + nd * per_diag) * n * n, H100_F32_INSTR_PER_S)
+        log(f"kernel {name} (P={p}, N={n}, ns={ns}): wrapper {ms:.4f} ms (device, kernel + df finish) "
+            f"plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 "
+            f"instructions per element over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
+        results[name] = dict(err=max(e[i] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    return results
+
+
 def check_plans(plans, spec, finite_info):
     for a_opt, info in plans:
         a = a_opt.double().cpu()
@@ -342,6 +558,94 @@ def compare_to_f64(dev, n_points, bucket):
     return gaps, plans
 
 
+def compare_mixed_to_f64(dev, prob, planner, plans):
+    """The card's own float64 plan of the same trained-GP steps: the gaps of
+    MIXED_TOL (the plan gap the largest over the steps, each plan's f64
+    objective taken on the caches after the last step) and the a_opt gap of
+    each step (printed only). Then ``a_opt_witness`` on the first step."""
+    ref_prob = trained_gp_problem(dev, dtype=torch.float64)
+    ref_planner = start_steps(ref_prob, dev, torch.float64, len(plans))
+    ref_plans = []
+    for i in range(len(plans)):
+        ref_plans.append(plan_step(ref_planner, ref_prob, i))
+        if i == 0:
+            cache0 = ref_planner._cache
+    f_card, g_card = objective_and_grad(prob, planner._cache, prob.inits[0])
+    f_ref, g_ref = objective_and_grad(ref_prob, ref_planner._cache, ref_prob.inits[0])
+
+    def f64_at(a):
+        with torch.no_grad():
+            return _objective_and_info(ref_prob.spec, ref_planner._cache, a.to(torch.float64), ref_prob.state_mu,
+                                       ref_prob.state_var, ref_prob.action_prev, 0)
+
+    plan_gaps, a_gaps = [], []
+    for (a_mix, _), (a_ref, _) in zip(plans, ref_plans):
+        f_mix_plan, f_ref_plan = float(f64_at(a_mix)[0]), float(f64_at(a_ref)[0])
+        plan_gaps.append((f_mix_plan - f_ref_plan) / abs(f_ref_plan))
+        a_gaps.append(max_err(a_mix, a_ref)[0])
+        log(f"  step {len(a_gaps) - 1}: f64 objective at the plans {f_mix_plan:.9g} (mixed) vs "
+            f"{f_ref_plan:.9g} (f64); a_opt gap {a_gaps[-1]:.3e} (not held, see MIXED_TOL)")
+    _, info64 = f64_at(plans[-1][0])
+    gaps = dict(
+        objective=abs(f_card - f_ref) / abs(f_ref),
+        gradient=max_err(g_card, g_ref)[1],
+        info=max(max_err(x, y)[1] for x, y in zip(plans[-1][1], info64)),
+        plan=max(plan_gaps),
+    )
+    log(f"  trained-GP flagship, card mixed vs card f64: objective {f_card:.9g} vs {f_ref:.9g}; gaps "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    a_opt_witness(prob, ref_prob, cache0, ref_plans[0][0], plans[0][0])
+    return gaps
+
+
+def a_opt_witness(prob, ref_prob, cache, a_ref, a_mix):
+    """Why a_opt is not held. The first step's f64 plan is replayed on its
+    f64 cache (``prob``: the mixed problem, whose rollout cache is that
+    cache's df32 split):
+
+    * unchanged: must give the planner's f64 a_opt (printed 0);
+    * f32 optimizer: L-BFGS-B on f32 iterates over the f64 objective
+      rounded to f32, as the mixed plan runs it;
+    * mixed gradient: f64 values with the mixed gradient at every point;
+    * mixed value: mixed values with the f64 gradient at every point.
+
+    Each replay's a_opt is printed as its distance from the f64 plan's and
+    from the mixed plan's."""
+    spec = ref_prob.spec
+    df_cache = _cast_cache(cache, torch.float32)
+
+    def evaluate(mixed, a, grad):
+        """(value, gradient or None) in f64 of one precision's objective."""
+        p, c = (prob, df_cache) if mixed else (ref_prob, cache)
+        x = a.detach().to(p.state_mu.dtype).requires_grad_(grad)
+        cost, _ = _objective_and_info(p.spec, c, x, p.state_mu, p.state_var, p.action_prev, 0)
+        return cost.detach().double(), torch.autograd.grad(cost, x)[0].double() if grad else None
+
+    def objective(a, value_mixed=False, grad_mixed=False):
+        grad = torch.is_grad_enabled()
+        f, g = evaluate(value_mixed, a, grad and value_mixed == grad_mixed)
+        if not grad:
+            return f
+        if value_mixed != grad_mixed:
+            g = evaluate(grad_mixed, a, True)[1]
+        s = torch.dot(a, g)
+        return f + (s - s.detach())  # value f, gradient g
+
+    replays = {"unchanged": (objective, torch.float64),
+               "f32 optimizer": (lambda a: objective(a.double()).float(), torch.float32),
+               "mixed gradient": (lambda a: objective(a, grad_mixed=True), torch.float64),
+               "mixed value": (lambda a: objective(a, value_mixed=True), torch.float64)}
+    moves = {}
+    for name, (fun, dtype) in replays.items():
+        a0 = ref_prob.inits[0].to(dtype)
+        a_opt, _ = lbfgs_b_minimize(fun, a0, torch.zeros_like(a0), torch.ones_like(a0), maxiter=spec.maxiter,
+                                    maxcor=spec.maxcor, maxls=spec.maxls, maxfun=spec.maxfun)
+        moves[name] = (max_err(a_opt, a_ref)[0], max_err(a_opt, a_mix)[0])
+    log(f"  a_opt witness, step 0 (mixed plan's a_opt gap {max_err(a_mix, a_ref)[0]:.3e}): the f64 plan "
+        f"replayed lands at (distance from the f64 plan's a_opt, from the mixed plan's) "
+        + ", ".join(f"{k} ({f:.3e}, {m:.3e})" for k, (f, m) in moves.items()))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only on a CUDA card",
@@ -368,11 +672,12 @@ def _run() -> int:
     log(f"phase 2 build: {'compiled' if _build.info.compiled else 'reused'} {_build.info.path} "
         f"in {_build.info.seconds:.2f} s")
     for line in _build.info.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
     kern = check_kernels(dev)
-    log("phase 3 kernels: all three match their plain versions on the card")
+    kern.update(check_df_kernels(dev))
+    log("phase 3 kernels: all five match their plain versions on the card")
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec
@@ -380,10 +685,10 @@ def _run() -> int:
     planner, plans, _ = run_steps(prob, dev, torch.float32, PLAN_STEPS)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    log(f"phase 4 main path: refresh + {PLAN_STEPS} flagship plans, launches {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    log(f"phase 4 main path f32: refresh + {PLAN_STEPS} flagship plans, launches {launches}")
+    for name in ("gram", "cov_fwd", "cov_bwd_row"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the f32 main path")
     check_plans(plans, spec, finite_info=False)
     f_card, _ = objective_and_grad(prob, planner._cache, prob.inits[0])
     log(f"  flagship f32 objective at the initial actions: {f_card:.9g} (f32 breaks down at "
@@ -395,23 +700,53 @@ def _run() -> int:
         raise AssertionError(f"card f32 disagrees with CPU f64 beyond {ACC_TOL}: {gaps}")
     log(f"phase 4 accuracy: {ACC_POINTS} points within {ACC_TOL} of f64")
 
+    mprob = trained_gp_problem(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    mplanner, mplans, msecs = run_steps(mprob, dev, torch.float32, MIXED_STEPS, sync=torch.cuda.synchronize)
+    torch.cuda.synchronize()
+    mixed_launches = ops.launch_counts()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    log(f"phase 4 main path mixed: f64 refresh + {MIXED_STEPS} trained-GP flagship plans "
+        f"(300 points in the {mprob.x.shape[0]} bucket), launches {mixed_launches}")
+    check_plans(mplans, mprob.spec, finite_info=True)
+    # accuracy before the launch check, so that a path which skips a kernel
+    # shows what it does to the plan
+    mgaps = compare_mixed_to_f64(dev, mprob, mplanner, mplans)
+    if not all(v <= MIXED_TOL[k] for k, v in mgaps.items()):  # plan: a signed excess
+        raise AssertionError(f"card mixed mode disagrees with card f64 beyond {MIXED_TOL}: {mgaps}")
+    for name in ("df_fwd", "df_fwdres"):
+        if mixed_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the mixed main path")
+    log(f"phase 4 mixed accuracy: within {MIXED_TOL} of the card's f64 plan")
+
     prob = flagship_problem(dev, torch.float32)
     _, _, secs = run_steps(prob, dev, torch.float32, TIMED_STEPS, sync=torch.cuda.synchronize)
     med = statistics.median(secs) * 1e3
-    log(f"phase 5 timing: median blocked flagship planning step {med:.2f} ms over {TIMED_STEPS} "
+    log(f"phase 5 timing: median blocked flagship f32 planning step {med:.2f} ms over {TIMED_STEPS} "
         f"steps (min {min(secs) * 1e3:.2f}, max {max(secs) * 1e3:.2f}) on {card}")
+    log(f"phase 5 timing: median blocked trained-GP mixed planning step "
+        f"{statistics.median(msecs) * 1e3:.2f} ms over the {len(msecs)} steps of phase 4 ("
+        + ", ".join(f"{t * 1e3:.2f}" for t in msecs) + f" ms; {mixed_launches['df_fwd']} df_fwd and "
+        f"{mixed_launches['df_fwdres']} df_fwdres launches in all; peak {peak_mib:.1f} MiB) on {card}")
 
     sources = {"gram": "gpmpc_tpu_torch/ops/csrc/gram.cu",
                "cov_fwd": "gpmpc_tpu_torch/ops/csrc/cov_core.cu",
-               "cov_bwd_row": "gpmpc_tpu_torch/ops/csrc/cov_core.cu"}
+               "cov_bwd_row": "gpmpc_tpu_torch/ops/csrc/cov_core.cu",
+               "df_fwd": "gpmpc_tpu_torch/ops/csrc/df_cov.cu",
+               "df_fwdres": "gpmpc_tpu_torch/ops/csrc/df_cov.cu"}
     replaces = {"gram": "gpmpc_tpu/ops/pallas_gram.py:28",
                 "cov_fwd": "gpmpc_tpu/ops/pallas_moment_cov.py:111",
-                "cov_bwd_row": "gpmpc_tpu/ops/pallas_moment_cov.py:175"}
+                "cov_bwd_row": "gpmpc_tpu/ops/pallas_moment_cov.py:175",
+                "df_fwd": "gpmpc_tpu/ops/pallas_df_cov.py:214",
+                "df_fwdres": "gpmpc_tpu/ops/pallas_df_cov.py:378"}
+    counts = {**{k: launches[k] for k in ("gram", "cov_fwd", "cov_bwd_row")},
+              **{k: mixed_launches[k] for k in ("df_fwd", "df_fwdres")}}
     kernels = [dict(name=name, route="cuda", source=sources[name], replaces=replaces[name],
-                    launches=launches[name], max_abs_err=kern[name]["err"], ms=kern[name]["ms"],
+                    launches=counts[name], max_abs_err=kern[name]["err"], ms=kern[name]["ms"],
                     plain_ms=kern[name]["plain_ms"], bound_ms=kern[name]["bound_ms"],
                     bound_by=kern[name]["bound_by"], library_ms=None)
-               for name in ("gram", "cov_fwd", "cov_bwd_row")]
+               for name in sources]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

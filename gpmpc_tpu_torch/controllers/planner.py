@@ -26,6 +26,7 @@ from ..models.gp import (
     extend_factorization,
     masked_cholesky_factorize,
     predict_trajectory,
+    split_cache_df,
 )
 from .lbfgs import lbfgs_b_minimize
 
@@ -66,14 +67,17 @@ def _objective_and_info(spec: PlanSpec, cache: FactorizationCache, actions_mpc, 
     return -mean_ucb, TrajectoryInfo(states_mu, states_var, rewards, rewards_var, mean_ucb)
 
 
-def _cast_cache(cache: FactorizationCache, dtype) -> FactorizationCache:
+def _cast_cache(cache: FactorizationCache, dtype):
     """The cache in the rollout's compute dtype. An f64 master with an f32
-    rollout is mixed mode, which splits the cache into double-float32 in the
-    JAX package; that mode is not ported."""
+    rollout is mixed mode: the cache is split into the double-float32
+    rollout cache (``split_cache_df``), since a plain downcast loses exactly
+    the bits the moment-matching cancellations need. Otherwise every float
+    field is cast."""
     if cache.x_mem.dtype == dtype:
         return cache
-    raise NotImplementedError(
-        f"cache dtype {cache.x_mem.dtype} with compute dtype {dtype}: mixed (df32) mode is not ported")
+    if dtype == torch.float32 and cache.x_mem.dtype == torch.float64:
+        return split_cache_df(cache)
+    return FactorizationCache(*(a.to(dtype) if a.is_floating_point() else a for a in cache))
 
 
 def _plan_from_cache(spec: PlanSpec, cache: FactorizationCache, state_mu, state_var, inits,
@@ -118,19 +122,29 @@ class Planner:
     change, the padding bucket changes, or memory changed other than by
     appends; one new stored point per step is an O(Ns N^2) extension.
 
-    ``dtype`` is the master (and compute) dtype; ``device`` defaults to
-    ``cuda``. On the card only float32 is supported.
+    ``dtype`` is the compute dtype of the rollout and the optimizer: ``plan``
+    takes a state of that dtype and raises TypeError on another;
+    ``master_dtype`` is that of the factorization cache, ``dtype`` unless
+    given. ``master_dtype=float64``
+    with ``dtype=float32`` is mixed mode: an f64 master, split into a
+    double-float32 rollout cache for each plan. That is the JAX package's
+    default configuration, whose Planner keeps an f64 master whenever x64 is on
+    (as it is by default); torch has no global x64 switch, so here the
+    choice is an argument. ``device`` defaults to ``cuda``.
     """
 
     # more appended points than this per step -> full refactorize is cheaper
     _MAX_EXTENDS_PER_STEP = 8
 
-    def __init__(self, spec: PlanSpec, dtype=torch.float32, device="cuda"):
+    def __init__(self, spec: PlanSpec, dtype=torch.float32, device="cuda", master_dtype=None):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and dtype != torch.float32:
-            raise NotImplementedError(f"{dtype} on the card is not ported; use torch.float32")
+        master_dtype = dtype if master_dtype is None else master_dtype
+        for dt in (dtype, master_dtype):
+            if dt not in (torch.float32, torch.float64):
+                raise TypeError(f"Planner takes float32 or float64, got {dt}")
         self.spec = spec
         self.dtype = dtype
+        self.master_dtype = master_dtype
         self._cache: Optional[FactorizationCache] = None
         self._cache_n = -1
         self._cache_bucket = -1
@@ -140,21 +154,21 @@ class Planner:
         self._extend_safe_params = None
 
     def _tensor(self, a, dtype=None):
-        # a copy: callers update their host buffers in place between steps,
-        # and a CPU tensor made with as_tensor would share that memory
-        return torch.tensor(np.asarray(a), dtype=dtype or self.dtype, device=self.device)
+        # master-dtype copy: callers update their host buffers in place between
+        # steps, and a CPU tensor made with as_tensor would share that memory
+        return torch.tensor(np.asarray(a), dtype=dtype or self.master_dtype, device=self.device)
 
     def _extend_numerically_safe(self, params, bounds) -> bool:
         """The rank-1 extension loses ~eps * cond(K) per update. An f64
         master is always safe; an f32 one only while eps * cond_estimate is
         far below one, else every step refactorizes."""
-        if self.dtype == torch.float64:
+        if self.master_dtype == torch.float64:
             return True
         if params is self._extend_safe_params:
             return self._extend_safe
         _, outputscale, noise = constrained_params(params, bounds)
         cond_est = float(torch.max(outputscale / noise)) + 1.0
-        self._extend_safe = torch.finfo(self.dtype).eps * cond_est < 1e-3
+        self._extend_safe = torch.finfo(self.master_dtype).eps * cond_est < 1e-3
         self._extend_safe_params = params
         return self._extend_safe
 
@@ -201,6 +215,8 @@ class Planner:
     def plan(self, x_pad, y_pad, mask, params, bounds, state_mu, state_var, inits, action_prev,
              iter_ctrl, is_dummy=None):
         """(a_opt, actions_model, info) for the current memory."""
+        if state_mu.dtype != self.dtype:
+            raise TypeError(f"this Planner rolls out in {self.dtype}; got a {state_mu.dtype} state")
         bucket, n_active, is_dummy, appended, can_extend = self._cache_status(
             x_pad, y_pad, mask, params, bounds, is_dummy=is_dummy)
         if can_extend and appended == 1:

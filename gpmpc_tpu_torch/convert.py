@@ -15,7 +15,7 @@ import torch
 
 from .mappers.action import ActionMapperSpec
 from .mappers.reward import RewardSpec
-from .models.gp import FactorizationCache, GPBounds, GPParams
+from .models.gp import DFCache, FactorizationCache, GPBounds, GPParams, split_cache_df
 
 
 def _t(a, dtype, device):
@@ -74,3 +74,11 @@ def cache_from_numpy(x_mem, mask, iK, beta, lengthscales, outputscales, L, noise
         noises=_t(noises, dtype, device),
         y_mem=_t(y_mem, dtype, device),
     )
+
+
+def df_cache_from_numpy(x_mem, mask, iK, beta, lengthscales, outputscales, L, noises, y_mem, *,
+                        device="cuda") -> DFCache:
+    """The JAX package's f64 master cache, split into the port's df32 rollout
+    cache on ``device`` (what the mixed planner rolls out on)."""
+    return split_cache_df(cache_from_numpy(x_mem, mask, iK, beta, lengthscales, outputscales, L, noises,
+                                           y_mem, dtype=torch.float64, device=device))

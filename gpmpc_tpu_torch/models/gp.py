@@ -3,8 +3,10 @@
 Port of the parts of ``gpmpc_tpu/models/gp.py`` that one steady-state
 planning step runs: hyperparameter boxes, the masked Cholesky factorization
 (with its padding invariant), the rank-1 append, PILCO moment matching and
-the horizon rollout. One stacked model family with a leading Ns axis; the
-stored points live in a fixed-capacity padded buffer with an active mask:
+the horizon rollout, in f32/f64 and in mixed mode (an f64 master split into
+a double-float32 cache, ``DFCache``, rolled out by ``moment_match_df``).
+One stacked model family with a leading Ns axis; the stored points live in a
+fixed-capacity padded buffer with an active mask:
 
 * Gram rows/cols of inactive points are zeroed and their diagonal set to 1,
   so ``K + diag(noise)`` is ``[K_active + sigma^2 I, 0; 0, I]``;
@@ -22,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from .. import ops
+from ..ops.df32 import (df_add, df_add_f32, df_div, df_exp, df_mul, df_mul_f32, df_sqrt, df_sum,
+                        split_f64)
 
 
 class GPBounds(NamedTuple):
@@ -86,6 +90,22 @@ def constrained_params(params: GPParams, bounds: GPBounds):
     )
 
 
+def _gram(lengthscales, outputscales, x):
+    """The Gram matrix by the JAX package's dtype rule: its Pallas kernel
+    takes f32 only and f64 goes to XLA, so here f64 takes the plain form on
+    every device and f32 goes to ``ops.gram`` (the CUDA kernel on the card)."""
+    if x.dtype == torch.float64:
+        return ops.gram_ref(lengthscales, outputscales, x)
+    return ops.gram(lengthscales, outputscales, x)
+
+
+def _cov_core(*args):
+    """The cov core by the same dtype rule as ``_gram``."""
+    if args[0].dtype == torch.float64:
+        return ops.cov_core_ref(*args)
+    return ops.cov_core(*args)
+
+
 def masked_cholesky_factorize(params: GPParams, bounds: GPBounds, x, y, mask) -> FactorizationCache:
     """(iK, beta, L) of ``K + sigma^2 I`` on the active block, identity
     padding elsewhere; the dtype and device are those of ``x``."""
@@ -95,7 +115,7 @@ def masked_cholesky_factorize(params: GPParams, bounds: GPBounds, x, y, mask) ->
     mask_f = mask.to(dtype)
     mask2 = mask_f[:, None] * mask_f[None, :]
 
-    K = ops.gram(lengthscales, outputscales, x)  # CUDA kernel on the card
+    K = _gram(lengthscales, outputscales, x)
     eye = torch.eye(n, dtype=dtype, device=x.device)
     K = K * mask2[None]
     diag_fix = torch.where(mask[None, :], noise[:, None], torch.ones((), dtype=dtype, device=x.device))
@@ -199,6 +219,153 @@ def _small_spd_inv_det(M) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(rows, dim=-2), det
 
 
+def _small_spd_inv_det_df(Mh, Ml):
+    """Double-float32 twin of ``_small_spd_inv_det``: (Mh + Ml) (..., k, k)
+    SPD in df32 -> (Minv_h, Minv_l, det_h, det_l), by the same unrolled
+    Cholesky with every operation an elementwise df op."""
+    k = Mh.shape[-1]
+    one = (torch.ones_like(Mh[..., 0, 0]), torch.zeros_like(Mh[..., 0, 0]))
+    L = [[None] * k for _ in range(k)]
+    for i in range(k):
+        for j in range(i + 1):
+            s = (Mh[..., i, j], Ml[..., i, j])
+            for p in range(j):
+                prod = df_mul(*L[i][p], *L[j][p])
+                s = df_add(s[0], s[1], -prod[0], -prod[1])
+            if i == j:
+                # pivot guard as in the f32/f64 twin (see _small_spd_inv_det)
+                floor = 1e-10 * torch.abs(Mh[..., i, i]) + 1e-30
+                guard = s[0] < floor
+                s = (torch.where(guard, floor, s[0]), torch.where(guard, torch.zeros_like(s[1]), s[1]))
+                L[i][i] = df_sqrt(*s)
+            else:
+                L[i][j] = df_div(*s, *L[j][j])
+    det = df_mul(*L[0][0], *L[0][0])
+    for i in range(1, k):
+        det = df_mul(*det, *df_mul(*L[i][i], *L[i][i]))
+    Li = [[None] * k for _ in range(k)]
+    for i in range(k):
+        for j in range(i + 1):
+            if i == j:
+                Li[i][i] = df_div(*one, *L[i][i])
+            else:
+                s = df_mul(*L[i][j], *Li[j][j])
+                for p in range(j + 1, i):
+                    s = df_add(*s, *df_mul(*L[i][p], *Li[p][j]))
+                Li[i][j] = df_div(-s[0], -s[1], *L[i][i])
+    rows_h, rows_l = [], []
+    for i in range(k):
+        row_h, row_l = [], []
+        for j in range(k):
+            lo = max(i, j)
+            s = df_mul(*Li[lo][i], *Li[lo][j])
+            for p in range(lo + 1, k):
+                s = df_add(*s, *df_mul(*Li[p][i], *Li[p][j]))
+            row_h.append(s[0])
+            row_l.append(s[1])
+        rows_h.append(torch.stack(row_h, dim=-1))
+        rows_l.append(torch.stack(row_l, dim=-1))
+    return torch.stack(rows_h, dim=-2), torch.stack(rows_l, dim=-2), det[0], det[1]
+
+
+class DFCache(NamedTuple):
+    """Double-float32 split of an f64 master FactorizationCache: the cache of
+    the mixed-mode rollout. Every cancellation-sensitive master quantity is
+    an exact f32 (hi, lo) pair, so the rollout runs in f32 arithmetic with
+    f64-grade results."""
+
+    x_hi: torch.Tensor  # (N, D)
+    x_lo: torch.Tensor
+    mask: torch.Tensor  # (N,)
+    iK_hi: torch.Tensor  # (Ns, N, N)
+    iK_lo: torch.Tensor
+    beta_hi: torch.Tensor  # (Ns, N)
+    beta_lo: torch.Tensor
+    ils_hi: torch.Tensor  # (Ns, D) 1/lengthscale
+    ils_lo: torch.Tensor
+    ils2_hi: torch.Tensor  # (Ns, D) 1/lengthscale^2
+    ils2_lo: torch.Tensor
+    log_outs_hi: torch.Tensor  # (Ns,)
+    log_outs_lo: torch.Tensor
+    outs: torch.Tensor  # (Ns,) f32 outputscales
+    y_mem: torch.Tensor  # kept so the planner's cache bookkeeping stays uniform
+
+    @property
+    def x_mem(self):
+        return self.x_hi
+
+    @property
+    def outputscales(self):
+        return self.outs
+
+
+def split_cache_df(cache: FactorizationCache) -> DFCache:
+    """Split an f64 master cache into the df32 rollout cache."""
+    if cache.x_mem.dtype != torch.float64:
+        raise TypeError(f"split_cache_df needs the f64 master cache, got {cache.x_mem.dtype}")
+    x_hi, x_lo = split_f64(cache.x_mem)
+    iK_hi, iK_lo = split_f64(cache.iK)
+    beta_hi, beta_lo = split_f64(cache.beta)
+    ils64 = 1.0 / cache.lengthscales
+    ils_hi, ils_lo = split_f64(ils64)
+    ils2_hi, ils2_lo = split_f64(ils64 * ils64)
+    lo_hi, lo_lo = split_f64(torch.log(cache.outputscales))
+    return DFCache(
+        x_hi=x_hi, x_lo=x_lo, mask=cache.mask, iK_hi=iK_hi, iK_lo=iK_lo,
+        beta_hi=beta_hi, beta_lo=beta_lo, ils_hi=ils_hi, ils_lo=ils_lo,
+        ils2_hi=ils2_hi, ils2_lo=ils2_lo, log_outs_hi=lo_hi, log_outs_lo=lo_lo,
+        outs=cache.outputscales.to(torch.float32), y_mem=cache.y_mem.to(torch.float32),
+    )
+
+
+def _diag_embed(v):
+    """(..., D) -> (..., D, D) by multiplying with the identity, as the JAX
+    package does (off-diagonal entries are v * 0)."""
+    return v[..., :, None] * torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+
+
+def _df_stage1(cache: DFCache, sv32, ii, jj):
+    """The small df32 matrices of one moment-matching step: B^-1, c, Q and
+    sqrt det R (ii, jj: the pairs' index tensors)."""
+    ns = sv32.shape[0]
+    device = sv32.device
+
+    # B = diag(ils) sv diag(ils) + I, per model (state block only)
+    ils_s_h, ils_s_l = cache.ils_hi[:, :ns], cache.ils_lo[:, :ns]
+    outer_h, outer_l = df_mul(ils_s_h[:, :, None], ils_s_l[:, :, None], ils_s_h[:, None, :], ils_s_l[:, None, :])
+    B_h, B_l = df_mul_f32(outer_h, outer_l, sv32[None])
+    eye = torch.eye(ns, dtype=torch.float32, device=device)
+    B_h, B_l = df_add_f32(B_h, B_l, eye[None])
+    B_inv_h, B_inv_l, det_B_h, det_B_l = _small_spd_inv_det_df(B_h, B_l)
+    c32 = cache.outs / torch.sqrt(det_B_h + det_B_l)  # scales M and V: f32 is enough
+
+    ils2_h, ils2_l = cache.ils2_hi[:, :ns], cache.ils2_lo[:, :ns]
+    ss_h, ss_l = df_add(ils2_h[ii], ils2_l[ii], ils2_h[jj], ils2_l[jj])  # (P, ns)
+    d_inv_h, d_inv_l = df_div(torch.ones_like(ss_h), torch.zeros_like(ss_h), ss_h, ss_l)
+    # A = sv + diag(d_inv): diagonal entries fold sv_ii into the df pair exactly
+    eye_p = eye[None]
+    diag_h, diag_l = df_add_f32(_diag_embed(d_inv_h), _diag_embed(d_inv_l), sv32[None] * eye_p)
+    A_h = torch.where(eye_p > 0, diag_h, sv32[None])
+    A_l = torch.where(eye_p > 0, diag_l, torch.zeros_like(diag_l))
+    A_inv_h, A_inv_l, det_A_h, det_A_l = _small_spd_inv_det_df(A_h, A_l)
+    # AinvS = A^-1 sv (sv exact f32), unrolled df dots
+    cols_h, cols_l = [], []
+    for m in range(ns):
+        ah, al = df_mul_f32(A_inv_h[:, :, 0], A_inv_l[:, :, 0], sv32[0, m])
+        for l_ in range(1, ns):
+            ph, pl = df_mul_f32(A_inv_h[:, :, l_], A_inv_l[:, :, l_], sv32[l_, m])
+            ah, al = df_add(ah, al, ph, pl)
+        cols_h.append(ah)
+        cols_l.append(al)
+    AinvS_h = torch.stack(cols_h, dim=-1)  # (P, ns, ns)
+    AinvS_l = torch.stack(cols_l, dim=-1)
+    Qh, Ql = df_mul(d_inv_h[..., :, None], d_inv_l[..., :, None], AinvS_h, AinvS_l)
+    Qh, Ql = 0.5 * Qh, 0.5 * Ql  # exact halving
+    det_R32 = (det_A_h + det_A_l) * torch.prod(ss_h + ss_l, dim=-1)
+    sqrt_det_R32 = torch.sqrt(det_R32)  # divides S_p after the cancellation
+    return B_inv_h, B_inv_l, c32, Qh, Ql, sqrt_det_R32
+
+
 @functools.lru_cache(maxsize=None)
 def _pair_indices(ns: int, device: torch.device):
     """Upper-triangle pair indices (ii, jj), the pair index of each (m, m) as
@@ -267,13 +434,118 @@ def moment_match(cache: FactorizationCache, input_mu, input_var):
     c_col = k[jj] + X2s
     U = 2.0 * XQ
 
-    S_p, corr = ops.cov_core(a_row, c_col, U, Xj_p, beta[ii], beta[jj], cache.iK, diag_pos)
+    S_p, corr = _cov_core(a_row, c_col, U, Xj_p, beta[ii], beta[jj], cache.iK, diag_pos)
     S_p = S_p.index_add(0, dpos, -corr)
     S_p = S_p / sqrt_det_R
 
     S = torch.zeros((ns, ns), dtype=dtype, device=device).index_put((ii, jj), S_p)
     S = S + S.T - torch.diag(torch.diagonal(S))
     S = S + torch.diag(outs)
+    S = S - M[:, None] * M[None, :]
+    return M, S, V.T
+
+
+def _df_mat_small(xh, xl, mh, ml):
+    """(P, N, ns) x (P, ns, ns) -> (P, N, ns) by unrolled df dots."""
+    ns = xh.shape[-1]
+    cols_h, cols_l = [], []
+    for j in range(ns):
+        ah, al = df_mul(xh[..., 0], xl[..., 0], mh[:, None, 0, j], ml[:, None, 0, j])
+        for k in range(1, ns):
+            ph, pl = df_mul(xh[..., k], xl[..., k], mh[:, None, k, j], ml[:, None, k, j])
+            ah, al = df_add(ah, al, ph, pl)
+        cols_h.append(ah)
+        cols_l.append(al)
+    return torch.stack(cols_h, dim=-1), torch.stack(cols_l, dim=-1)
+
+
+def moment_match_df(cache: DFCache, input_mu, input_var):
+    """Moment matching in double-float32: the math of ``moment_match`` with
+    every cancellation-prone quantity carried as an f32 (hi, lo) pair.
+
+    input_mu (D,) and input_var (D, D) arrive in f32 from the rollout and are
+    taken as exact; x_mem, 1/ls, log outs, beta and iK come pre-split from the
+    f64 master (``split_cache_df``). The Ns x Ns solves run in df32
+    (``_df_stage1``), the (Ns, N, D) mean path in df ops and the (P, N, N)
+    covariance pipeline in ``ops.df_cov_core`` (the CUDA kernels on the
+    card). Returns M (Ns,), S (Ns, Ns) and V (D, Ns) in f32.
+    """
+    ns, d = cache.ils_hi.shape
+    n = cache.x_hi.shape[0]
+    device = cache.x_hi.device
+    f32 = torch.float32
+    sv32 = input_var[:ns, :ns].to(f32)
+    mu32 = input_mu.to(f32)
+
+    ii, jj, dpos, diag_pos = _pair_indices(ns, device)
+    Bh, Bl, c32, Qh, Ql, sqrt_det_R32 = _df_stage1(cache, sv32, ii, jj)
+
+    # ---- mean and input-output covariance (df over (Ns, N, D)) ----------
+    # inp = x_mem - mu, exact given the f32 mu
+    inp_h, inp_l = df_add_f32(cache.x_hi.expand(n, d), cache.x_lo, -mu32[None, :])
+    iN_h, iN_l = df_mul(inp_h[None], inp_l[None], cache.ils_hi[:, None, :], cache.ils_lo[:, None, :])
+
+    # t = iN with the state block transformed by B^-1 (action/time columns pass)
+    t_cols_h, t_cols_l = [], []
+    for j in range(ns):
+        ah, al = df_mul(iN_h[..., 0], iN_l[..., 0], Bh[:, None, 0, j], Bl[:, None, 0, j])
+        for k in range(1, ns):
+            ph, pl = df_mul(iN_h[..., k], iN_l[..., k], Bh[:, None, k, j], Bl[:, None, k, j])
+            ah, al = df_add(ah, al, ph, pl)
+        t_cols_h.append(ah)
+        t_cols_l.append(al)
+    t_h = torch.cat([torch.stack(t_cols_h, dim=-1), iN_h[..., ns:]], dim=-1)
+    t_l = torch.cat([torch.stack(t_cols_l, dim=-1), iN_l[..., ns:]], dim=-1)
+
+    # exponent -0.5 sum_d iN t: the large-magnitude cancellation
+    eh, el = df_mul(iN_h, iN_l, t_h, t_l)
+    exp_h, exp_l = df_sum(eh, el, axis=-1)
+    q_h, q_l = df_exp(torch.clamp(-0.5 * exp_h, max=60.0), -0.5 * exp_l)
+    lb_h, lb_l = df_mul(q_h, q_l, cache.beta_hi, cache.beta_lo)  # (Ns, N)
+
+    M_h, M_l = df_sum(lb_h, lb_l, axis=-1)
+    M = c32 * (M_h + M_l)
+
+    tiL_h, tiL_l = df_mul(t_h, t_l, cache.ils_hi[:, None, :], cache.ils_lo[:, None, :])
+    vh, vl = df_mul(tiL_h, tiL_l, lb_h[..., None], lb_l[..., None])
+    V_h, V_l = df_sum(vh, vl, axis=1)  # (Ns, D)
+    V = c32[:, None] * (V_h + V_l)
+
+    # ---- predictive covariance (df over (P, N, N)) -----------------------
+    p = ii.shape[0]
+    ils2_h, ils2_l = cache.ils2_hi[:, :ns], cache.ils2_lo[:, :ns]
+    # Xi[m, n, e] = inp[n, e] / ls_m[e]^2 (state columns only)
+    Xi_h, Xi_l = df_mul(inp_h[None, :, :ns], inp_l[None, :, :ns], ils2_h[:, None, :], ils2_l[:, None, :])
+    Xi_ph, Xi_pl = Xi_h[ii], Xi_l[ii]  # (P, N, ns)
+    Xj_ph, Xj_pl = Xi_h[jj], Xi_l[jj]
+    XQ_h, XQ_l = _df_mat_small(Xi_ph, Xi_pl, Qh, Ql)
+    Xs_h, Xs_l = df_sum(*df_mul(XQ_h, XQ_l, Xi_ph, Xi_pl), axis=-1)  # (P, N)
+    XjQ_h, XjQ_l = _df_mat_small(Xj_ph, Xj_pl, Qh, Ql)
+    X2s_h, X2s_l = df_sum(*df_mul(XjQ_h, XjQ_l, Xj_ph, Xj_pl), axis=-1)
+
+    # k_m(n) = log outs_m - 0.5 sum iN^2
+    k_h, k_l = df_sum(*df_mul(iN_h, iN_l, iN_h, iN_l), axis=-1)  # (Ns, N)
+    k_h, k_l = df_add(cache.log_outs_hi[:, None].expand_as(k_h), cache.log_outs_lo[:, None].expand_as(k_h),
+                      -0.5 * k_h, -0.5 * k_l)
+
+    a_h, a_l = df_add(k_h[ii], k_l[ii], Xs_h, Xs_l)  # (P, N)
+    c_h, c_l = df_add(k_h[jj], k_l[jj], X2s_h, X2s_l)
+    U_h, U_l = 2.0 * XQ_h, 2.0 * XQ_l  # exact doubling
+
+    Sp_h, Sp_l, corr_h, corr_l = ops.df_cov_core(
+        a_h, a_l, c_h, c_l, U_h, U_l, Xj_ph, Xj_pl,
+        cache.beta_hi[ii], cache.beta_lo[ii], cache.beta_hi[jj], cache.beta_lo[jj],
+        cache.iK_hi, cache.iK_lo, diag_pos)
+
+    # S_p(diag) and corr cancel from ~1e3..1e4 to ~1e-2: subtract in df and
+    # collapse to f32 only after the cancellation
+    zeros = torch.zeros(p, dtype=f32, device=device)
+    Sp_h, Sp_l = df_add(Sp_h, Sp_l, -zeros.index_copy(0, dpos, corr_h), -zeros.index_copy(0, dpos, corr_l))
+    S_p = (Sp_h + Sp_l) / sqrt_det_R32
+
+    S = torch.zeros((ns, ns), dtype=f32, device=device).index_put((ii, jj), S_p)
+    S = S + S.T - torch.diag(torch.diagonal(S))
+    S = S + torch.diag(cache.outs)
     S = S - M[:, None] * M[None, :]
     return M, S, V.T
 
@@ -297,7 +569,8 @@ def predict_trajectory(cache: FactorizationCache, actions, state_mu, state_var,
         if include_time_model:
             parts.append(torch.as_tensor(current_time_idx, dtype=dtype, device=mu.device).reshape(1) + t)
         input_mu = torch.cat(parts)
-        dmu, dvar, v = moment_match(cache, input_mu, input_var)
+        mm = moment_match_df if isinstance(cache, DFCache) else moment_match
+        dmu, dvar, v = mm(cache, input_mu, input_var)
         sv = input_var[:ns]
         mu = mu + dmu
         var = dvar + var + sv @ v + v.T @ sv.T

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ONE plain ``nvcc`` call into one shared
-library with an ``extern "C"`` interface, loaded with ``ctypes``. Nothing here
+Every ``csrc/*.cu`` (with the headers beside it) is compiled by ONE plain
+``nvcc`` call into one shared library with an ``extern "C"`` interface,
+loaded with ``ctypes``. Nothing here
 includes PyTorch's headers, so the build takes seconds, not the minutes of a
 ``torch.utils.cpp_extension`` build. The library lands in
 ``<repo>/build/gpmpc_tpu_torch/``, keyed by a hash of the sources and flags,
@@ -34,6 +35,10 @@ _SIGNATURES = {
     "gpmpc_cov_fwd_f32": (_P,) * 8 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
     "gpmpc_cov_bwd_row_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
     "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "gpmpc_df_tile_rows": (),
+    "gpmpc_df_tile_cols": (),
+    "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
+    "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 4 + (_I,) * 4 + (_P,),
 }
 
 

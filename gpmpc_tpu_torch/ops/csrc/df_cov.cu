@@ -1,0 +1,366 @@
+// Moment-matching covariance core in double-float32: the lean forward and the
+// forward with linearization residuals.
+//
+// E[p, n, k] = exp(min(a[p, n] (+) c[p, k] (+) sum_e U[p, n, e] Xj[p, k, e], 60))
+// lean forward:   S_p[p] = sum_{n,k} bi E bj,  corr[p] = sum_{n,k} iK_slot E
+// with residuals: row side (over k)    A1 = sum bj E,  A2 = sum iK E,
+//                                      B1_e = sum bj E Xj_e,  B2_e = sum iK E Xj_e
+//                 column side (over n) C1 = sum bi E,  C2 = sum iK E,
+//                                      D1_e = sum bi E U_e,  D2_e = sum iK E U_e
+// every value and sum a df32 (hi, lo) pair (df32.cuh). The iK terms exist on
+// the diagonal pairs only (the slot comes from diag_pos, as in cov_core.cu);
+// elsewhere they are zero.
+//
+// Replaces gpmpc_tpu/ops/pallas_df_cov.py: _fwd_kernel (lean forward, body
+// _fwd_cell) and _fwdres_kernel (forward with residuals, body _fwdres_cell).
+// The TPU kernels walk (pair, 128-row tile) grid steps over whole-N rows in
+// VMEM; here a block owns a 32 x 64 tile of one pair's slab (8 warps, each
+// warp one row at a time, each lane two columns), so a flagship call
+// (P=6, N=384) runs 432 blocks. E never leaves registers.
+//
+// Reductions, all in df and in a fixed order (no atomics; runs repeat
+// bitwise): within a lane sequentially, across a warp by a shuffle tree,
+// across the 8 warps of a block by a tree in shared memory. Each block writes
+// its partials (lean forward: one per block; row side: one per row and block
+// column; column side: one per column and block row) and a second launch
+// (df_sum_parts_kernel) sums them per output, sequentially in df.
+//
+// Bound: arithmetic. One E element is ~700 f32 add/multiply instructions, a
+// row-side and column-side residual element another ~350, and none may fuse
+// into an FMA; the operands are ~4 MB (the df iK slab) at the flagship.
+// The ns-contraction inside the exponent is elementwise df math, never a
+// tensor-core product.
+
+#include <cuda_runtime.h>
+
+#include "df32.cuh"
+
+namespace {
+
+using gpmpc_df::df;
+using gpmpc_df::df_add;
+using gpmpc_df::df_exp;
+using gpmpc_df::df_mul;
+using gpmpc_df::fast_two_sum;
+using gpmpc_df::two_sum;
+
+constexpr int kTileRows = 32;
+constexpr int kTileCols = 64;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerWarp = kTileRows / kWarps;
+constexpr int kColsPerLane = kTileCols / 32;
+constexpr int kMaxNs = 3;
+constexpr int kMaxValues = 2 + 2 * kMaxNs;  // df residuals per side
+
+// the 14 operands, each an f32 half of a df pair; layouts (row major):
+// a, bi (P, Nr); c, bj (P, Nc); U (P, Nr, ns); Xj (P, Nc, ns); iK (n_diag, Nr, Nc)
+struct Operands {
+  const float *ah, *al, *ch, *cl, *uh, *ul, *xjh, *xjl, *bih, *bil, *bjh, *bjl, *ikh, *ikl;
+};
+
+__device__ __forceinline__ int ik_slot(int p, const int* diag_pos, int n_diag) {
+  for (int m = 0; m < n_diag; ++m)
+    if (diag_pos[m] == p) return m;
+  return -1;
+}
+
+// one df E element (pallas_df_cov._e_slab_df): the cap applies to the hi part
+template <int NS>
+__device__ __forceinline__ df e_elem(df a, const df* u, df c, const df* xj) {
+  df e = two_sum(a.h, c.h);
+  e = fast_two_sum(e.h, __fadd_rn(e.l, __fadd_rn(a.l, c.l)));
+#pragma unroll
+  for (int q = 0; q < NS; ++q) e = df_add(e, df_mul(u[q], xj[q]));
+  return df_exp({fminf(e.h, 60.f), e.l});
+}
+
+__device__ __forceinline__ df shfl_down(df v, int off) {
+  return {__shfl_down_sync(0xffffffffu, v.h, off), __shfl_down_sync(0xffffffffu, v.l, off)};
+}
+
+// df sum over the warp; valid in lane 0
+__device__ __forceinline__ df warp_df_sum(df v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = df_add(v, shfl_down(v, off));
+  return v;
+}
+
+// df sum of w[0..7] as the tree ((0+1)+(2+3))+((4+5)+(6+7))
+__device__ __forceinline__ df tree8(const df* w) {
+  return df_add(df_add(df_add(w[0], w[1]), df_add(w[2], w[3])),
+                df_add(df_add(w[4], w[5]), df_add(w[6], w[7])));
+}
+
+static_assert(kWarps == 8, "tree8 sums one value per warp");
+
+// the columns of this lane in the tile: c, bj and Xj of each, zero off the edge
+template <int NS>
+struct Cols {
+  df c[kColsPerLane], bj[kColsPerLane], xj[kColsPerLane][NS];
+  int k[kColsPerLane];
+  bool valid[kColsPerLane];
+
+  __device__ __forceinline__ void load(const Operands& o, int p, int nc, int k0, int lane) {
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      k[j] = k0 + lane + 32 * j;
+      valid[j] = k[j] < nc;
+      const size_t i = (size_t)p * nc + (valid[j] ? k[j] : 0);
+      c[j] = {o.ch[i], o.cl[i]};
+      bj[j] = {o.bjh[i], o.bjl[i]};
+#pragma unroll
+      for (int e = 0; e < NS; ++e) xj[j][e] = {o.xjh[i * NS + e], o.xjl[i * NS + e]};
+    }
+  }
+};
+
+// one row n: a, bi and U
+template <int NS>
+struct Row {
+  df a, bi, u[NS];
+
+  __device__ __forceinline__ void load(const Operands& o, int p, int nr, int n) {
+    const size_t i = (size_t)p * nr + n;
+    a = {o.ah[i], o.al[i]};
+    bi = {o.bih[i], o.bil[i]};
+#pragma unroll
+    for (int e = 0; e < NS; ++e) u[e] = {o.uh[i * NS + e], o.ul[i * NS + e]};
+  }
+};
+
+// grid (ceil(Nc / kTileCols), ceil(Nr / kTileRows), P), block kThreads.
+// part: planes [2 (hi, lo)][P][blocks of the pair][2 (S_p, corr)]
+template <int NS>
+__global__ void __launch_bounds__(kThreads)
+df_fwd_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag,
+              float* __restrict__ part, int nr, int nc) {
+  const int ct = blockIdx.x, rt = blockIdx.y, p = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = ik_slot(p, diag_pos, n_diag);
+
+  Cols<NS> cols;
+  cols.load(o, p, nc, ct * kTileCols, lane);
+  df s = {0.f, 0.f}, q = {0.f, 0.f};
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int n = rt * kTileRows + warp + kWarps * i;
+    if (n >= nr) break;  // warp-uniform
+    Row<NS> row;
+    row.load(o, p, nr, n);
+    const size_t ik_row = ((size_t)(slot < 0 ? 0 : slot) * nr + n) * nc;
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      if (!cols.valid[j]) continue;
+      const df e = e_elem<NS>(row.a, row.u, cols.c[j], cols.xj[j]);
+      s = df_add(s, df_mul(df_mul(e, row.bi), cols.bj[j]));
+      if (slot >= 0) {
+        const size_t i_k = ik_row + cols.k[j];
+        q = df_add(q, df_mul(e, {o.ikh[i_k], o.ikl[i_k]}));
+      }
+    }
+  }
+
+  __shared__ df red[2][kWarps];
+  s = warp_df_sum(s);
+  q = warp_df_sum(q);
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = q;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    const df tot = tree8(red[threadIdx.x]);
+    const size_t nblk = (size_t)gridDim.x * gridDim.y;
+    const size_t plane = (size_t)gridDim.z * nblk * 2;
+    const size_t idx = ((size_t)p * nblk + (size_t)rt * gridDim.x + ct) * 2 + threadIdx.x;
+    part[idx] = tot.h;
+    part[plane + idx] = tot.l;
+  }
+}
+
+// grid and block as df_fwd_kernel. Values per side, in order: A1, A2, B1_0..,
+// B2_0.. (row) and C1, C2, D1_0.., D2_0.. (column).
+// row_part: planes [2][P][NV][Nr][n_ct]; col_part: planes [2][P][n_rt][NV][Nc]
+template <int NS>
+__global__ void __launch_bounds__(kThreads)
+df_fwdres_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag,
+                 float* __restrict__ row_part, float* __restrict__ col_part, int nr, int nc) {
+  constexpr int NV = 2 + 2 * NS;
+  const int ct = blockIdx.x, rt = blockIdx.y, p = blockIdx.z;
+  const int n_ct = gridDim.x, n_rt = gridDim.y, np = gridDim.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slot = ik_slot(p, diag_pos, n_diag);
+
+  Cols<NS> cols;
+  cols.load(o, p, nc, ct * kTileCols, lane);
+  df cacc[kColsPerLane][NV];
+#pragma unroll
+  for (int j = 0; j < kColsPerLane; ++j)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) cacc[j][v] = {0.f, 0.f};
+
+  const size_t row_plane = (size_t)np * NV * nr * n_ct;
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int n = rt * kTileRows + warp + kWarps * i;
+    if (n >= nr) break;  // warp-uniform
+    Row<NS> row;
+    row.load(o, p, nr, n);
+    const size_t ik_row = ((size_t)(slot < 0 ? 0 : slot) * nr + n) * nc;
+    df racc[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) racc[v] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kColsPerLane; ++j) {
+      if (!cols.valid[j]) continue;
+      const df e = e_elem<NS>(row.a, row.u, cols.c[j], cols.xj[j]);
+      const df wb = df_mul(e, cols.bj[j]);
+      const df vb = df_mul(e, row.bi);
+      racc[0] = df_add(racc[0], wb);
+      cacc[j][0] = df_add(cacc[j][0], vb);
+#pragma unroll
+      for (int q = 0; q < NS; ++q) {
+        racc[2 + q] = df_add(racc[2 + q], df_mul(wb, cols.xj[j][q]));
+        cacc[j][2 + q] = df_add(cacc[j][2 + q], df_mul(vb, row.u[q]));
+      }
+      if (slot >= 0) {
+        const size_t i_k = ik_row + cols.k[j];
+        const df qv = df_mul(e, {o.ikh[i_k], o.ikl[i_k]});
+        racc[1] = df_add(racc[1], qv);
+        cacc[j][1] = df_add(cacc[j][1], qv);
+#pragma unroll
+        for (int q = 0; q < NS; ++q) {
+          racc[2 + NS + q] = df_add(racc[2 + NS + q], df_mul(qv, cols.xj[j][q]));
+          cacc[j][2 + NS + q] = df_add(cacc[j][2 + NS + q], df_mul(qv, row.u[q]));
+        }
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v) racc[v] = warp_df_sum(racc[v]);
+    if (lane == 0) {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const size_t idx = (((size_t)p * NV + v) * nr + n) * n_ct + ct;
+        row_part[idx] = racc[v].h;
+        row_part[row_plane + idx] = racc[v].l;
+      }
+    }
+  }
+
+  // column side: the 8 warps' sums of each column, then a tree across them
+  __shared__ float sh[2][kWarps][kMaxValues][kTileCols];
+#pragma unroll
+  for (int j = 0; j < kColsPerLane; ++j)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      sh[0][warp][v][lane + 32 * j] = cacc[j][v].h;
+      sh[1][warp][v][lane + 32 * j] = cacc[j][v].l;
+    }
+  __syncthreads();
+  const size_t col_plane = (size_t)np * n_rt * NV * nc;
+  for (int t = threadIdx.x; t < NV * kTileCols; t += kThreads) {
+    const int v = t / kTileCols, c = t % kTileCols;
+    const int k = ct * kTileCols + c;
+    if (k >= nc) continue;
+    df w[kWarps];
+#pragma unroll
+    for (int m = 0; m < kWarps; ++m) w[m] = {sh[0][m][v][c], sh[1][m][v][c]};
+    const df tot = tree8(w);
+    const size_t idx = (((size_t)p * n_rt + rt) * NV + v) * nc + k;
+    col_part[idx] = tot.h;
+    col_part[col_plane + idx] = tot.l;
+  }
+}
+
+// out[o, i] = df sum over t of part[o, t, i], sequentially in t.
+// part: planes [2][outer][n_parts][inner]; out: planes [2][outer][inner]
+__global__ void df_sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                    int outer, int n_parts, int inner) {
+  const size_t total = (size_t)outer * inner;
+  const size_t plane = (size_t)outer * n_parts * inner;
+  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
+       o += (size_t)gridDim.x * blockDim.x) {
+    const size_t oo = o / inner, ii = o % inner;
+    df acc = {0.f, 0.f};
+    for (int t = 0; t < n_parts; ++t) {
+      const size_t idx = (oo * n_parts + t) * inner + ii;
+      acc = df_add(acc, {part[idx], part[plane + idx]});
+    }
+    out[o] = acc.h;
+    out[total + o] = acc.l;
+  }
+}
+
+int launch_sum_parts(const float* part, float* out, int outer, int n_parts, int inner,
+                     cudaStream_t stream) {
+  const long long total = (long long)outer * inner;
+  const int blocks = (int)(total < 256LL * 1024 ? (total + 255) / 256 : 1024);
+  df_sum_parts_kernel<<<blocks, 256, 0, stream>>>(part, out, outer, n_parts, inner);
+  return (int)cudaGetLastError();
+}
+
+template <int NS>
+int launch_fwd(const Operands& o, const int* diag_pos, int n_diag, float* part, float* out,
+               int p, int nr, int nc, cudaStream_t stream) {
+  const dim3 grid((nc + kTileCols - 1) / kTileCols, (nr + kTileRows - 1) / kTileRows, p);
+  df_fwd_kernel<NS><<<grid, kThreads, 0, stream>>>(o, diag_pos, n_diag, part, nr, nc);
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_sum_parts(part, out, p, grid.x * grid.y, 2, stream);
+}
+
+template <int NS>
+int launch_fwdres(const Operands& o, const int* diag_pos, int n_diag, float* row_part,
+                  float* col_part, float* row_out, float* col_out, int p, int nr, int nc,
+                  cudaStream_t stream) {
+  constexpr int NV = 2 + 2 * NS;
+  const dim3 grid((nc + kTileCols - 1) / kTileCols, (nr + kTileRows - 1) / kTileRows, p);
+  df_fwdres_kernel<NS><<<grid, kThreads, 0, stream>>>(o, diag_pos, n_diag, row_part, col_part, nr, nc);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  rc = launch_sum_parts(row_part, row_out, p * NV * nr, grid.x, 1, stream);
+  if (rc != 0) return rc;
+  return launch_sum_parts(col_part, col_out, p, grid.y, NV * nc, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// tile extents: the wrappers size the partial buffers with them
+int gpmpc_df_tile_rows() { return kTileRows; }
+int gpmpc_df_tile_cols() { return kTileCols; }
+
+int gpmpc_df_fwd_f32(const float* ah, const float* al, const float* ch, const float* cl,
+                     const float* uh, const float* ul, const float* xjh, const float* xjl,
+                     const float* bih, const float* bil, const float* bjh, const float* bjl,
+                     const float* ikh, const float* ikl, const int* diag_pos, int n_diag,
+                     float* part, float* out, int p, int nr, int nc, int ns, void* stream) {
+  if (p < 1 || nr < 1 || nc < 1) return (int)cudaErrorInvalidValue;
+  const Operands o{ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ns) {
+    case 1: return launch_fwd<1>(o, diag_pos, n_diag, part, out, p, nr, nc, s);
+    case 2: return launch_fwd<2>(o, diag_pos, n_diag, part, out, p, nr, nc, s);
+    case 3: return launch_fwd<3>(o, diag_pos, n_diag, part, out, p, nr, nc, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int gpmpc_df_fwdres_f32(const float* ah, const float* al, const float* ch, const float* cl,
+                        const float* uh, const float* ul, const float* xjh, const float* xjl,
+                        const float* bih, const float* bil, const float* bjh, const float* bjl,
+                        const float* ikh, const float* ikl, const int* diag_pos, int n_diag,
+                        float* row_part, float* col_part, float* row_out, float* col_out,
+                        int p, int nr, int nc, int ns, void* stream) {
+  if (p < 1 || nr < 1 || nc < 1) return (int)cudaErrorInvalidValue;
+  const Operands o{ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ns) {
+    case 1: return launch_fwdres<1>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
+    case 2: return launch_fwdres<2>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
+    case 3: return launch_fwdres<3>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

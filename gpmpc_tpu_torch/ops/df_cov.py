@@ -1,0 +1,308 @@
+"""Double-float32 moment-matching covariance core: CUDA kernels, their plain
+twins and the autograd composite.
+
+The df32 twin of ``moment_cov``: every quantity is an f32 (hi, lo) pair,
+
+  E[p, n, k] = exp(min(a[p, n] (+) c[p, k] (+) sum_e U[p, n, e] Xj[p, k, e], 60))
+  S_p[p]     = sum_{n,k} bi[p, n] E[p, n, k] bj[p, k]          (P,)
+  corr[m]    = sum_{n,k} iK[m, n, k] E[diag_pos[m], n, k]       (n_diag,)
+
+At the trained-GP flagship the exponent is a large-magnitude cancellation
+and S_p and corr cancel from ~1e3 terms to ~1e-2, so plain f32 drowns both
+(PERFORMANCE.md's precision boundary). Kernels (``csrc/df_cov.cu`` on
+``csrc/df32.cuh``), each replacing a Pallas TPU kernel of
+``gpmpc_tpu/ops/pallas_df_cov.py``:
+
+* ``df_fwd`` replaces ``_fwd_kernel`` (the lean forward, body ``_fwd_cell``):
+  df (S_p, corr). It serves every forward-only evaluation.
+* ``df_fwdres`` replaces ``_fwdres_kernel`` (body ``_fwdres_cell``): the
+  same slab and 16 df linearization residuals. The core's gradients are
+  linear in the output cotangents (gs, gco):
+
+    grad_a[p,n]    = gs[p] bi[p,n] A1[p,n] + gco[p] A2[p,n]
+    grad_U[p,n,e]  = gs[p] bi[p,n] B1_e[p,n] + gco[p] B2_e[p,n]
+    grad_c[p,k]    = gs[p] bj[p,k] C1[p,k] + gco[p] C2[p,k]
+    grad_Xj[p,k,e] = gs[p] bj[p,k] D1_e[p,k] + gco[p] D2_e[p,k]
+
+  with A1 = sum_k bj E, A2 = sum_k iK E, B1_e = sum_k bj E Xj_e,
+  B2_e = sum_k iK E Xj_e (row side) and C1 = sum_n bi E, C2 = sum_n iK E,
+  D1_e = sum_n bi E U_e, D2_e = sum_n iK E U_e (column side). S_p and corr
+  follow from A1 and A2, so one launch serves a value-and-grad evaluation
+  and the backward is small df math outside the kernel (``DfCovCore``).
+
+The iK-weighted residuals (A2, B2, C2, D2) exist only on the diagonal pairs
+and are zero on the others (the TPU kernel reads an unused model's slab
+there, whose values nothing consumes).
+
+Both kernels tile the (N, N) slab of a pair into 32 x 64 blocks of 256
+threads (8 warps, one row each at a time; a lane owns two columns) and never
+store E. What bounds them on an H100 is arithmetic: each E element costs
+about 700 f32 add/multiply instructions (12 df Horner steps in the exp
+alone), none of which may fuse into an FMA, so the bound is instructions
+over the FP32 lanes' issue rate, far above the bytes of the df iK slab. Each
+block writes df partials (row side per block column, column side per block
+row); a second launch sums them in df32 in a fixed order, so no atomics and
+runs repeat bitwise.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .df32 import df_add, df_exp, df_mul, df_mul_f32, df_sum, fast_two_sum, two_sum
+from .moment_cov import _index
+
+LAUNCHES = {"df_fwd": 0, "df_fwdres": 0}
+
+
+def _e_slab_df(ah, al, ch, cl, uh, ul, xjh, xjl):
+    """df E (P, Nr, Nc) from a (P, Nr), c (P, Nc), U (P, Nr, ns), Xj (P, Nc, ns),
+    with the cap at 60 on the hi part (twin of pallas_df_cov._e_slab_df)."""
+    eh, el = two_sum(ah[:, :, None], ch[:, None, :])
+    el = el + (al[:, :, None] + cl[:, None, :])
+    eh, el = fast_two_sum(eh, el)
+    for e in range(uh.shape[-1]):
+        th, tl = df_mul(uh[:, :, None, e], ul[:, :, None, e], xjh[:, None, :, e], xjl[:, None, :, e])
+        eh, el = df_add(eh, el, th, tl)
+    return df_exp(torch.clamp(eh, max=60.0), el)
+
+
+def df_cov_core_ref(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    """Plain PyTorch (S_p h, l, corr h, l): twin of gpmpc_tpu.ops.df_cov_core_xla,
+    differentiable by autograd. The CPU path of ``ops.df_cov_core``."""
+    p = ah.shape[0]
+    eh, el = _e_slab_df(ah, al, ch, cl, uh, ul, xjh, xjl)
+    th, tl = df_mul(eh, el, bih[:, :, None], bil[:, :, None])
+    th, tl = df_mul(th, tl, bjh[:, None, :], bjl[:, None, :])
+    sp_h, sp_l = df_sum(th.reshape(p, -1), tl.reshape(p, -1), axis=-1)
+    dpos = _index(diag_pos, ah.device, torch.long)
+    dh, dl = df_mul(eh.index_select(0, dpos), el.index_select(0, dpos), ikh, ikl)
+    corr_h, corr_l = df_sum(dh.reshape(len(diag_pos), -1), dl.reshape(len(diag_pos), -1), axis=-1)
+    return sp_h, sp_l, corr_h, corr_l
+
+
+def _ik_pairs(ikh, ikl, p, diag_pos):
+    """The iK slab of each pair: the model's slab on diagonal pairs, zero on
+    the others. (P, Nr, Nc) hi and lo."""
+    zh = torch.zeros((p,) + tuple(ikh.shape[1:]), dtype=ikh.dtype, device=ikh.device)
+    dpos = _index(diag_pos, ikh.device, torch.long)
+    return zh.index_copy(0, dpos, ikh), zh.index_copy(0, dpos, ikl)
+
+
+# ---------------------------------------------------------------------------
+# plain twins of the two kernels
+# ---------------------------------------------------------------------------
+
+
+def df_cov_fwd_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    """What ``df_cov_fwd`` computes (``_fwd_cell`` over a whole slab): df
+    S_p = sum bi E bj and corr = sum iK E, each reduced over k, then over n."""
+    eh, el = _e_slab_df(ah, al, ch, cl, uh, ul, xjh, xjl)
+    wh, wl = df_mul(eh, el, bih[:, :, None], bil[:, :, None])
+    wh, wl = df_mul(wh, wl, bjh[:, None, :], bjl[:, None, :])
+    sp_h, sp_l = df_sum(*df_sum(wh, wl, axis=-1), axis=-1)
+    dpos = _index(diag_pos, ah.device, torch.long)
+    qh, ql = df_mul(eh.index_select(0, dpos), el.index_select(0, dpos), ikh, ikl)
+    co_h, co_l = df_sum(*df_sum(qh, ql, axis=-1), axis=-1)
+    return sp_h, sp_l, co_h, co_l
+
+
+def df_cov_fwdres_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    """What ``df_cov_fwdres`` computes (``_fwdres_cell`` over a whole slab):
+    (rows, cols), each a list of 4 + 4 ns f32 (P, N) tensors
+    [A1h, A1l, A2h, A2l, B1_0h, B1_0l, ..., B2_0h, B2_0l, ...] and
+    [C1h, C1l, C2h, C2l, D1_0h, ..., D2_0h, ...]; the iK-weighted ones are
+    zero on off-diagonal pairs."""
+    p = ah.shape[0]
+    ns = uh.shape[-1]
+    eh, el = _e_slab_df(ah, al, ch, cl, uh, ul, xjh, xjl)
+    ikph, ikpl = _ik_pairs(ikh, ikl, p, diag_pos)
+    wbh, wbl = df_mul(eh, el, bjh[:, None, :], bjl[:, None, :])
+    qh, ql = df_mul(eh, el, ikph, ikpl)
+    vbh, vbl = df_mul(eh, el, bih[:, :, None], bil[:, :, None])
+
+    def rsum(h, l):
+        return df_sum(h, l, axis=-1)
+
+    def csum(h, l):
+        return df_sum(h, l, axis=-2)
+
+    row = [rsum(wbh, wbl), rsum(qh, ql)]
+    row += [rsum(*df_mul(wbh, wbl, xjh[:, None, :, e], xjl[:, None, :, e])) for e in range(ns)]
+    row += [rsum(*df_mul(qh, ql, xjh[:, None, :, e], xjl[:, None, :, e])) for e in range(ns)]
+    col = [csum(vbh, vbl), csum(qh, ql)]
+    col += [csum(*df_mul(vbh, vbl, uh[:, :, None, e], ul[:, :, None, e])) for e in range(ns)]
+    col += [csum(*df_mul(qh, ql, uh[:, :, None, e], ul[:, :, None, e])) for e in range(ns)]
+    return [t for pair in row for t in pair], [t for pair in col for t in pair]
+
+
+def df_cov_abs_terms(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    """The sum of the absolute values of the terms of every output of the two
+    kernels, in f64 from the collapsed operands: (S_p, corr) scales and the
+    (rows, cols) residual scales, each residual's scale given for its hi and
+    lo entry alike. A compensated sum's error is bounded by a small multiple
+    of eps32^2 times this, whatever the order of summation."""
+    f64 = torch.float64
+
+    def v(h, l):
+        return h.to(f64) + l.to(f64)
+
+    a, c, u, xj = v(ah, al), v(ch, cl), v(uh, ul), v(xjh, xjl)
+    bi, bj, ik = v(bih, bil).abs(), v(bjh, bjl).abs(), v(ikh, ikl).abs()
+    p = a.shape[0]
+    e = torch.exp(torch.clamp(a[:, :, None] + c[:, None, :] + torch.einsum("pne,pke->pnk", u, xj), max=60.0))
+    dpos = _index(diag_pos, a.device, torch.long)
+    ikp = torch.zeros((p,) + tuple(ik.shape[1:]), dtype=f64, device=a.device).index_copy(0, dpos, ik)
+    sp = torch.einsum("pn,pnk,pk->p", bi, e, bj)
+    corr = torch.einsum("mnk,mnk->m", ik, e.index_select(0, dpos))
+    q = ikp * e
+    row = [torch.einsum("pnk,pk->pn", e, bj), q.sum(-1)]
+    row += [torch.einsum("pnk,pk->pn", e, bj * xj[..., i].abs()) for i in range(u.shape[-1])]
+    row += [torch.einsum("pnk,pk->pn", q, xj[..., i].abs()) for i in range(u.shape[-1])]
+    col = [torch.einsum("pnk,pn->pk", e, bi), q.sum(-2)]
+    col += [torch.einsum("pnk,pn->pk", e, bi * u[..., i].abs()) for i in range(u.shape[-1])]
+    col += [torch.einsum("pnk,pn->pk", q, u[..., i].abs()) for i in range(u.shape[-1])]
+    return (sp, corr), ([t for t in row for _ in range(2)], [t for t in col for _ in range(2)])
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_NAMES = ("ah", "al", "ch", "cl", "uh", "ul", "xjh", "xjl", "bih", "bil", "bjh", "bjl", "ikh", "ikl")
+
+
+def _check(name: str, args, diag_pos) -> Tuple[int, int, int, int]:
+    """Device, dtype, shape and contiguity of the 14 operands; (P, Nr, Nc, ns)."""
+    device = args[0].device
+    for arg, t in zip(_NAMES, args):
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected CUDA tensors on one device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes float32 (hi, lo) halves only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+    p, nr = args[0].shape
+    nc = args[2].shape[1]
+    ns = args[4].shape[2]
+    shapes = [(p, nr), (p, nc), (p, nr, ns), (p, nc, ns), (p, nr), (p, nc), (len(diag_pos), nr, nc)]
+    for i, shape in enumerate(shapes):
+        for t in args[2 * i:2 * i + 2]:
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: operand shape {tuple(t.shape)}, expected {shape}")
+    if not 1 <= ns <= 3:
+        raise NotImplementedError(f"{name}: the kernels take 1 <= ns <= 3 state dims, got {ns}")
+    return p, nr, nc, ns
+
+
+def _ptrs(args):
+    return [t.data_ptr() for t in args]
+
+
+def df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    """(S_p h, l (P,), corr h, l (n_diag,)). A CPU tensor takes the plain twin;
+    a CUDA tensor launches the kernel or raises."""
+    args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
+    if ah.device.type == "cpu":
+        return df_cov_fwd_plain(*args, diag_pos)
+    p, nr, nc, ns = _check("df_cov_fwd", args, diag_pos)
+    lib = _build.load()
+    tr, tc = lib.gpmpc_df_tile_rows(), lib.gpmpc_df_tile_cols()
+    nblk = -(-nr // tr) * -(-nc // tc)
+    part = torch.empty((2, p, nblk, 2), dtype=torch.float32, device=ah.device)
+    out = torch.empty((2, p, 2), dtype=torch.float32, device=ah.device)
+    rc = lib.gpmpc_df_fwd_f32(*_ptrs(args), _index(diag_pos, ah.device, torch.int32).data_ptr(), len(diag_pos),
+                              part.data_ptr(), out.data_ptr(), p, nr, nc, ns,
+                              torch.cuda.current_stream(ah.device).cuda_stream)
+    _build.check(rc, "df_cov_fwd")
+    LAUNCHES["df_fwd"] += 1
+    d = _index(diag_pos, ah.device, torch.long)
+    return out[0, :, 0], out[1, :, 0], out[0, :, 1].index_select(0, d), out[1, :, 1].index_select(0, d)
+
+
+def df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    """(rows, cols): the 4 + 4 ns row-side and column-side residuals as in
+    ``df_cov_fwdres_plain``. A CPU tensor takes the plain twin; a CUDA tensor
+    launches the kernel or raises."""
+    args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
+    if ah.device.type == "cpu":
+        return df_cov_fwdres_plain(*args, diag_pos)
+    p, nr, nc, ns = _check("df_cov_fwdres", args, diag_pos)
+    lib = _build.load()
+    tr, tc = lib.gpmpc_df_tile_rows(), lib.gpmpc_df_tile_cols()
+    nv = 2 + 2 * ns
+    n_rt, n_ct = -(-nr // tr), -(-nc // tc)
+    dev = ah.device
+    row_part = torch.empty((2, p, nv, nr, n_ct), dtype=torch.float32, device=dev)
+    col_part = torch.empty((2, p, n_rt, nv, nc), dtype=torch.float32, device=dev)
+    row_out = torch.empty((2, p, nv, nr), dtype=torch.float32, device=dev)
+    col_out = torch.empty((2, p, nv, nc), dtype=torch.float32, device=dev)
+    rc = lib.gpmpc_df_fwdres_f32(*_ptrs(args), _index(diag_pos, dev, torch.int32).data_ptr(), len(diag_pos),
+                                 row_part.data_ptr(), col_part.data_ptr(), row_out.data_ptr(),
+                                 col_out.data_ptr(), p, nr, nc, ns, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "df_cov_fwdres")
+    LAUNCHES["df_fwdres"] += 1
+    rows = [row_out[h, :, v] for v in range(nv) for h in range(2)]
+    cols = [col_out[h, :, v] for v in range(nv) for h in range(2)]
+    return rows, cols
+
+
+# ---------------------------------------------------------------------------
+# autograd composite
+# ---------------------------------------------------------------------------
+
+
+class DfCovCore(torch.autograd.Function):
+    """df (S_p, corr) whose backward is the residual scheme of
+    ``_make_core`` (gpmpc_tpu/ops/pallas_df_cov.py:549-638): the forward
+    launches ``df_cov_fwdres`` and forms S_p = sum_n bi A1 and
+    corr = sum_n A2[diag] in df; the backward combines the residuals with
+    the hi cotangents only (the df custom JVPs carry tangents as (dv, 0), so
+    adding the lo cotangent would double the gradient) and returns gradients
+    for a, c, U and Xj. The lo halves, beta and iK get none: beta and iK are
+    factorization-cache constants while planning."""
+
+    @staticmethod
+    def forward(ctx, ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+        diag_pos = tuple(diag_pos)
+        rows, cols = df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos)
+        a1h, a1l, a2h, a2l = rows[:4]
+        sp_h, sp_l = df_sum(*df_mul(bih, bil, a1h, a1l), axis=-1)
+        co_h, co_l = df_sum(a2h, a2l, axis=-1)
+        d = _index(diag_pos, ah.device, torch.long)
+        ctx.diag_pos = diag_pos
+        ctx.ns = uh.shape[-1]
+        ctx.save_for_backward(bih, bil, bjh, bjl, *rows, *cols)
+        return sp_h, sp_l, co_h.index_select(0, d), co_l.index_select(0, d)
+
+    @staticmethod
+    def backward(ctx, ct_sh, ct_sl, ct_ch, ct_cl):
+        ns = ctx.ns
+        bih, bil, bjh, bjl, *res = ctx.saved_tensors
+        nres = 4 + 4 * ns
+        rows, cols = res[:nres], res[nres:]
+        p = bih.shape[0]
+        gs = ct_sh[:, None]  # (P, 1), hi cotangent only
+        gco = torch.zeros(p, dtype=ct_ch.dtype, device=ct_ch.device).index_copy(
+            0, _index(ctx.diag_pos, ct_ch.device, torch.long), ct_ch)[:, None]
+
+        def combine(w1h, w1l, r1h, r1l, r2h, r2l):
+            # gs w1 r1 (+) gco r2, in df until the final collapse
+            th, tl = df_mul_f32(*df_mul(w1h, w1l, r1h, r1l), gs)
+            sh, sl = df_mul_f32(r2h, r2l, gco)
+            oh, ol = df_add(th, tl, sh, sl)
+            return oh + ol
+
+        def side(w1h, w1l, res):
+            # value 0 and 1 (A1, A2 / C1, C2), then each e: B1_e with B2_e / D1_e with D2_e
+            g = combine(w1h, w1l, *res[0:4])
+            ge = [combine(w1h, w1l, *res[4 + 2 * e:6 + 2 * e], *res[4 + 2 * (ns + e):6 + 2 * (ns + e)])
+                  for e in range(ns)]
+            return g, torch.stack(ge, dim=-1)
+
+        ga, gu = side(bih, bil, rows)
+        gc, gxj = side(bjh, bjl, cols)
+        return (ga, None, gc, None, gu, None, gxj, None, None, None, None, None, None, None, None)

@@ -1,17 +1,25 @@
 """Where a planning step's time goes on the card.
 
-    python -m gpmpc_tpu_torch.profile_plan [--steps 3] [--out FILE.json]
+    python -m gpmpc_tpu_torch.profile_plan [--steps 3] [--mixed] [--out FILE.json]
+    python -m gpmpc_tpu_torch.profile_plan --count-ops [--points 40 --bucket 64]
 
 For the flagship (300 points in the 384 bucket) and the 24-point case of
-chip_smoke.py's accuracy check, both f32: refresh the cache, take two
-warm-up steps, then profile ``--steps`` steady-state planning steps with
-``torch.profiler`` (CPU and CUDA activity), each ended by
-``torch.cuda.synchronize()``. Reports per step: wall ms, device-busy ms
+chip_smoke.py's accuracy check, both f32, or with ``--mixed`` for the
+trained-GP flagship in mixed mode (an f64 master, a df32 rollout): refresh
+the cache, take warm-up steps, then profile ``--steps`` steady-state
+planning steps with ``torch.profiler`` (CPU and CUDA activity), each ended
+by ``torch.cuda.synchronize()``. Reports per step: wall ms, device-busy ms
 (the union of kernel intervals), the idle share, kernel count, kernel
 launches of the port's own kernels and their device ms per launch, peak
 device memory, and the kernels with the most device time. The profiler
 slows the host, so its wall times exceed chip_smoke.py's. Exits non-zero
 without a CUDA device.
+
+``--count-ops`` needs no card: it counts the PyTorch operator calls that
+launch work (views excluded) of one mixed-mode steady-state planning step of
+the trained-GP problem on the CPU, at ``--points`` in ``--bucket``, split
+into those outside the df32 cov core (each one kernel on the card) and the
+calls of the cov core (one kernel launch each on the card).
 """
 
 from __future__ import annotations
@@ -26,11 +34,14 @@ import time
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import ops
-from .flagship import flagship_problem, plan_step, start_steps
+from .flagship import flagship_problem, plan_step, start_steps, trained_gp_problem
+from .models import gp as gp_mod
 
 CASES = (("flagship_300_in_384", 300, 384), ("accuracy_24_in_32", 24, 32))
+MIXED_CASE = ("trained_gp_mixed_300_in_384", 300, 384)
 
 
 def _busy_us(intervals):
@@ -46,35 +57,47 @@ def _busy_us(intervals):
     return total
 
 
-def profile_case(name, n_points, bucket, steps, dev):
-    prob = flagship_problem(dev, torch.float32, n_points=n_points, bucket=bucket)
-    planner = start_steps(prob, dev, torch.float32, 2 + steps)
+def _problem(name, n_points, bucket, dev, steps):
+    if name.startswith("trained_gp"):
+        return trained_gp_problem(dev, n_points=n_points, iters=steps, bucket=bucket)
+    return flagship_problem(dev, torch.float32, n_points=n_points, bucket=bucket)
+
+
+def profile_case(name, n_points, bucket, steps, dev, warmup=2):
+    prob = _problem(name, n_points, bucket, dev, warmup + steps)
+    planner = start_steps(prob, dev, torch.float32, warmup + steps)
 
     def step(i):
         plan_step(planner, prob, i)
         torch.cuda.synchronize()
 
-    for i in range(2):
+    for i in range(warmup):
         step(i)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(2, 2 + steps):
+        for i in range(warmup, warmup + steps):
             step(i)
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the raw trace events: prof.events() would build a tree of Python
+    # objects over every event (millions in a mixed step), slow to make and to
+    # tear down
+    kernels = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+               for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    del prof
     by_name = collections.defaultdict(float)
     count = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.time_range.elapsed_us()
-        count[e.name] += 1
+    for kname, start, end in kernels:
+        by_name[kname] += end - start
+        count[kname] += 1
     port = {}
-    for short in ("gram_kernel", "cov_fwd_kernel", "cov_bwd_row_kernel"):
+    for short in ("gram_kernel", "cov_fwd_kernel", "cov_bwd_row_kernel", "df_fwd_kernel",
+                  "df_fwdres_kernel", "df_sum_parts_kernel"):
         names = [k for k in by_name if short in k]
         n = sum(count[k] for k in names)
         port[short] = (sum(by_name[k] for k in names) / 1e3 / n) if n else None
-    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
+    busy_ms = _busy_us([(start, end) for _, start, end in kernels]) / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(
         case=name, steps=steps, wall_ms=wall_ms,
@@ -88,18 +111,76 @@ def profile_case(name, n_points, bucket, steps, dev):
     )
 
 
+class _OpCounter(TorchDispatchMode):
+    """Counts operator calls that launch work (not views), apart inside the
+    df cov core."""
+
+    def __init__(self):
+        super().__init__()
+        self.outside = 0
+        self.inside = 0
+        self.depth = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not (func.is_view or func.__name__.split(".")[0] in ("detach", "lift_fresh")):
+            if self.depth:
+                self.inside += 1
+            else:
+                self.outside += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_ops(n_points, bucket) -> dict:
+    """Operator calls of one mixed-mode steady-state planning step on the CPU."""
+    cpu = torch.device("cpu")
+    prob = trained_gp_problem(cpu, n_points=n_points, iters=2, bucket=bucket)
+    planner = start_steps(prob, cpu, torch.float32, 2)
+    plan_step(planner, prob, 0)
+    counter = _OpCounter()
+    dispatch = ops.df_cov_core
+    calls = {"value_and_grad": 0, "forward": 0}
+
+    def counted(*args):
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in args[:14])
+        calls["value_and_grad" if grad else "forward"] += 1
+        counter.depth += 1
+        try:
+            return dispatch(*args)
+        finally:
+            counter.depth -= 1
+
+    gp_mod.ops.df_cov_core = counted
+    try:
+        with counter:
+            plan_step(planner, prob, 1)
+    finally:
+        gp_mod.ops.df_cov_core = dispatch
+    return dict(points=n_points, bucket=bucket, ops_outside_cov_core=counter.outside,
+                ops_inside_plain_cov_core=counter.inside, cov_core_calls=calls)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--mixed", action="store_true", help="profile the trained-GP flagship in mixed mode instead")
+    ap.add_argument("--count-ops", action="store_true", help="count the operators of one mixed step on the CPU")
+    ap.add_argument("--points", type=int, default=40)
+    ap.add_argument("--bucket", type=int, default=64)
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
     args = ap.parse_args(argv)
+    if args.count_ops:
+        print(json.dumps(count_ops(args.points, args.bucket)), flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("profile_plan: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30, check=True).stdout.strip()
-    results = [profile_case(name, n, b, args.steps, dev) for name, n, b in CASES]
+    if args.mixed:
+        results = [profile_case(*MIXED_CASE, args.steps, dev, warmup=1)]
+    else:
+        results = [profile_case(name, n, b, args.steps, dev) for name, n, b in CASES]
     for r in results:
         busy = "not measured" if r["device_busy_ms"] is None else f"{r['device_busy_ms']:.3f} ms"
         idle = "not measured" if r["idle_share"] is None else f"{r['idle_share']:.4f}"

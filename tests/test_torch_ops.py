@@ -22,7 +22,7 @@ from gpmpc_tpu.ops import cov_core_xla
 from gpmpc_tpu.ops import pallas_gram
 from gpmpc_tpu.ops import pallas_moment_cov as pmc
 from gpmpc_tpu_torch import ops
-from gpmpc_tpu_torch.ops import gram_rbf, moment_cov
+from gpmpc_tpu_torch.ops import df_cov, gram_rbf, moment_cov
 
 DIAG = (0, 3, 5)
 W_S = np.arange(1.0, 7.0)  # loss weights of S_p and corr, as tests/test_pallas_ops.py
@@ -188,6 +188,13 @@ def test_wrappers_raise_off_cpu_without_cuda():
         ops.gram(torch.empty(3, 4, device="meta"), torch.empty(3, device="meta"), torch.empty(8, 4, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         ops.cov_core(*args, DIAG)
+    df_args = [t for a in args for t in (a, a)]  # (hi, lo) halves
+    with pytest.raises(ValueError, match="CUDA"):
+        df_cov.df_cov_fwd(*df_args, DIAG)
+    with pytest.raises(ValueError, match="CUDA"):
+        df_cov.df_cov_fwdres(*df_args, DIAG)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.df_cov_core(*df_args, DIAG)
 
 
 def test_launch_counts_untouched_on_cpu():
@@ -196,4 +203,7 @@ def test_launch_counts_untouched_on_cpu():
     ops.cov_core(*args, DIAG)
     moment_cov.CovCore.apply(*args, DIAG)
     ops.gram(*(torch.tensor(v) for v in _gram_inputs(8, n=16)))
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0}
+    df_args = [t for a in args for t in (a, torch.zeros_like(a))]  # (hi, lo) halves
+    ops.df_cov_core(*df_args, DIAG)
+    df_cov.DfCovCore.apply(*df_args, DIAG)
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "df_fwd": 0, "df_fwdres": 0}

@@ -224,9 +224,21 @@ def test_planner_refactorizes_when_params_change():
 
 
 def test_planner_refuses_unported_modes():
+    """Dtypes other than f32 and f64 (the three regimes f32, f64 and mixed
+    are supported on every device), and more than one restart."""
     _, tspec = _specs(4, np.float64)
+    with pytest.raises(TypeError):
+        tplanner.Planner(tspec, dtype=torch.float16, device="cuda")
+    with pytest.raises(TypeError):
+        tplanner.Planner(tspec, dtype=torch.float32, device="cuda", master_dtype=torch.bfloat16)
+    params, bounds, x, y, mask, _, (mu, var, inits, prev) = _gp_problem(2, 8, 16)
+    cache = convert.cache_from_numpy(
+        **_np(jgp.masked_cholesky_factorize(params, bounds, jnp.asarray(x), jnp.asarray(y), jnp.asarray(mask))),
+        dtype=torch.float64, device=CPU)
+    two_inits = torch.tensor(np.concatenate([inits, inits]))
     with pytest.raises(NotImplementedError):
-        tplanner.Planner(tspec, dtype=torch.float64, device="cuda")
+        tplanner._plan_from_cache(tspec, cache, torch.tensor(mu), torch.tensor(var), two_inits,
+                                  torch.tensor(prev), 0)
 
 
 def test_extend_plan_f32_matches_jax_f32_cache():
