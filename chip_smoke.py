@@ -20,9 +20,18 @@ read just after:
   double-float32 through the df32 cov kernels, held to the card's own
   float64 plan of the same steps (MIXED_TOL); the first step's f64 plan is
   replayed with parts of the mixed objective and optimizer, to show which
-  of them moves a_opt (``a_opt_witness``).
+  of them moves a_opt (``a_opt_witness``);
+* the trained-GP problem at 100 points in the 128 bucket in mixed mode
+  (phase 4, whole-step): the same, with every rollout step through the
+  whole-step df32 kernels (#12 forward, #8 and #9 in the backward) instead
+  of the df cov kernels, held to the card's f64 plan.
 
-Phase 5 times the blocked planning step of both paths.
+Phase 3 holds the eight kernels to their plain versions: the f32 Gram and
+cov kernels at the flagship's shapes, the df cov kernels on the trained-GP
+flagship's operands and random ones, the whole-step kernels at N = 32, 96,
+128 and 384 on the trained-GP problem's operands and random ones. Phase 5
+times the blocked planning step of the three paths and 15-step rollouts of
+both mixed routes at three buckets.
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -39,6 +48,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -49,14 +59,15 @@ from gpmpc_tpu_torch.controllers.planner import Planner, _cast_cache, _objective
 from gpmpc_tpu_torch.flagship import flagship_problem, plan_step, run_steps, start_steps, trained_gp_problem
 from gpmpc_tpu_torch.models import gp as gp_mod
 from gpmpc_tpu_torch.models.gp import constrained_params
-from gpmpc_tpu_torch.ops import _build, df_cov
+from gpmpc_tpu_torch.ops import _build, df_cov, df_mm
 from gpmpc_tpu_torch.ops import gram_rbf as gram_mod
 from gpmpc_tpu_torch.ops import moment_cov
 
 WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 PLAN_STEPS = 5
 TIMED_STEPS = 10
-MIXED_STEPS = 2  # mixed-mode steps, each checked and timed
+MIXED_STEPS = 1  # trained-GP flagship steps in mixed mode, each checked and timed
+FUSED_STEPS = 2  # whole-step path steps, each checked and timed
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # f32 add or multiply instructions per second that cannot fuse into an FMA:
@@ -112,8 +123,25 @@ ACC_TOL = 1e-3
 DF_TOL = 1e-11
 # DfCovCore's gradients collapse to f32 after the df combination: held to
 # DF_GRAD_TOL of their largest entry against autograd of the plain core, as
-# tests/test_torch_df32.py holds them against JAX on the CPU
+# tests/test_torch_df32.py holds them against JAX on the CPU. The whole-step
+# VJP kernel (df_mm_bwd) carries every cotangent in df and collapses only its
+# outputs, so against its plain twin it differs by the order of its df sums;
+# it is held to the same DF_GRAD_TOL of its largest entry.
 DF_GRAD_TOL = 3e-6
+# The whole-step kernels (ops/df_mm.py) at these N on the trained-GP problem
+# (0.8 N points in the N bucket, 300 in 384) and on random operands. Their
+# raw df partials (df_mm_fwd) are held as the df cov kernels' are (DF_TOL of
+# each output's sum of |terms|). df_mm_full's outputs are f32 values after
+# the finish: each collapse to f32 and each scaling rounds once, so each is
+# held to FULL_EPS of itself plus DF_TOL of its sum of |terms| scaled as the
+# output is (by c, or by 1 / sqrt det R).
+DF_MM_SIZES = (32, 96, 128, 384)
+FULL_EPS = 4 * 2.0 ** -23
+# the whole-step path (phase 4): the trained-GP problem at 100 points in the
+# 128 bucket, where the card's dispatch takes it (ops.use_df_fused)
+FUSED_POINTS, FUSED_BUCKET = 100, 128
+# phase 5's 15-step rollouts of each route, for the H100 dispatch range
+ROLLOUT_BUCKETS = (64, 128, 384)
 
 # Mixed mode against the card's float64 plan of the same trained-GP step.
 # objective and gradient: at the initial actions on the caches after the
@@ -245,10 +273,17 @@ def df_instructions_per_element(ns: int) -> dict:
     # rint(x / ln2), k ln2 in df, r = x - k ln2, 12 Horner steps, 2^k, 2 scales
     df_exp = 2 + two_prod + 2 + fast_two_sum + df_add + 12 * (df_mul + df_add) + 5 + 2
     e = two_sum + 2 + fast_two_sum + ns * (df_mul + df_add) + 1 + df_exp
+    df_mul_f32 = two_prod + 2 + fast_two_sum
+    # df_mm_bwd: G = E (bi bj gs (+ iK gco)), its row and column sums, and
+    # both sides' sums weighted by Xj and U (collapsed coefficients)
+    bwd = e + df_mul + df_mul_f32 + df_mul + 1 + 2 * df_add + 2 * ns * (df_mul_f32 + df_add)
     return {
         "df_fwd": (e + 2 * df_mul + df_add, df_mul + df_add),
         "df_fwdres": (e + 2 * df_mul + 2 * df_add + 2 * ns * (df_mul + df_add),
                       df_mul + 2 * df_add + 2 * ns * (df_mul + df_add)),
+        "df_mm_full": (e + 2 * df_mul + df_add, df_mul + df_add),
+        "df_mm_fwd": (e + 2 * df_mul + df_add, df_mul + df_add),
+        "df_mm_bwd": (bwd, df_mul_f32 + df_add),
     }
 
 
@@ -523,6 +558,152 @@ def check_df_kernels(dev):
     return results
 
 
+def trained_gp_step_inputs(dev, n):
+    """The whole-step operands of the 15th rollout step of the trained-GP
+    problem cut to the n bucket (0.8 n points, at most 300), in mixed mode at
+    the initial actions: the df32 cache (its f64 master refreshed on the
+    card) and the step's input mean and state covariance, recorded from the
+    rollout's dispatch."""
+    prob = trained_gp_problem(dev, n_points=min(300, int(0.8 * n)), bucket=n)
+    cache = _cast_cache(Planner(prob.spec, dtype=torch.float32, device=dev, master_dtype=torch.float64)
+                        .refresh_cache(prob.x, prob.y, prob.mask, prob.params, prob.bounds), torch.float32)
+    seen = []
+    originals = {name: getattr(gp_mod, name) for name in ("moment_match_df", "moment_match_df_fused")}
+
+    def recorder(fn):
+        def record(c, mu, var):
+            seen.append((mu, var))
+            return fn(c, mu, var)
+        return record
+
+    for name, fn in originals.items():
+        setattr(gp_mod, name, recorder(fn))
+    try:
+        with torch.no_grad():
+            _objective_and_info(prob.spec, cache, prob.inits[0], prob.state_mu, prob.state_var, prob.action_prev, 0)
+    finally:
+        for name, fn in originals.items():
+            setattr(gp_mod, name, fn)
+    mu, var = seen[-1]
+    ns = cache.ils_hi.shape[0]
+    return cache, mu.float().contiguous(), var[:ns, :ns].float().contiguous()
+
+
+def random_df_mm_problem(dev, n, seed, ns=3, d=4):
+    """A random cache of the trained-GP problem's widths (f64 draws split
+    into f32 halves) whose raw outputs do not cancel: each at least
+    MIN_RESOLVED of its sum of |terms|. Returns (cache, mu, sv)."""
+    rng = np.random.default_rng(seed)
+
+    def split(x):
+        hi = x.astype(np.float32)
+        lo = (x - hi.astype(np.float64)).astype(np.float32)
+        return torch.tensor(hi, device=dev), torch.tensor(lo, device=dev)
+
+    ils = 1.0 / rng.uniform(0.3, 0.8, (ns, d))
+    ik = rng.normal(0, 0.1, (ns, n, n))
+    outs = rng.uniform(0.5, 1.0, ns)
+    f = {}
+    for name, x in (("x", rng.uniform(0, 1, (n, d))), ("ils", ils), ("ils2", ils * ils), ("log_outs", np.log(outs)),
+                    ("beta", rng.normal(0, 1, (ns, n))), ("iK", (ik + ik.transpose(0, 2, 1)) / 2)):
+        f[f"{name}_hi"], f[f"{name}_lo"] = split(x)
+    cache = SimpleNamespace(outs=torch.tensor(outs, dtype=torch.float32, device=dev), **f)
+    mu = torch.tensor(rng.uniform(0.3, 0.7, d), dtype=torch.float32, device=dev)
+    sv = torch.tensor(np.eye(ns) * 1e-2 + 2e-3, dtype=torch.float32, device=dev)
+    return cache, mu, sv
+
+
+def check_df_mm_operands(label, cache, mu, sv) -> tuple[float, float, float]:
+    """The three whole-step kernels against their plain twins on one operand
+    set: #12's final outputs (FULL_TOL), #8's raw df partials (DF_TOL of
+    each output's sum of |terms|) and #9's gradients (DF_GRAD_TOL of the
+    largest entry, at fixed cotangents). Returns the three max abs errors."""
+    ns, d = cache.ils_hi.shape
+    n = cache.x_hi.shape[0]
+    ii, jj, diag, _ = df_mm.pair_indices(ns, mu.device)
+    Bh, Bl, c32, Qh, Ql, sdr = df_mm.df_stage1(cache, sv, ii, jj)
+    m_abs, v_abs, sp_abs, co_abs = df_mm.abs_terms(mu, Bh, Bl, Qh, Ql, cache)
+
+    raw = df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache)
+    ref = df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, cache)
+    err_fwd = max(hold_df(f"df_mm_fwd {nm} (N={n})", label, raw[2 * k], raw[2 * k + 1], ref[2 * k], ref[2 * k + 1],
+                          scale)
+                  for k, (nm, scale) in enumerate(zip(("M", "V", "S_p", "corr"), (m_abs, v_abs, sp_abs, co_abs))))
+
+    out = df_mm.full_step_fwd(mu, sv, cache)
+    ref = df_mm.full_step_plain(mu, sv, cache)
+    sp_scale = (sp_abs + torch.zeros_like(sp_abs).index_add(0, diag, co_abs)) / sdr.double()
+    err_full, worst = 0.0, 0.0
+    for nm, o, r, scale in zip(("M", "V", "S_p"), out, ref,
+                               (m_abs * c32.double(), v_abs * c32.double()[:, None], sp_scale)):
+        diff = (o.double() - r.double()).abs()
+        excess = float((diff / (FULL_EPS * r.double().abs() + DF_TOL * scale)).max())
+        err_full, worst = max(err_full, float(diff.max())), max(worst, excess)
+        log(f"kernel df_mm_full {nm} (N={n}) [{label}]: max abs err {float(diff.max()):.3e}, "
+            f"{excess:.3e} of its tolerance ({FULL_EPS:.2e} of |ref| + {DF_TOL} of sum|terms|); "
+            f"max |ref| {float(r.abs().max()):.4g}")
+    if not worst <= 1.0:
+        raise AssertionError(f"df_mm_full [{label}] (N={n}) disagrees with its plain twin")
+
+    p = Qh.shape[0]
+    g = [torch.linspace(lo, hi, k, device=mu.device).reshape(shape)
+         for lo, hi, k, shape in ((1.0, 2.0, ns, (ns,)), (-1.0, 1.0, ns * d, (ns, d)), (1.0, 2.0, p, (p,)),
+                                  (-1.0, -2.0, ns, (ns,)))]
+    out = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    ref = df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)
+    err_bwd = 0.0
+    for nm, o, r in zip(("g_mu", "g_B", "g_Q"), out, ref):
+        abs_e, rel_e = max_err(o, r)
+        err_bwd = max(err_bwd, abs_e)
+        log(f"kernel df_mm_bwd {nm} (N={n}) [{label}]: max abs err {abs_e:.3e} = {rel_e:.3e} of max |grad| "
+            f"(tol {DF_GRAD_TOL})")
+        if not rel_e <= DF_GRAD_TOL:
+            raise AssertionError(f"df_mm_bwd {nm} [{label}] (N={n}) disagrees with its plain twin")
+    return err_full, err_fwd, err_bwd
+
+
+def check_df_mm_kernels(dev):
+    """#12, #8 and #9 against their plain twins on the card at N = 32, 96
+    (the bucket that is not a power of two), 128 and 384, on the trained-GP
+    problem's operands and on random ones; then their times at the 128
+    bucket's trained-GP operands (the phase-4 path's shape)."""
+    errs = []
+    for n in DF_MM_SIZES:
+        step = trained_gp_step_inputs(dev, n)
+        errs.append(check_df_mm_operands("trained-GP", *step))
+        errs.append(check_df_mm_operands("random", *random_df_mm_problem(dev, n, seed=n)))
+        if n == 128:
+            timed = step
+    cache, mu, sv = timed
+    ns, d = cache.ils_hi.shape
+    n = cache.x_hi.shape[0]
+    ii, jj, _, _ = df_mm.pair_indices(ns, dev)
+    Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(cache, sv, ii, jj)
+    p = Qh.shape[0]
+    g = (torch.ones(ns, device=dev), torch.ones(ns, d, device=dev), torch.ones(p, device=dev), -torch.ones(ns, device=dev))
+    calls = {"df_mm_full": (lambda: df_mm.full_step_fwd(mu, sv, cache), lambda: df_mm.full_step_plain(mu, sv, cache)),
+             "df_mm_fwd": (lambda: df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache),
+                           lambda: df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, cache)),
+             "df_mm_bwd": (lambda: df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g),
+                           lambda: df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g))}
+    counts = df_instructions_per_element(ns)
+    in_bytes = 4 * 2 * (n * d + 3 * ns * d + ns + ns * n + ns * n * n) + 4 * (d + ns * ns + 2 * ns ** 3 + 2 * p * ns * ns)
+    out_bytes = {"df_mm_full": 4 * (ns + ns * d + p), "df_mm_fwd": 4 * 2 * (2 * ns + ns * d + p),
+                 "df_mm_bwd": 4 * (d + ns ** 3 + p * ns * ns)}
+    results = {}
+    for i, (name, (kern, plain)) in enumerate(calls.items()):
+        ms, host = cuda_ms(kern)
+        plain_ms = event_ms(plain)
+        per, per_diag = counts[name]
+        b, by = bound_ms(in_bytes + out_bytes[name], (p * per + ns * per_diag) * n * n, H100_F32_INSTR_PER_S)
+        log(f"kernel {name} (P={p}, N={n}, ns={ns}, trained-GP operands): wrapper {ms:.4f} ms (device, 2 launches) "
+            f"plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 instructions "
+            f"per slab element over {H100_F32_INSTR_PER_S:.3g}/s; the per-point work is not counted); "
+            f"host {host:.4f} ms per call")
+        results[name] = dict(err=max(e[i] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    return results
+
+
 def check_plans(plans, spec, finite_info):
     for a_opt, info in plans:
         a = a_opt.double().cpu()
@@ -558,12 +739,13 @@ def compare_to_f64(dev, n_points, bucket):
     return gaps, plans
 
 
-def compare_mixed_to_f64(dev, prob, planner, plans):
-    """The card's own float64 plan of the same trained-GP steps: the gaps of
-    MIXED_TOL (the plan gap the largest over the steps, each plan's f64
+def compare_mixed_to_f64(dev, prob, planner, plans, witness=True, **sizes):
+    """The card's own float64 plan of the same trained-GP steps (``sizes``:
+    n_points and bucket of the problem, the flagship's by default): the gaps
+    of MIXED_TOL (the plan gap the largest over the steps, each plan's f64
     objective taken on the caches after the last step) and the a_opt gap of
     each step (printed only). Then ``a_opt_witness`` on the first step."""
-    ref_prob = trained_gp_problem(dev, dtype=torch.float64)
+    ref_prob = trained_gp_problem(dev, dtype=torch.float64, **sizes)
     ref_planner = start_steps(ref_prob, dev, torch.float64, len(plans))
     ref_plans = []
     for i in range(len(plans)):
@@ -592,9 +774,10 @@ def compare_mixed_to_f64(dev, prob, planner, plans):
         info=max(max_err(x, y)[1] for x, y in zip(plans[-1][1], info64)),
         plan=max(plan_gaps),
     )
-    log(f"  trained-GP flagship, card mixed vs card f64: objective {f_card:.9g} vs {f_ref:.9g}; gaps "
-        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
-    a_opt_witness(prob, ref_prob, cache0, ref_plans[0][0], plans[0][0])
+    log(f"  trained-GP {prob.n_points} points in the {prob.x.shape[0]} bucket, card mixed vs card f64: "
+        f"objective {f_card:.9g} vs {f_ref:.9g}; gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    if witness:
+        a_opt_witness(prob, ref_prob, cache0, ref_plans[0][0], plans[0][0])
     return gaps
 
 
@@ -646,6 +829,46 @@ def a_opt_witness(prob, ref_prob, cache, a_ref, a_mix):
         + ", ".join(f"{k} ({f:.3e}, {m:.3e})" for k, (f, m) in moves.items()))
 
 
+def time_rollouts(dev, card):
+    """Phase 5's rollout timings for the H100 dispatch range of the
+    whole-step path: one 15-step rollout of the trained-GP problem at each
+    of ROLLOUT_BUCKETS (0.8 N points, 300 in 384) at the initial actions,
+    through ``moment_match_df_fused`` and through ``moment_match_df``, each
+    called directly, forward-only and value-and-grad (the gradient in the
+    actions); blocked ms (host clock, ended by a synchronize) of one
+    rollout each, after one forward-only warm-up rollout of each route."""
+    for n in ROLLOUT_BUCKETS:
+        prob = trained_gp_problem(dev, n_points=min(300, int(0.8 * n)), bucket=n)
+        cache = _cast_cache(Planner(prob.spec, dtype=torch.float32, device=dev, master_dtype=torch.float64)
+                            .refresh_cache(prob.x, prob.y, prob.mask, prob.params, prob.bounds), torch.float32)
+        ns, d = cache.ils_hi.shape
+        times = {}
+        for route, mm in (("fused", gp_mod.moment_match_df_fused), ("df_cov", gp_mod.moment_match_df)):
+            for grad in (False, True):
+                def rollout():
+                    a = prob.inits[0].reshape(-1, 1).clone().requires_grad_(grad)
+                    mu, var = prob.state_mu, prob.state_var
+                    with torch.set_grad_enabled(grad):
+                        for t in range(a.shape[0]):
+                            input_var = torch.nn.functional.pad(var, (0, d - ns, 0, d - ns))
+                            dmu, dvar, v = mm(cache, torch.cat([mu, a[t]]), input_var)
+                            sv = input_var[:ns]
+                            mu, var = mu + dmu, dvar + var + sv @ v + v.T @ sv.T
+                        out = mu.sum() + var.sum()
+                        if grad:
+                            torch.autograd.grad(out, a)
+                    torch.cuda.synchronize()
+
+                if not grad:
+                    rollout()  # warm-up
+                t0 = time.perf_counter()
+                rollout()
+                times[(route, grad)] = (time.perf_counter() - t0) * 1e3
+        log(f"phase 5 rollout N={n} ({prob.n_points} points), 15 steps, blocked ms: " + ", ".join(
+            f"{route} {'value-and-grad' if grad else 'forward'} {ms:.2f}" for (route, grad), ms in times.items())
+            + f" on {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only on a CUDA card",
@@ -677,7 +900,8 @@ def _run() -> int:
 
     kern = check_kernels(dev)
     kern.update(check_df_kernels(dev))
-    log("phase 3 kernels: all five match their plain versions on the card")
+    kern.update(check_df_mm_kernels(dev))
+    log("phase 3 kernels: all eight match their plain versions on the card")
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec
@@ -718,7 +942,30 @@ def _run() -> int:
     for name in ("df_fwd", "df_fwdres"):
         if mixed_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the mixed main path")
+    for name in ("df_mm_full", "df_mm_fwd", "df_mm_bwd"):  # the 384 bucket is outside the whole-step range
+        if mixed_launches[name] != 0:
+            raise AssertionError(f"kernel {name} was launched at the 384 bucket")
     log(f"phase 4 mixed accuracy: within {MIXED_TOL} of the card's f64 plan")
+
+    sizes = dict(n_points=FUSED_POINTS, bucket=FUSED_BUCKET)
+    fprob = trained_gp_problem(dev, **sizes)
+    ops.reset_launch_counts()
+    fplanner, fplans, fsecs = run_steps(fprob, dev, torch.float32, FUSED_STEPS, sync=torch.cuda.synchronize)
+    torch.cuda.synchronize()
+    fused_launches = ops.launch_counts()
+    log(f"phase 4 main path mixed, whole-step: f64 refresh + {FUSED_STEPS} trained-GP plans ({FUSED_POINTS} points "
+        f"in the {FUSED_BUCKET} bucket), launches {fused_launches}")
+    check_plans(fplans, fprob.spec, finite_info=True)
+    fgaps = compare_mixed_to_f64(dev, fprob, fplanner, fplans, witness=False, **sizes)
+    if not all(v <= MIXED_TOL[k] for k, v in fgaps.items()):
+        raise AssertionError(f"card mixed mode (whole-step) disagrees with card f64 beyond {MIXED_TOL}: {fgaps}")
+    for name in ("df_mm_full", "df_mm_fwd", "df_mm_bwd"):
+        if fused_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the whole-step path")
+    for name in ("df_fwd", "df_fwdres"):
+        if fused_launches[name] != 0:
+            raise AssertionError(f"kernel {name} was launched on the whole-step path")
+    log(f"phase 4 whole-step accuracy: within {MIXED_TOL} of the card's f64 plan")
 
     prob = flagship_problem(dev, torch.float32)
     _, _, secs = run_steps(prob, dev, torch.float32, TIMED_STEPS, sync=torch.cuda.synchronize)
@@ -729,19 +976,30 @@ def _run() -> int:
         f"{statistics.median(msecs) * 1e3:.2f} ms over the {len(msecs)} steps of phase 4 ("
         + ", ".join(f"{t * 1e3:.2f}" for t in msecs) + f" ms; {mixed_launches['df_fwd']} df_fwd and "
         f"{mixed_launches['df_fwdres']} df_fwdres launches in all; peak {peak_mib:.1f} MiB) on {card}")
+    log(f"phase 5 timing: median blocked trained-GP whole-step planning step ({FUSED_POINTS} points in the "
+        f"{FUSED_BUCKET} bucket) {statistics.median(fsecs) * 1e3:.2f} ms over the {len(fsecs)} steps of phase 4 ("
+        + ", ".join(f"{t * 1e3:.2f}" for t in fsecs) + f" ms) on {card}")
+    time_rollouts(dev, card)
 
     sources = {"gram": "gpmpc_tpu_torch/ops/csrc/gram.cu",
                "cov_fwd": "gpmpc_tpu_torch/ops/csrc/cov_core.cu",
                "cov_bwd_row": "gpmpc_tpu_torch/ops/csrc/cov_core.cu",
                "df_fwd": "gpmpc_tpu_torch/ops/csrc/df_cov.cu",
-               "df_fwdres": "gpmpc_tpu_torch/ops/csrc/df_cov.cu"}
+               "df_fwdres": "gpmpc_tpu_torch/ops/csrc/df_cov.cu",
+               "df_mm_full": "gpmpc_tpu_torch/ops/csrc/df_mm_fwd.cu",
+               "df_mm_fwd": "gpmpc_tpu_torch/ops/csrc/df_mm_fwd.cu",
+               "df_mm_bwd": "gpmpc_tpu_torch/ops/csrc/df_mm_bwd.cu"}
     replaces = {"gram": "gpmpc_tpu/ops/pallas_gram.py:28",
                 "cov_fwd": "gpmpc_tpu/ops/pallas_moment_cov.py:111",
                 "cov_bwd_row": "gpmpc_tpu/ops/pallas_moment_cov.py:175",
                 "df_fwd": "gpmpc_tpu/ops/pallas_df_cov.py:214",
-                "df_fwdres": "gpmpc_tpu/ops/pallas_df_cov.py:378"}
+                "df_fwdres": "gpmpc_tpu/ops/pallas_df_cov.py:378",
+                "df_mm_full": "gpmpc_tpu/ops/pallas_df_mm.py:688",
+                "df_mm_fwd": "gpmpc_tpu/ops/pallas_df_mm.py:451",
+                "df_mm_bwd": "gpmpc_tpu/ops/pallas_df_mm.py:510"}
     counts = {**{k: launches[k] for k in ("gram", "cov_fwd", "cov_bwd_row")},
-              **{k: mixed_launches[k] for k in ("df_fwd", "df_fwdres")}}
+              **{k: mixed_launches[k] for k in ("df_fwd", "df_fwdres")},
+              **{k: fused_launches[k] for k in ("df_mm_full", "df_mm_fwd", "df_mm_bwd")}}
     kernels = [dict(name=name, route="cuda", source=sources[name], replaces=replaces[name],
                     launches=counts[name], max_abs_err=kern[name]["err"], ms=kern[name]["ms"],
                     plain_ms=kern[name]["plain_ms"], bound_ms=kern[name]["bound_ms"],

@@ -16,16 +16,15 @@ fixed-capacity padded buffer with an active mask:
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import ops
-from ..ops.df32 import (df_add, df_add_f32, df_div, df_exp, df_mul, df_mul_f32, df_sqrt, df_sum,
-                        split_f64)
+from ..ops.df32 import df_add, df_add_f32, df_exp, df_mul, df_sum, split_f64
+from ..ops.df_mm import df_stage1 as _df_stage1
+from ..ops.df_mm import pair_indices
 
 
 class GPBounds(NamedTuple):
@@ -219,55 +218,6 @@ def _small_spd_inv_det(M) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(rows, dim=-2), det
 
 
-def _small_spd_inv_det_df(Mh, Ml):
-    """Double-float32 twin of ``_small_spd_inv_det``: (Mh + Ml) (..., k, k)
-    SPD in df32 -> (Minv_h, Minv_l, det_h, det_l), by the same unrolled
-    Cholesky with every operation an elementwise df op."""
-    k = Mh.shape[-1]
-    one = (torch.ones_like(Mh[..., 0, 0]), torch.zeros_like(Mh[..., 0, 0]))
-    L = [[None] * k for _ in range(k)]
-    for i in range(k):
-        for j in range(i + 1):
-            s = (Mh[..., i, j], Ml[..., i, j])
-            for p in range(j):
-                prod = df_mul(*L[i][p], *L[j][p])
-                s = df_add(s[0], s[1], -prod[0], -prod[1])
-            if i == j:
-                # pivot guard as in the f32/f64 twin (see _small_spd_inv_det)
-                floor = 1e-10 * torch.abs(Mh[..., i, i]) + 1e-30
-                guard = s[0] < floor
-                s = (torch.where(guard, floor, s[0]), torch.where(guard, torch.zeros_like(s[1]), s[1]))
-                L[i][i] = df_sqrt(*s)
-            else:
-                L[i][j] = df_div(*s, *L[j][j])
-    det = df_mul(*L[0][0], *L[0][0])
-    for i in range(1, k):
-        det = df_mul(*det, *df_mul(*L[i][i], *L[i][i]))
-    Li = [[None] * k for _ in range(k)]
-    for i in range(k):
-        for j in range(i + 1):
-            if i == j:
-                Li[i][i] = df_div(*one, *L[i][i])
-            else:
-                s = df_mul(*L[i][j], *Li[j][j])
-                for p in range(j + 1, i):
-                    s = df_add(*s, *df_mul(*L[i][p], *Li[p][j]))
-                Li[i][j] = df_div(-s[0], -s[1], *L[i][i])
-    rows_h, rows_l = [], []
-    for i in range(k):
-        row_h, row_l = [], []
-        for j in range(k):
-            lo = max(i, j)
-            s = df_mul(*Li[lo][i], *Li[lo][j])
-            for p in range(lo + 1, k):
-                s = df_add(*s, *df_mul(*Li[p][i], *Li[p][j]))
-            row_h.append(s[0])
-            row_l.append(s[1])
-        rows_h.append(torch.stack(row_h, dim=-1))
-        rows_l.append(torch.stack(row_l, dim=-1))
-    return torch.stack(rows_h, dim=-2), torch.stack(rows_l, dim=-2), det[0], det[1]
-
-
 class DFCache(NamedTuple):
     """Double-float32 split of an f64 master FactorizationCache: the cache of
     the mixed-mode rollout. Every cancellation-sensitive master quantity is
@@ -318,65 +268,6 @@ def split_cache_df(cache: FactorizationCache) -> DFCache:
     )
 
 
-def _diag_embed(v):
-    """(..., D) -> (..., D, D) by multiplying with the identity, as the JAX
-    package does (off-diagonal entries are v * 0)."""
-    return v[..., :, None] * torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
-
-
-def _df_stage1(cache: DFCache, sv32, ii, jj):
-    """The small df32 matrices of one moment-matching step: B^-1, c, Q and
-    sqrt det R (ii, jj: the pairs' index tensors)."""
-    ns = sv32.shape[0]
-    device = sv32.device
-
-    # B = diag(ils) sv diag(ils) + I, per model (state block only)
-    ils_s_h, ils_s_l = cache.ils_hi[:, :ns], cache.ils_lo[:, :ns]
-    outer_h, outer_l = df_mul(ils_s_h[:, :, None], ils_s_l[:, :, None], ils_s_h[:, None, :], ils_s_l[:, None, :])
-    B_h, B_l = df_mul_f32(outer_h, outer_l, sv32[None])
-    eye = torch.eye(ns, dtype=torch.float32, device=device)
-    B_h, B_l = df_add_f32(B_h, B_l, eye[None])
-    B_inv_h, B_inv_l, det_B_h, det_B_l = _small_spd_inv_det_df(B_h, B_l)
-    c32 = cache.outs / torch.sqrt(det_B_h + det_B_l)  # scales M and V: f32 is enough
-
-    ils2_h, ils2_l = cache.ils2_hi[:, :ns], cache.ils2_lo[:, :ns]
-    ss_h, ss_l = df_add(ils2_h[ii], ils2_l[ii], ils2_h[jj], ils2_l[jj])  # (P, ns)
-    d_inv_h, d_inv_l = df_div(torch.ones_like(ss_h), torch.zeros_like(ss_h), ss_h, ss_l)
-    # A = sv + diag(d_inv): diagonal entries fold sv_ii into the df pair exactly
-    eye_p = eye[None]
-    diag_h, diag_l = df_add_f32(_diag_embed(d_inv_h), _diag_embed(d_inv_l), sv32[None] * eye_p)
-    A_h = torch.where(eye_p > 0, diag_h, sv32[None])
-    A_l = torch.where(eye_p > 0, diag_l, torch.zeros_like(diag_l))
-    A_inv_h, A_inv_l, det_A_h, det_A_l = _small_spd_inv_det_df(A_h, A_l)
-    # AinvS = A^-1 sv (sv exact f32), unrolled df dots
-    cols_h, cols_l = [], []
-    for m in range(ns):
-        ah, al = df_mul_f32(A_inv_h[:, :, 0], A_inv_l[:, :, 0], sv32[0, m])
-        for l_ in range(1, ns):
-            ph, pl = df_mul_f32(A_inv_h[:, :, l_], A_inv_l[:, :, l_], sv32[l_, m])
-            ah, al = df_add(ah, al, ph, pl)
-        cols_h.append(ah)
-        cols_l.append(al)
-    AinvS_h = torch.stack(cols_h, dim=-1)  # (P, ns, ns)
-    AinvS_l = torch.stack(cols_l, dim=-1)
-    Qh, Ql = df_mul(d_inv_h[..., :, None], d_inv_l[..., :, None], AinvS_h, AinvS_l)
-    Qh, Ql = 0.5 * Qh, 0.5 * Ql  # exact halving
-    det_R32 = (det_A_h + det_A_l) * torch.prod(ss_h + ss_l, dim=-1)
-    sqrt_det_R32 = torch.sqrt(det_R32)  # divides S_p after the cancellation
-    return B_inv_h, B_inv_l, c32, Qh, Ql, sqrt_det_R32
-
-
-@functools.lru_cache(maxsize=None)
-def _pair_indices(ns: int, device: torch.device):
-    """Upper-triangle pair indices (ii, jj), the pair index of each (m, m) as
-    a tensor and as a tuple. Made once per device: a fresh host-to-device
-    index copy on every step would stall the stream."""
-    ii, jj = np.triu_indices(ns)
-    diag = np.where(ii == jj)[0]
-    return (torch.as_tensor(ii, device=device), torch.as_tensor(jj, device=device),
-            torch.as_tensor(diag, device=device), tuple(int(p) for p in diag))
-
-
 def moment_match(cache: FactorizationCache, input_mu, input_var):
     """Exact GP posterior moments under a Gaussian input (PILCO).
 
@@ -411,7 +302,7 @@ def moment_match(cache: FactorizationCache, input_mu, input_var):
 
     # --- predictive covariance, upper-triangle pairs only ----------------
     inv_ls2 = inv_ls * inv_ls
-    ii, jj, dpos, diag_pos = _pair_indices(ns, device)
+    ii, jj, dpos, diag_pos = pair_indices(ns, device)
 
     scale_sum = inv_ls2[ii, :ns] + inv_ls2[jj, :ns]  # (P, ns)
     d_inv_s = 1.0 / scale_sum
@@ -477,7 +368,7 @@ def moment_match_df(cache: DFCache, input_mu, input_var):
     sv32 = input_var[:ns, :ns].to(f32)
     mu32 = input_mu.to(f32)
 
-    ii, jj, dpos, diag_pos = _pair_indices(ns, device)
+    ii, jj, dpos, diag_pos = pair_indices(ns, device)
     Bh, Bl, c32, Qh, Ql, sqrt_det_R32 = _df_stage1(cache, sv32, ii, jj)
 
     # ---- mean and input-output covariance (df over (Ns, N, D)) ----------
@@ -550,6 +441,32 @@ def moment_match_df(cache: DFCache, input_mu, input_var):
     return M, S, V.T
 
 
+def moment_match_df_fused(cache: DFCache, input_mu, input_var):
+    """``moment_match_df`` with the whole step in one kernel launch per
+    horizon step (``ops.df_mm``, the reference's ``moment_match_df_fused``):
+    stage 1, the mean path, the (P, N, N) covariance pipeline and the finish
+    run in ``df_mm.full_step`` (forward kernel #12; its backward launches #8
+    and #9 on the split path); only the Ns x Ns S assembly and the M M^T
+    subtraction stay here. On the CPU the same composite runs on the
+    kernels' plain twins. Only the reference's ``n <= 512`` branch is ported:
+    its other branch (stage 1 outside, ``stage23_pallas``) is dead under
+    dispatch, whose range ends at N = 128. Returns M (Ns,), S (Ns, Ns) and
+    V (D, Ns) in f32.
+    """
+    ns = cache.ils_hi.shape[0]
+    device = cache.x_hi.device
+    f32 = torch.float32
+    sv32 = input_var[:ns, :ns].to(f32)
+    mu32 = input_mu.to(f32)
+    ii, jj, _, _ = pair_indices(ns, device)
+    M, V, S_p = ops.df_mm.full_step(mu32, sv32, cache)
+    S = torch.zeros((ns, ns), dtype=f32, device=device).index_put((ii, jj), S_p)
+    S = S + S.T - torch.diag(torch.diagonal(S))
+    S = S + torch.diag(cache.outs)
+    S = S - M[:, None] * M[None, :]
+    return M, S, V.T
+
+
 def predict_trajectory(cache: FactorizationCache, actions, state_mu, state_var,
                        current_time_idx, include_time_model: bool):
     """Moment-matched rollout over the horizon (a Python loop over steps):
@@ -569,7 +486,12 @@ def predict_trajectory(cache: FactorizationCache, actions, state_mu, state_var,
         if include_time_model:
             parts.append(torch.as_tensor(current_time_idx, dtype=dtype, device=mu.device).reshape(1) + t)
         input_mu = torch.cat(parts)
-        mm = moment_match_df if isinstance(cache, DFCache) else moment_match
+        if isinstance(cache, DFCache):
+            ns_, d_ = cache.ils_hi.shape
+            fused = ops.use_df_fused(cache.x_hi.shape[0], ns_, d_, cache.x_hi.device)
+            mm = moment_match_df_fused if fused else moment_match_df
+        else:
+            mm = moment_match
         dmu, dvar, v = mm(cache, input_mu, input_var)
         sv = input_var[:ns]
         mu = mu + dmu

@@ -2,13 +2,31 @@
 PyTorch on the CPU.
 
 A CPU tensor goes to the plain version. A CUDA float32 tensor (for the df32
-core: float32 hi and lo halves) goes to the kernel at every size (the TPU's
-``PALLAS_COV_MIN_N`` and ``n > 128`` thresholds are TPU measurements and are
-not copied; an H100 threshold waits for the card's numbers). A CUDA tensor
-of any other dtype raises: there is no fallback that hides the card or the
-kernel. float64 is routed to the plain forms before these entry points
-(``models.gp``), by the JAX package's rule that its Pallas kernels take f32
-only.
+cores: float32 hi and lo halves) goes to the kernel at every size the kernel
+takes (the TPU's ``PALLAS_COV_MIN_N`` and ``n > 128`` thresholds of the cov
+cores are TPU measurements and are not copied; an H100 threshold waits for
+the card's numbers). A CUDA tensor of any other dtype raises: there is no
+fallback that hides the card or the kernel. Shapes the kernels do not take
+go to the plain forms by explicit shape rules, as the JAX package sends them
+to its XLA twins:
+
+* float64 is routed to the plain forms before these entry points
+  (``models.gp``), by the JAX package's rule that its Pallas kernels take
+  f32 only;
+* more than ``COV_MAX_NS`` (8) state dims: the f32 cov core takes the plain
+  core (its kernels hold a row's ns values in fixed arrays);
+* more than ``DF_COV_MAX_NS`` (3) state dims: the df32 cov core takes the
+  plain core, as the reference's ``df_cov_core`` sends them to
+  ``df_cov_core_xla`` (``pallas_df_cov.supported_rect``);
+* the whole-step df32 path (``df_mm``) runs where the reference's
+  ``use_df_pallas`` would: on the card, within ``df_mm.supported``
+  (32 <= N <= 128, ns <= 3, d <= 8), see ``use_df_fused``.
+
+Under autograd the df32 cov core keeps its residual backward on every
+device: ``DfCovCore`` (the forward-with-residuals kernel on the card, its
+plain twin on the CPU), whose cotangent sums stay df. Differentiating the
+plain core by autograd sums each cotangent-weighted E term in plain f32,
+which cancels at cond(K) ~ 1e6 (ROADMAP C1).
 """
 
 from __future__ import annotations
@@ -16,38 +34,54 @@ from __future__ import annotations
 import torch
 
 from . import df_cov as _df_mod
+from . import df_mm
 from . import gram_rbf as _gram_mod
 from . import moment_cov as _cov_mod
 from .df_cov import DfCovCore, df_cov_core_ref, df_cov_fwd
 from .gram_rbf import gram, gram_ref
 from .moment_cov import CovCore, cov_core_ref
 
+COV_MAX_NS = _cov_mod.MAX_NS
+DF_COV_MAX_NS = _df_mod.MAX_NS
+
 
 def cov_core(a, c, u, xj, bi, bj, ik, diag_pos):
     """(S_p, corr) of the moment-matching covariance (see moment_cov). On
-    the CPU the plain core, differentiable in every argument; on the card
-    CovCore, whose kernels take float32 only."""
-    if a.device.type == "cpu":
+    the CPU, and on the card past COV_MAX_NS state dims, the plain core,
+    differentiable in every argument; otherwise CovCore, whose kernels take
+    float32 only."""
+    if a.device.type == "cpu" or u.shape[-1] > COV_MAX_NS:
         return cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos)
     return CovCore.apply(a, c, u, xj, bi, bj, ik, tuple(diag_pos))
 
 
 def df_cov_core(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
     """df32 (S_p h, l, corr h, l) of the moment-matching covariance (see
-    df_cov). On the CPU the plain core, differentiable by autograd. On the
-    card, under autograd (grad mode on and an operand requiring a gradient)
-    DfCovCore, which launches the forward-with-residuals kernel; otherwise
-    the lean forward kernel, as the JAX core runs its primal kernel outside
-    value_and_grad."""
+    df_cov). Under autograd (grad mode on and an operand requiring a
+    gradient) DfCovCore, which takes the forward-with-residuals kernel on
+    the card and its plain twin on the CPU; otherwise the lean forward
+    kernel on the card (as the JAX core runs its primal kernel outside
+    value_and_grad) and the plain core on the CPU. On the card past
+    DF_COV_MAX_NS state dims, the plain core, differentiable by autograd."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
-    if ah.device.type == "cpu":
+    if ah.device.type != "cpu" and uh.shape[-1] > DF_COV_MAX_NS:
         return df_cov_core_ref(*args, diag_pos)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return DfCovCore.apply(*args, tuple(diag_pos))
+    if ah.device.type == "cpu":
+        return df_cov_core_ref(*args, diag_pos)
     return df_cov_fwd(*args, tuple(diag_pos))
 
 
-_COUNTS = (_gram_mod.LAUNCHES, _cov_mod.LAUNCHES, _df_mod.LAUNCHES)
+def use_df_fused(n: int, ns: int, d: int, device) -> bool:
+    """Whether a mixed-mode step at N stored points runs the whole-step df32
+    path (``models.gp.moment_match_df_fused``): on a CUDA device within the
+    reference's range ``df_mm.supported``, as the reference's
+    ``use_df_pallas`` takes it on the TPU only, never on the CPU."""
+    return torch.device(device).type == "cuda" and df_mm.supported(n, ns, d)
+
+
+_COUNTS = (_gram_mod.LAUNCHES, _cov_mod.LAUNCHES, _df_mod.LAUNCHES, df_mm.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -61,5 +95,5 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-__all__ = ["cov_core", "cov_core_ref", "CovCore", "df_cov_core", "df_cov_core_ref", "DfCovCore",
-           "gram", "gram_ref", "launch_counts", "reset_launch_counts"]
+__all__ = ["cov_core", "cov_core_ref", "CovCore", "df_cov_core", "df_cov_core_ref", "DfCovCore", "df_mm",
+           "gram", "gram_ref", "launch_counts", "reset_launch_counts", "use_df_fused"]

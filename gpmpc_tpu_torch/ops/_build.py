@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` (with the headers beside it) is compiled by ONE plain
-``nvcc`` call into one shared library with an ``extern "C"`` interface,
+Every ``csrc/*.cu`` (with the headers beside it) is compiled by its own
+plain ``nvcc -c``, all started together, and the objects are linked by one
+more ``nvcc`` into one shared library with an ``extern "C"`` interface,
 loaded with ``ctypes``. Nothing here
 includes PyTorch's headers, so the build takes seconds, not the minutes of a
 ``torch.utils.cpp_extension`` build. The library lands in
@@ -23,7 +24,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpmpc_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
+    "-Xcompiler", "-fPIC", "--ptxas-options=-v",
 )
 BUILD_TIMEOUT_S = 240
 
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "gpmpc_df_tile_cols": (),
     "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
     "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 4 + (_I,) * 4 + (_P,),
+    "gpmpc_df_mm_tile": (),
+    "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_f32": (_P,) * 23 + (_I,) * 3 + (_P,),
 }
 
 
@@ -95,14 +100,33 @@ def build() -> Path:
     if out.exists():
         return out
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for obj, src in zip(objs, sources()))]
+    logs, failed = [], None
+    for cmd, proc in compiles:
+        try:
+            text, _ = proc.communicate(timeout=max(1.0, BUILD_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        logs.append(text)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode)
+    if failed is None:
+        cmd = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (cmd, proc.returncode)
     info.seconds = time.perf_counter() - t0
-    info.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    info.log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{info.log}")
+        raise RuntimeError(f"nvcc failed ({failed[1]}):\n{' '.join(failed[0])}\n{info.log}")
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     info.compiled = True
     return out

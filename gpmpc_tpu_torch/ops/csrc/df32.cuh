@@ -1,14 +1,17 @@
 // Double-float32 (df32) device functions: f64-grade sums and products from
 // f32 instructions. Port of gpmpc_tpu/ops/df32.py (two_sum, fast_two_sum, the
-// 12-bit mask split, two_prod, df_add, df_mul, df_exp) with the same operation
-// order, so a kernel built on them computes what the PyTorch twins in
-// gpmpc_tpu_torch/ops/df32.py compute, bit for bit, before its reductions.
+// 12-bit mask split, two_prod, df_add, df_add_f32, df_mul, df_mul_f32,
+// df_div, df_sqrt, df_exp) with the same operation order, so a kernel built
+// on them computes what the PyTorch twins in gpmpc_tpu_torch/ops/df32.py
+// compute, bit for bit, before its reductions.
 //
 // Every add and multiply is written with __fadd_rn / __fsub_rn / __fmul_rn.
 // nvcc contracts a*b + c into an FMA by default (--fmad=true), which would
 // drop exactly the rounding steps the error-free transformations rely on;
 // these intrinsics are never contracted, so the rest of the build keeps its
-// default. df_exp never calls expf/exp2f: 2^k is assembled bitwise.
+// default. df_exp never calls expf/exp2f: 2^k is assembled bitwise; df_div
+// and df_sqrt use the correctly rounded __fdiv_rn and __fsqrt_rn, as the
+// twins' IEEE division and square root are.
 
 #pragma once
 
@@ -58,10 +61,46 @@ __device__ __forceinline__ df df_add(df x, df y) {
   return fast_two_sum(s.h, __fadd_rn(s.l, __fadd_rn(x.l, y.l)));
 }
 
+// x + y for a plain f32 y
+__device__ __forceinline__ df df_add_f32(df x, float y) {
+  const df s = two_sum(x.h, y);
+  return fast_two_sum(s.h, __fadd_rn(s.l, x.l));
+}
+
 __device__ __forceinline__ df df_mul(df x, df y) {
   const df p = two_prod(x.h, y.h);
   const float cross = __fadd_rn(__fmul_rn(x.h, y.l), __fmul_rn(x.l, y.h));
   return fast_two_sum(p.h, __fadd_rn(p.l, cross));
+}
+
+// x * y for a plain f32 y
+__device__ __forceinline__ df df_mul_f32(df x, float y) {
+  const df p = two_prod(x.h, y);
+  return fast_two_sum(p.h, __fadd_rn(p.l, __fmul_rn(x.l, y)));
+}
+
+__device__ __forceinline__ df df_neg(df x) { return {-x.h, -x.l}; }
+
+// x * s for a power of two s: exact
+__device__ __forceinline__ df df_scale(df x, float s) { return {__fmul_rn(x.h, s), __fmul_rn(x.l, s)}; }
+
+// the f32 value of a df number
+__device__ __forceinline__ float df_collapse(df x) { return __fadd_rn(x.h, x.l); }
+
+// x / y: one Newton step on the f32 quotient
+__device__ __forceinline__ df df_div(df x, df y) {
+  const float q1 = __fdiv_rn(x.h, y.h);
+  const df p = two_prod(q1, y.h);
+  const df r = df_add(x, {-p.h, -__fadd_rn(p.l, __fmul_rn(q1, y.l))});
+  return fast_two_sum(q1, __fdiv_rn(df_collapse(r), y.h));
+}
+
+// sqrt(x): one Heron step on the f32 root
+__device__ __forceinline__ df df_sqrt(df x) {
+  const float s1 = __fsqrt_rn(x.h);
+  const df p = two_prod(s1, s1);
+  const df r = df_add(x, {-p.h, -p.l});
+  return fast_two_sum(s1, __fdiv_rn(df_collapse(r), __fmul_rn(2.f, s1)));
 }
 
 // exp of a df number, ~1e-13 relative: k = round-half-even(x / ln2),
@@ -92,5 +131,20 @@ __device__ __forceinline__ df df_exp(df x) {
   const float scale = k < -126.f ? 0.f : __int_as_float((ki + 127) << 23);
   return {__fmul_rn(e.h, scale), __fmul_rn(e.l, scale)};
 }
+
+// the exponent a (+) c (+) sum_e U_e Xj_e of one element of the pairwise
+// moment-matching matrix E (pallas_df_cov._e_slab_df, pallas_df_mm._pair_part),
+// before the cap
+template <int NS>
+__device__ __forceinline__ df e_exponent(df a, const df* u, df c, const df* xj) {
+  df e = two_sum(a.h, c.h);
+  e = fast_two_sum(e.h, __fadd_rn(e.l, __fadd_rn(a.l, c.l)));
+#pragma unroll
+  for (int q = 0; q < NS; ++q) e = df_add(e, df_mul(u[q], xj[q]));
+  return e;
+}
+
+// E = exp(min(exponent, 60)): the cap applies to the hi part
+__device__ __forceinline__ df e_capped_exp(df e) { return df_exp({fminf(e.h, 60.f), e.l}); }
 
 }  // namespace gpmpc_df

@@ -68,11 +68,7 @@ __device__ __forceinline__ int ik_slot(int p, const int* diag_pos, int n_diag) {
 // one df E element (pallas_df_cov._e_slab_df): the cap applies to the hi part
 template <int NS>
 __device__ __forceinline__ df e_elem(df a, const df* u, df c, const df* xj) {
-  df e = two_sum(a.h, c.h);
-  e = fast_two_sum(e.h, __fadd_rn(e.l, __fadd_rn(a.l, c.l)));
-#pragma unroll
-  for (int q = 0; q < NS; ++q) e = df_add(e, df_mul(u[q], xj[q]));
-  return df_exp({fminf(e.h, 60.f), e.l});
+  return gpmpc_df::e_capped_exp(gpmpc_df::e_exponent<NS>(a, u, c, xj));
 }
 
 __device__ __forceinline__ df shfl_down(df v, int off) {

@@ -56,17 +56,25 @@ from .df32 import df_add, df_exp, df_mul, df_mul_f32, df_sum, fast_two_sum, two_
 from .moment_cov import _index
 
 LAUNCHES = {"df_fwd": 0, "df_fwdres": 0}
+MAX_NS = 3  # the kernels' template instantiations (csrc/df_cov.cu)
 
 
-def _e_slab_df(ah, al, ch, cl, uh, ul, xjh, xjl):
-    """df E (P, Nr, Nc) from a (P, Nr), c (P, Nc), U (P, Nr, ns), Xj (P, Nc, ns),
-    with the cap at 60 on the hi part (twin of pallas_df_cov._e_slab_df)."""
+def _e_exponent_df(ah, al, ch, cl, uh, ul, xjh, xjl):
+    """The df exponent a (+) c (+) sum_e U_e Xj_e (P, Nr, Nc) of E, before the
+    cap, from a (P, Nr), c (P, Nc), U (P, Nr, ns), Xj (P, Nc, ns)."""
     eh, el = two_sum(ah[:, :, None], ch[:, None, :])
     el = el + (al[:, :, None] + cl[:, None, :])
     eh, el = fast_two_sum(eh, el)
     for e in range(uh.shape[-1]):
         th, tl = df_mul(uh[:, :, None, e], ul[:, :, None, e], xjh[:, None, :, e], xjl[:, None, :, e])
         eh, el = df_add(eh, el, th, tl)
+    return eh, el
+
+
+def _e_slab_df(ah, al, ch, cl, uh, ul, xjh, xjl):
+    """df E (P, Nr, Nc) with the cap at 60 on the exponent's hi part (twin of
+    pallas_df_cov._e_slab_df)."""
+    eh, el = _e_exponent_df(ah, al, ch, cl, uh, ul, xjh, xjl)
     return df_exp(torch.clamp(eh, max=60.0), el)
 
 
@@ -193,8 +201,8 @@ def _check(name: str, args, diag_pos) -> Tuple[int, int, int, int]:
         for t in args[2 * i:2 * i + 2]:
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: operand shape {tuple(t.shape)}, expected {shape}")
-    if not 1 <= ns <= 3:
-        raise NotImplementedError(f"{name}: the kernels take 1 <= ns <= 3 state dims, got {ns}")
+    if not 1 <= ns <= MAX_NS:
+        raise NotImplementedError(f"{name}: the kernels take 1 <= ns <= {MAX_NS} state dims, got {ns}")
     return p, nr, nc, ns
 
 

@@ -1,0 +1,652 @@
+"""Whole-step double-float32 moment matching: CUDA kernels, their plain twins
+and the autograd composites.
+
+Port of ``gpmpc_tpu/ops/pallas_df_mm.py``. One moment-matching step of the
+mixed-mode rollout (``models.gp.moment_match_df``) in df32, with its
+N-scaling work in one kernel launch instead of thousands of small ones:
+
+* stage 1 (``df_stage1``): the Ns x Ns df solves, B^-1 and c = outs /
+  sqrt det B per model, Q and sqrt det R per pair;
+* the mean path, per model m and stored point n: inp = x_n - mu, iN = inp
+  ils_m, t = iN with its state block times B_m^-1, lb = exp(-iN . t / 2)
+  beta_m[n]; the raw partials M_m = sum_n lb and V_m[e] = sum_n t_e ils_m[e] lb;
+* the covariance pairs p = (i, j), i <= j: E[n, k] = exp(min(a_n + c_k +
+  U_n . Xj_k, 60)) with a = klog_i + xs_i, c = klog_j + xs_j, U = 2 Xi_i Q_p,
+  Xj = Xi_j (klog_m = log outs_m - |iN_m|^2 / 2, Xi_m = inp ils2_m on the
+  state columns, xs = (Xi Q_p) . Xi); the raw partials S_p = sum bi E bj and,
+  on the diagonal pairs, corr_i = sum iK_i E;
+* the finish: M = c (M), V = c (V), S_p = (S_p (-) corr) / sqrt det R, the
+  subtraction in df (both are ~1e3 and cancel to ~1e-2 at cond(K) ~ 1e6).
+
+Kernels (``csrc/df_mm_fwd.cu`` and ``csrc/df_mm_bwd.cu`` on ``csrc/df_mm.cuh``
+and ``csrc/df32.cuh``), each replacing a Pallas TPU
+kernel of ``gpmpc_tpu/ops/pallas_df_mm.py``:
+
+* ``df_mm_full`` replaces ``_build_full.fwd_kernel`` (#12): stage 1, the
+  mean path, every pair and the finish; final f32 M (ns), V (ns, d), S_p (P).
+  It serves every forward-only evaluation.
+* ``df_mm_fwd`` replaces ``_build.fwd_kernel`` (#8): stages 2-3 from a given
+  B^-1 and Q, the eight raw df partials.
+* ``df_mm_bwd`` replaces ``_build.bwd_all_kernel`` (#9): the VJP of #8 with
+  respect to mu, B^-1 and Q. The TPU kernel runs ``jax.vjp`` in its body;
+  here the VJP is written out. Its derivative is the reference's (each df
+  value carries one f32 tangent, ``df32``'s custom rules: a product's
+  coefficients are the collapsed f32 values of its factors), but every
+  cotangent is carried as a df number: per pair, the exponent's cotangent
+  G = E (gs bi bj + gco iK) and its row and column sums (weighted by Xj and
+  by U, the residual scheme of ``df_cov.DfCovCore``) stay df, and so do the
+  chain rule through a, c, U and Xj to inp = x - mu and Q, the mean path's
+  VJP and the sums over N. Only the outputs are collapsed to f32. The sums
+  that cancel at cond(K) ~ 1e6 (fault C1 in ROADMAP) therefore cancel in df.
+
+``FullStep`` is the differentiable whole step: forward #12, backward the
+split path of ``_build_full`` (``df_stage1`` by autograd, then ``Stage23``:
+forward #8, backward #9, then the finish), differentiated with respect to
+(mu, sv), as the reference's ``core_bwd`` takes ``jax.vjp`` of
+``_reference_path``. The cache slabs get no gradient (``core_bwd`` returns
+zeros for them): they are constants while planning.
+
+Every kernel takes any N (the ragged edge is masked) with 1 <= ns <= 3 and
+ns <= d <= 8. The reference pads N to a power of two for Mosaic
+(``_pad_cache_pow2``, exact); the port needs no padding, so the 96 bucket
+runs at N = 96. Dispatch (``ops.use_df_fused``) keeps the reference's range,
+``supported``: 32 <= N <= 128.
+
+The plain twins are batched PyTorch on tensors, with each element's f32
+operations in the kernels' order (so E and every operand agree bit for bit,
+and a kernel differs from its twin only in the order of its df sums). They
+are the CPU path and the kernels' oracle.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .df32 import df_add, df_add_f32, df_div, df_exp, df_mul, df_mul_f32, df_sqrt, df_sum, two_prod
+from .df_cov import _e_exponent_df
+from .df_cov import df_cov_abs_terms as _df_cov_abs
+
+LAUNCHES = {"df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
+MAX_NS, MAX_D = 3, 8
+
+
+def supported(n: int, ns: int, d: int) -> bool:
+    """The reference's dispatch range of the whole-step path
+    (pallas_df_mm.supported): buckets 32..128, where an online-learning
+    episode spends its early steps, and the shapes its kernels take."""
+    return 32 <= n <= 128 and ns <= MAX_NS and d <= MAX_D
+
+
+@functools.lru_cache(maxsize=None)
+def pair_indices(ns: int, device: torch.device):
+    """Upper-triangle pair indices (ii, jj), the pair index of each (m, m) as
+    a tensor and as a tuple. Made once per device: a fresh host-to-device
+    index copy on every step would stall the stream."""
+    ii, jj = np.triu_indices(ns)
+    diag = np.where(ii == jj)[0]
+    return (torch.as_tensor(ii, device=device), torch.as_tensor(jj, device=device),
+            torch.as_tensor(diag, device=device), tuple(int(p) for p in diag))
+
+
+# ---------------------------------------------------------------------------
+# stage 1: the small df solves
+# ---------------------------------------------------------------------------
+
+
+def spd_inv_det_df(Mh, Ml):
+    """(Mh + Ml) (..., k, k) SPD in df32 -> (Minv_h, Minv_l, det_h, det_l) by
+    an unrolled Cholesky of elementwise df ops. A pivot guard clamps each
+    pivot at a tiny fraction of its row diagonal: inactive on healthy inputs,
+    it keeps a covariance that drifted indefinite from NaN-ing the rollout."""
+    k = Mh.shape[-1]
+    one = (torch.ones_like(Mh[..., 0, 0]), torch.zeros_like(Mh[..., 0, 0]))
+    L = [[None] * k for _ in range(k)]
+    for i in range(k):
+        for j in range(i + 1):
+            s = (Mh[..., i, j], Ml[..., i, j])
+            for p in range(j):
+                prod = df_mul(*L[i][p], *L[j][p])
+                s = df_add(s[0], s[1], -prod[0], -prod[1])
+            if i == j:
+                floor = 1e-10 * torch.abs(Mh[..., i, i]) + 1e-30
+                guard = s[0] < floor
+                s = (torch.where(guard, floor, s[0]), torch.where(guard, torch.zeros_like(s[1]), s[1]))
+                L[i][i] = df_sqrt(*s)
+            else:
+                L[i][j] = df_div(*s, *L[j][j])
+    det = df_mul(*L[0][0], *L[0][0])
+    for i in range(1, k):
+        det = df_mul(*det, *df_mul(*L[i][i], *L[i][i]))
+    Li = [[None] * k for _ in range(k)]
+    for i in range(k):
+        for j in range(i + 1):
+            if i == j:
+                Li[i][i] = df_div(*one, *L[i][i])
+            else:
+                s = df_mul(*L[i][j], *Li[j][j])
+                for p in range(j + 1, i):
+                    s = df_add(*s, *df_mul(*L[i][p], *Li[p][j]))
+                Li[i][j] = df_div(-s[0], -s[1], *L[i][i])
+    rows_h, rows_l = [], []
+    for i in range(k):
+        row_h, row_l = [], []
+        for j in range(k):
+            lo = max(i, j)
+            s = df_mul(*Li[lo][i], *Li[lo][j])
+            for p in range(lo + 1, k):
+                s = df_add(*s, *df_mul(*Li[p][i], *Li[p][j]))
+            row_h.append(s[0])
+            row_l.append(s[1])
+        rows_h.append(torch.stack(row_h, dim=-1))
+        rows_l.append(torch.stack(row_l, dim=-1))
+    return torch.stack(rows_h, dim=-2), torch.stack(rows_l, dim=-2), det[0], det[1]
+
+
+def _diag_embed(v):
+    """(..., D) -> (..., D, D) by multiplying with the identity (off-diagonal
+    entries are v * 0), as the JAX package does."""
+    return v[..., :, None] * torch.eye(v.shape[-1], dtype=v.dtype, device=v.device)
+
+
+def df_stage1(cache, sv32, ii, jj):
+    """The small df32 matrices of one moment-matching step from a DFCache
+    (its ils, ils2 and outs) and the f32 state covariance sv32 (ns, ns):
+    B^-1 (ns, ns, ns) hi and lo, c (ns,), Q (P, ns, ns) hi and lo and
+    sqrt det R (P,) (ii, jj: the pairs' index tensors)."""
+    ns = sv32.shape[0]
+    device = sv32.device
+
+    # B = diag(ils) sv diag(ils) + I, per model (state block only)
+    ils_s_h, ils_s_l = cache.ils_hi[:, :ns], cache.ils_lo[:, :ns]
+    outer_h, outer_l = df_mul(ils_s_h[:, :, None], ils_s_l[:, :, None], ils_s_h[:, None, :], ils_s_l[:, None, :])
+    B_h, B_l = df_mul_f32(outer_h, outer_l, sv32[None])
+    eye = torch.eye(ns, dtype=torch.float32, device=device)
+    B_h, B_l = df_add_f32(B_h, B_l, eye[None])
+    B_inv_h, B_inv_l, det_B_h, det_B_l = spd_inv_det_df(B_h, B_l)
+    c32 = cache.outs / torch.sqrt(det_B_h + det_B_l)  # scales M and V: f32 is enough
+
+    ils2_h, ils2_l = cache.ils2_hi[:, :ns], cache.ils2_lo[:, :ns]
+    ss_h, ss_l = df_add(ils2_h[ii], ils2_l[ii], ils2_h[jj], ils2_l[jj])  # (P, ns)
+    d_inv_h, d_inv_l = df_div(torch.ones_like(ss_h), torch.zeros_like(ss_h), ss_h, ss_l)
+    # A = sv + diag(d_inv): diagonal entries fold sv_ii into the df pair exactly
+    eye_p = eye[None]
+    diag_h, diag_l = df_add_f32(_diag_embed(d_inv_h), _diag_embed(d_inv_l), sv32[None] * eye_p)
+    A_h = torch.where(eye_p > 0, diag_h, sv32[None])
+    A_l = torch.where(eye_p > 0, diag_l, torch.zeros_like(diag_l))
+    A_inv_h, A_inv_l, det_A_h, det_A_l = spd_inv_det_df(A_h, A_l)
+    # AinvS = A^-1 sv (sv exact f32), unrolled df dots
+    cols_h, cols_l = [], []
+    for m in range(ns):
+        ah, al = df_mul_f32(A_inv_h[:, :, 0], A_inv_l[:, :, 0], sv32[0, m])
+        for l_ in range(1, ns):
+            ph, pl = df_mul_f32(A_inv_h[:, :, l_], A_inv_l[:, :, l_], sv32[l_, m])
+            ah, al = df_add(ah, al, ph, pl)
+        cols_h.append(ah)
+        cols_l.append(al)
+    AinvS_h = torch.stack(cols_h, dim=-1)  # (P, ns, ns)
+    AinvS_l = torch.stack(cols_l, dim=-1)
+    Qh, Ql = df_mul(d_inv_h[..., :, None], d_inv_l[..., :, None], AinvS_h, AinvS_l)
+    Qh, Ql = 0.5 * Qh, 0.5 * Ql  # exact halving
+    prod_ss = ss_h[:, 0] + ss_l[:, 0]
+    for e in range(1, ns):
+        prod_ss = prod_ss * (ss_h[:, e] + ss_l[:, e])
+    sqrt_det_R32 = torch.sqrt((det_A_h + det_A_l) * prod_ss)  # divides S_p after the cancellation
+    return B_inv_h, B_inv_l, c32, Qh, Ql, sqrt_det_R32
+
+
+# ---------------------------------------------------------------------------
+# the per-point operands (each element's operations in the kernels' order)
+# ---------------------------------------------------------------------------
+
+
+def _model_rows(mu, cache):
+    """Per model m and point n: inp (N, d), iN (ns, N, d), klog (ns, N) and
+    Xi (ns, N, ns), each a df (hi, lo); the sums over e run in order."""
+    ns, d = cache.ils_hi.shape
+    inp = df_add_f32(cache.x_hi, cache.x_lo, -mu[None, :])
+    iN = df_mul(inp[0][None], inp[1][None], cache.ils_hi[:, None, :], cache.ils_lo[:, None, :])
+    kh, kl = df_mul(iN[0][..., 0], iN[1][..., 0], iN[0][..., 0], iN[1][..., 0])
+    for e in range(1, d):
+        kh, kl = df_add(kh, kl, *df_mul(iN[0][..., e], iN[1][..., e], iN[0][..., e], iN[1][..., e]))
+    klog = df_add(-0.5 * kh, -0.5 * kl, cache.log_outs_hi[:, None].expand_as(kh),
+                  cache.log_outs_lo[:, None].expand_as(kh))
+    xi = df_mul(inp[0][None, :, :ns], inp[1][None, :, :ns], cache.ils2_hi[:, None, :ns], cache.ils2_lo[:, None, :ns])
+    return inp, iN, klog, xi
+
+
+def _qform(xi_h, xi_l, qh, ql):
+    """xq = Xi Q (a list of ns df (P, N)) and xs = xq . Xi (df (P, N)) for
+    Xi (P, N, ns) and Q (P, ns, ns)."""
+    ns = xi_h.shape[-1]
+    xq = []
+    for j in range(ns):
+        acc = df_mul(xi_h[..., 0], xi_l[..., 0], qh[:, None, 0, j], ql[:, None, 0, j])
+        for k in range(1, ns):
+            acc = df_add(*acc, *df_mul(xi_h[..., k], xi_l[..., k], qh[:, None, k, j], ql[:, None, k, j]))
+        xq.append(acc)
+    xs = df_mul(*xq[0], xi_h[..., 0], xi_l[..., 0])
+    for j in range(1, ns):
+        xs = df_add(*xs, *df_mul(*xq[j], xi_h[..., j], xi_l[..., j]))
+    return xq, xs
+
+
+def _pair_rows(mu, qh, ql, cache):
+    """The E exponent's operands of every pair: a, c (P, N) and U, Xj
+    (P, N, ns) as df, and what the VJP reuses (iN, Xi, xq of both sides)."""
+    ns = cache.ils_hi.shape[0]
+    ii, jj, _, _ = pair_indices(ns, mu.device)
+    inp, iN, klog, xi = _model_rows(mu, cache)
+    xi_i = (xi[0][ii], xi[1][ii])
+    xi_j = (xi[0][jj], xi[1][jj])
+    xq_i, xs_i = _qform(*xi_i, qh, ql)
+    xq_j, xs_j = _qform(*xi_j, qh, ql)
+    a = df_add(klog[0][ii], klog[1][ii], *xs_i)
+    c = df_add(klog[0][jj], klog[1][jj], *xs_j)
+    u = (2.0 * torch.stack([h for h, _ in xq_i], dim=-1), 2.0 * torch.stack([l for _, l in xq_i], dim=-1))
+    return dict(a=a, c=c, u=u, xj=xi_j, xi_i=xi_i, xq_i=xq_i, xq_j=xq_j, iN=iN)
+
+
+def _mean_rows(mu, bh, bl, cache):
+    """The mean path per model and point: iN (ns, N, d) and t (a list of d df
+    (ns, N)), the exponent's hi before the cap, q and lb (ns, N)."""
+    ns, d = cache.ils_hi.shape
+    _, iN, _, _ = _model_rows(mu, cache)
+    t = []
+    for j in range(ns):
+        acc = df_mul(iN[0][..., 0], iN[1][..., 0], bh[:, None, 0, j], bl[:, None, 0, j])
+        for k in range(1, ns):
+            acc = df_add(*acc, *df_mul(iN[0][..., k], iN[1][..., k], bh[:, None, k, j], bl[:, None, k, j]))
+        t.append(acc)
+    t += [(iN[0][..., e], iN[1][..., e]) for e in range(ns, d)]
+    ex = df_mul(iN[0][..., 0], iN[1][..., 0], *t[0])
+    for e in range(1, d):
+        ex = df_add(*ex, *df_mul(iN[0][..., e], iN[1][..., e], *t[e]))
+    q = df_exp(torch.clamp(-0.5 * ex[0], max=60.0), -0.5 * ex[1])
+    lb = df_mul(*q, cache.beta_hi, cache.beta_lo)
+    return iN, t, -0.5 * ex[0], q, lb
+
+
+# ---------------------------------------------------------------------------
+# plain twins of the three kernels
+# ---------------------------------------------------------------------------
+
+
+def stage23_plain(mu, bh, bl, qh, ql, cache):
+    """What ``df_mm_fwd`` computes (``_mean_part`` and ``_pair_part`` of the
+    reference): the raw df partials (M_h, M_l (ns,), V_h, V_l (ns, d),
+    Sp_h, Sp_l (P,), corr_h, corr_l (ns,)) from mu (d,), B^-1 (ns, ns, ns)
+    and Q (P, ns, ns) as df."""
+    ns, d = cache.ils_hi.shape
+    _, t, _, _, lb = _mean_rows(mu, bh, bl, cache)
+    M = df_sum(*lb, axis=-1)
+    v = [df_sum(*df_mul(*df_mul(*t[e], cache.ils_hi[:, e:e + 1], cache.ils_lo[:, e:e + 1]), *lb), axis=-1)
+         for e in range(d)]
+    V = (torch.stack([h for h, _ in v], dim=-1), torch.stack([l for _, l in v], dim=-1))
+
+    r = _pair_rows(mu, qh, ql, cache)
+    ex_h, ex_l = _e_exponent_df(*r["a"], *r["c"], *r["u"], *r["xj"])
+    eh, el = df_exp(torch.clamp(ex_h, max=60.0), ex_l)
+    ii, jj, dpos, _ = pair_indices(ns, mu.device)
+    w = df_mul(eh, el, cache.beta_hi[ii][:, :, None], cache.beta_lo[ii][:, :, None])
+    w = df_mul(*w, cache.beta_hi[jj][:, None, :], cache.beta_lo[jj][:, None, :])
+    p = len(ii)
+    Sp = df_sum(w[0].reshape(p, -1), w[1].reshape(p, -1), axis=-1)
+    co = df_mul(eh[dpos], el[dpos], cache.iK_hi, cache.iK_lo)
+    corr = df_sum(co[0].reshape(ns, -1), co[1].reshape(ns, -1), axis=-1)
+    return (*M, *V, *Sp, *corr)
+
+
+def finish(raw, c32, sqrt_det_r):
+    """M (ns,), V (ns, d) and S_p (P,) in f32 from the raw df partials: c
+    scales M and V, corr is subtracted from the diagonal pairs' S_p in df,
+    and S_p is divided by sqrt det R after the cancellation. Differentiable."""
+    M_h, M_l, V_h, V_l, Sp_h, Sp_l, co_h, co_l = raw
+    diag = pair_indices(M_h.shape[0], M_h.device)[2]
+    zeros = torch.zeros_like(Sp_h)
+    sh, sl = df_add(Sp_h, Sp_l, -zeros.index_copy(0, diag, co_h), -zeros.index_copy(0, diag, co_l))
+    return c32 * (M_h + M_l), c32[:, None] * (V_h + V_l), (sh + sl) / sqrt_det_r
+
+
+def full_step_plain(mu, sv, cache):
+    """What ``df_mm_full`` computes (``_full_step`` of the reference): stage 1,
+    stages 2-3 and the finish; M (ns,), V (ns, d) and S_p (P,) in f32."""
+    ii, jj, _, _ = pair_indices(cache.ils_hi.shape[0], mu.device)
+    Bh, Bl, c32, Qh, Ql, sdr = df_stage1(cache, sv, ii, jj)
+    return finish(stage23_plain(mu, Bh, Bl, Qh, Ql, cache), c32, sdr)
+
+
+def _mf(x, coef):
+    """A df cotangent times an f32 coefficient, as a df."""
+    return df_mul_f32(*x, coef)
+
+
+def stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
+    """What ``df_mm_bwd`` computes: the VJP of ``stage23_plain`` at the hi
+    cotangents g_m (ns,), g_v (ns, d), g_sp (P,) and g_corr (ns,), under the
+    reference's derivative rules, every cotangent carried as a df (see the
+    module docstring). Returns (g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns))
+    in f32: the gradient of each B^-1 and Q entry, the same for its hi and
+    lo half."""
+    ns, d = cache.ils_hi.shape
+    ils_c = cache.ils_hi + cache.ils_lo
+    ils2_c = cache.ils2_hi + cache.ils2_lo
+    g_inp = [[] for _ in range(d)]  # df (…, N) contributions to the cotangent of inp[:, e]
+
+    # ---- the mean path: per (m, n), coefficients collapsed to f32 -------------
+    iN, t, ex_hi, q, lb = _mean_rows(mu, bh, bl, cache)
+    iN_c = [iN[0][..., e] + iN[1][..., e] for e in range(d)]
+    t_c = [h + l for h, l in t]
+    lb_c, q_c = lb[0] + lb[1], q[0] + q[1]
+    beta_c = cache.beta_hi + cache.beta_lo
+    b_c = bh + bl
+    tiL_c = []
+    for e in range(d):
+        th, tl = df_mul(*t[e], cache.ils_hi[:, e:e + 1], cache.ils_lo[:, e:e + 1])
+        tiL_c.append(th + tl)
+    g_lb = (g_m[:, None].expand_as(lb_c), torch.zeros_like(lb_c))
+    for e in range(d):
+        g_lb = df_add(*g_lb, *two_prod(g_v[:, e:e + 1].expand_as(lb_c), tiL_c[e]))
+    g_t = [_mf(two_prod(g_v[:, e:e + 1].expand_as(lb_c), lb_c), ils_c[:, e:e + 1]) for e in range(d)]
+    g_ex = _mf(_mf(g_lb, beta_c), q_c)
+    live = (ex_hi < 60.0).to(torch.float32)
+    g_ex = (-0.5 * g_ex[0] * live, -0.5 * g_ex[1] * live)
+    g_iN = [_mf(g_ex, t_c[e]) for e in range(d)]
+    g_t = [df_add(*g_t[e], *_mf(g_ex, iN_c[e])) for e in range(d)]
+    g_b = [[None] * ns for _ in range(ns)]
+    for j in range(ns):
+        for k in range(ns):
+            g_iN[k] = df_add(*g_iN[k], *_mf(g_t[j], b_c[:, None, k, j]))
+            g_b[k][j] = df_sum(*_mf(g_t[j], iN_c[k]), axis=-1)  # (ns,)
+    for e in range(ns, d):
+        g_iN[e] = df_add(*g_iN[e], *g_t[e])
+    for e in range(d):
+        g_inp[e].append(_mf(g_iN[e], ils_c[:, e:e + 1]))
+
+    # ---- the pairs: df residuals of the exponent's cotangent G ---------------
+    r = _pair_rows(mu, qh, ql, cache)
+    ii, jj, dpos, _ = pair_indices(ns, mu.device)
+    p = len(ii)
+    ex_h, ex_l = _e_exponent_df(*r["a"], *r["c"], *r["u"], *r["xj"])
+    E = df_exp(torch.clamp(ex_h, max=60.0), ex_l)
+    w = df_mul_f32(*df_mul(cache.beta_hi[ii][:, :, None], cache.beta_lo[ii][:, :, None],
+                           cache.beta_hi[jj][:, None, :], cache.beta_lo[jj][:, None, :]), g_sp[:, None, None])
+    gco = torch.zeros(p, dtype=g_sp.dtype, device=g_sp.device)
+    gco[dpos] = g_corr
+    ik_h = torch.zeros_like(w[0])
+    ik_l = torch.zeros_like(w[0])
+    ik_h[dpos], ik_l[dpos] = cache.iK_hi, cache.iK_lo
+    w = df_add(*w, *df_mul_f32(ik_h, ik_l, gco[:, None, None]))
+    G = df_mul(*E, *w)
+    live = (ex_h < 60.0).to(torch.float32)
+    G = (G[0] * live, G[1] * live)
+    u_c = r["u"][0] + r["u"][1]
+    xj_c = r["xj"][0] + r["xj"][1]
+    ra = df_sum(*G, axis=-1)  # (P, N): rows, sums over k
+    ru = [df_sum(*_mf(G, xj_c[:, None, :, e]), axis=-1) for e in range(ns)]
+    cc = df_sum(*G, axis=-2)  # (P, N): columns, sums over n
+    cx = [df_sum(*_mf(G, u_c[:, :, None, e]), axis=-2) for e in range(ns)]
+
+    q_c = qh + ql
+    g_q = [[[] for _ in range(ns)] for _ in range(ns)]
+    iN_c = r["iN"][0] + r["iN"][1]  # (ns, N, d)
+    for side, (res, res_x, models) in enumerate(((ra, ru, ii), (cc, cx, jj))):
+        xi = (r["xi_i"] if side == 0 else r["xj"])
+        xi_c = xi[0] + xi[1]  # (P, N, ns)
+        xq = r["xq_i"] if side == 0 else r["xq_j"]
+        xq_c = [h + l for h, l in xq]
+        if side == 0:  # a = klog_i + xs_i, U = 2 xq_i
+            g_xq = [df_add(2.0 * res_x[e][0], 2.0 * res_x[e][1], *_mf(res, xi_c[..., e])) for e in range(ns)]
+        else:  # c = klog_j + xs_j
+            g_xq = [_mf(res, xi_c[..., e]) for e in range(ns)]
+        g_xi = []
+        for k in range(ns):
+            acc = _mf(res, xq_c[k])
+            if side == 1:  # Xj = Xi_j
+                acc = df_add(*acc, *res_x[k])
+            for e in range(ns):
+                acc = df_add(*acc, *_mf(g_xq[e], q_c[:, None, k, e]))
+            g_xi.append(acc)
+        for k in range(ns):
+            for e in range(ns):
+                g_q[k][e].append(_mf(g_xq[e], xi_c[..., k]))
+        iN_s = iN_c[models]  # (P, N, d)
+        ils_s, ils2_s = ils_c[models], ils2_c[models]
+        for e in range(d):
+            g = _mf(_mf(res, -iN_s[..., e]), ils_s[:, e:e + 1])
+            if e < ns:
+                g = df_add(*g, *_mf(g_xi[e], ils2_s[:, e:e + 1]))
+            g_inp[e].append(g)
+
+    def total(parts):
+        h = torch.cat([t[0].reshape(-1) for t in parts])
+        l = torch.cat([t[1].reshape(-1) for t in parts])
+        return df_sum(h, l, axis=-1)
+
+    g_mu = torch.stack([-(lambda s: s[0] + s[1])(total(g_inp[e])) for e in range(d)])
+    g_B = torch.stack([torch.stack([g_b[k][j][0] + g_b[k][j][1] for j in range(ns)], dim=-1)
+                       for k in range(ns)], dim=-2)
+    g_Q = torch.stack([torch.stack([(lambda s: s[0] + s[1])(df_sum(*_cat_pair(g_q[k][e]), axis=-1))
+                                    for e in range(ns)], dim=-1) for k in range(ns)], dim=-2)
+    return g_mu, g_B, g_Q
+
+
+def _cat_pair(parts):
+    """Row- and column-side (P, N) df contributions -> (P, 2N)."""
+    return torch.cat([t[0] for t in parts], dim=-1), torch.cat([t[1] for t in parts], dim=-1)
+
+
+def abs_terms(mu, bh, bl, qh, ql, cache):
+    """The sum of the absolute values of the terms of each raw output of
+    ``stage23_plain``, in f64 from the collapsed operands: M (ns,), V (ns, d),
+    S_p (P,) and corr (ns,). A compensated sum's error is bounded by a small
+    multiple of eps32^2 times this, whatever the order of summation."""
+    ns, d = cache.ils_hi.shape
+    f64 = torch.float64
+
+    def v(x):
+        return x[0].to(f64) + x[1].to(f64)
+
+    _, t, _, _, lb = _mean_rows(mu, bh, bl, cache)
+    ils = cache.ils_hi.to(f64) + cache.ils_lo.to(f64)
+    lb64 = v(lb).abs()
+    m_abs = lb64.sum(-1)
+    v_abs = torch.stack([(v(t[e]) * ils[:, e:e + 1]).abs().mul(lb64).sum(-1) for e in range(d)], dim=-1)
+    r = _pair_rows(mu, qh, ql, cache)
+    ii, jj, _, diag = pair_indices(ns, mu.device)
+    (sp_abs, co_abs), _ = _df_cov_abs(*r["a"], *r["c"], *r["u"], *r["xj"], cache.beta_hi[ii], cache.beta_lo[ii],
+                                      cache.beta_hi[jj], cache.beta_lo[jj], cache.iK_hi, cache.iK_lo, diag)
+    return m_abs, v_abs, sp_abs, co_abs
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_CACHE_FIELDS = ("x_hi", "x_lo", "ils_hi", "ils_lo", "ils2_hi", "ils2_lo", "log_outs_hi", "log_outs_lo",
+                 "beta_hi", "beta_lo", "iK_hi", "iK_lo")
+
+
+def _check(name: str, cache, **tensors) -> Tuple[int, int, int]:
+    """Device, dtype, contiguity and shapes of the operands; (N, ns, d)."""
+    n, d = cache.x_hi.shape
+    ns = cache.ils_hi.shape[0]
+    p = ns * (ns + 1) // 2
+    shapes = dict(x_hi=(n, d), x_lo=(n, d), ils_hi=(ns, d), ils_lo=(ns, d), ils2_hi=(ns, d), ils2_lo=(ns, d),
+                  log_outs_hi=(ns,), log_outs_lo=(ns,), outs=(ns,), beta_hi=(ns, n), beta_lo=(ns, n),
+                  iK_hi=(ns, n, n), iK_lo=(ns, n, n), mu=(d,), sv=(ns, ns), bh=(ns, ns, ns), bl=(ns, ns, ns),
+                  qh=(p, ns, ns), ql=(p, ns, ns), g_m=(ns,), g_v=(ns, d), g_sp=(p,), g_corr=(ns,))
+    named = {f: getattr(cache, f) for f in _CACHE_FIELDS + ("outs",)}
+    named.update(tensors)
+    device = tensors["mu"].device
+    for arg, t in named.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected CUDA tensors on one device")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes float32 (hi, lo) halves only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+        if tuple(t.shape) != shapes[arg]:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shapes[arg]}")
+    if not (1 <= ns <= MAX_NS and ns <= d <= MAX_D and n >= 1):
+        raise NotImplementedError(f"{name}: the kernels take 1 <= ns <= {MAX_NS} and ns <= d <= {MAX_D}, "
+                                  f"got ns={ns}, d={d}, N={n}")
+    return n, ns, d
+
+
+def _cache_ptrs(cache):
+    return [getattr(cache, f).data_ptr() for f in _CACHE_FIELDS]
+
+
+def _grid(n: int, ns: int, d: int, tile: int):
+    """(row tiles, pair tiles of the (N, N) slabs of all pairs, P)."""
+    nt = -(-n // tile)
+    p = ns * (ns + 1) // 2
+    return nt, p * nt * nt, p
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def full_step_fwd(mu, sv, cache):
+    """M (ns,), V (ns, d), S_p (P,) of one moment-matching step (#12). A CPU
+    tensor takes the plain twin; a CUDA tensor launches the kernel or raises."""
+    if mu.device.type == "cpu":
+        return full_step_plain(mu, sv, cache)
+    mu, sv = mu.contiguous(), sv.contiguous()
+    n, ns, d = _check("df_mm_full", cache, mu=mu, sv=sv)
+    lib = _build.load()
+    nt, nblk, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
+    dev = mu.device
+    pair_part = torch.empty((2, nblk, 2), dtype=torch.float32, device=dev)
+    mean_part = torch.empty((2, ns, 1 + d, nt), dtype=torch.float32, device=dev)
+    scale = torch.empty(ns + p, dtype=torch.float32, device=dev)
+    out = torch.empty(ns + ns * d + p, dtype=torch.float32, device=dev)
+    rc = lib.gpmpc_df_mm_full_f32(mu.data_ptr(), sv.data_ptr(), *_cache_ptrs(cache), cache.outs.data_ptr(),
+                                  pair_part.data_ptr(), mean_part.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                  n, ns, d, _stream(mu))
+    _build.check(rc, "df_mm_full")
+    LAUNCHES["df_mm_full"] += 1
+    return out[:ns], out[ns:ns + ns * d].view(ns, d), out[ns + ns * d:]
+
+
+def stage23_fwd(mu, bh, bl, qh, ql, cache):
+    """The raw df partials of ``stage23_plain`` (#8). A CPU tensor takes the
+    plain twin; a CUDA tensor launches the kernel or raises."""
+    if mu.device.type == "cpu":
+        return stage23_plain(mu, bh, bl, qh, ql, cache)
+    mu, bh, bl, qh, ql = (t.contiguous() for t in (mu, bh, bl, qh, ql))
+    n, ns, d = _check("df_mm_fwd", cache, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql)
+    lib = _build.load()
+    nt, nblk, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
+    dev = mu.device
+    pair_part = torch.empty((2, nblk, 2), dtype=torch.float32, device=dev)
+    mean_part = torch.empty((2, ns, 1 + d, nt), dtype=torch.float32, device=dev)
+    out = torch.empty((2, ns + ns * d + p + ns), dtype=torch.float32, device=dev)
+    rc = lib.gpmpc_df_mm_fwd_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), qh.data_ptr(), ql.data_ptr(),
+                                 *_cache_ptrs(cache), pair_part.data_ptr(), mean_part.data_ptr(), out.data_ptr(),
+                                 n, ns, d, _stream(mu))
+    _build.check(rc, "df_mm_fwd")
+    LAUNCHES["df_mm_fwd"] += 1
+    o = [0, ns, ns + ns * d, ns + ns * d + p, ns + ns * d + p + ns]
+    M, V, Sp, corr = (out[:, o[i]:o[i + 1]] for i in range(4))
+    return M[0], M[1], V[0].view(ns, d), V[1].view(ns, d), Sp[0], Sp[1], corr[0], corr[1]
+
+
+def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
+    """(g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns)) of ``stage23_vjp_plain``
+    (#9). A CPU tensor takes the plain twin; a CUDA tensor launches the
+    kernel or raises."""
+    if mu.device.type == "cpu":
+        return stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr)
+    mu, bh, bl, qh, ql, g_m, g_v, g_sp, g_corr = (t.contiguous() for t in (mu, bh, bl, qh, ql, g_m, g_v, g_sp,
+                                                                            g_corr))
+    n, ns, d = _check("df_mm_bwd", cache, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql, g_m=g_m, g_v=g_v, g_sp=g_sp,
+                      g_corr=g_corr)
+    lib = _build.load()
+    nt, nblk, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
+    dev = mu.device
+    ct = torch.cat([g_m, g_v.reshape(-1), g_sp, g_corr])
+    row_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
+    col_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
+    mean_part = torch.empty((2, ns, nt, d + ns * ns), dtype=torch.float32, device=dev)
+    unit_part = torch.empty((2, 2 * p * nt, d + ns * ns), dtype=torch.float32, device=dev)
+    out = torch.empty(d + ns ** 3 + p * ns * ns, dtype=torch.float32, device=dev)
+    rc = lib.gpmpc_df_mm_bwd_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), qh.data_ptr(), ql.data_ptr(),
+                                 *_cache_ptrs(cache), ct.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
+                                 mean_part.data_ptr(), unit_part.data_ptr(), out.data_ptr(), n, ns, d,
+                                 _stream(mu))
+    _build.check(rc, "df_mm_bwd")
+    LAUNCHES["df_mm_bwd"] += 1
+    return out[:d], out[d:d + ns ** 3].view(ns, ns, ns), out[d + ns ** 3:].view(p, ns, ns)
+
+
+# ---------------------------------------------------------------------------
+# autograd composites
+# ---------------------------------------------------------------------------
+
+
+class Stage23(torch.autograd.Function):
+    """Stages 2-3 as raw df partials: forward #8, backward #9 with the hi
+    cotangents only (each raw output is a df reduction whose tangent is
+    (dv, 0), so the lo cotangent carries nothing). B^-1 and Q get the same
+    gradient on both halves; the cache gets none."""
+
+    @staticmethod
+    def forward(ctx, mu, bh, bl, qh, ql, cache):
+        ctx.cache = cache
+        ctx.save_for_backward(mu, bh, bl, qh, ql)
+        return stage23_fwd(mu, bh, bl, qh, ql, cache)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        mu, bh, bl, qh, ql = ctx.saved_tensors
+        ns, d = ctx.cache.ils_hi.shape
+        p = qh.shape[0]
+        shapes = ((ns,), (ns, d), (p,), (ns,))
+        hi = [torch.zeros(s, dtype=mu.dtype, device=mu.device) if g is None else g
+              for g, s in zip(cts[0::2], shapes)]
+        g_mu, g_b, g_q = stage23_bwd(mu, bh, bl, qh, ql, ctx.cache, *hi)
+        return g_mu, g_b, g_b, g_q, g_q, None
+
+
+def split_path(mu, sv, cache):
+    """The step by the split path, differentiable in (mu, sv): df stage 1
+    (PyTorch ops), ``Stage23`` and the finish (``_reference_path``)."""
+    ii, jj, _, _ = pair_indices(cache.ils_hi.shape[0], mu.device)
+    Bh, Bl, c32, Qh, Ql, sdr = df_stage1(cache, sv, ii, jj)
+    return finish(Stage23.apply(mu, Bh, Bl, Qh, Ql, cache), c32, sdr)
+
+
+class FullStep(torch.autograd.Function):
+    """The whole step: forward #12; backward by autograd of ``split_path``
+    with respect to (mu, sv), which launches #8 and #9 (the reference's
+    ``_build_full.core``)."""
+
+    @staticmethod
+    def forward(ctx, mu, sv, cache):
+        ctx.cache = cache
+        ctx.save_for_backward(mu, sv)
+        return full_step_fwd(mu, sv, cache)
+
+    @staticmethod
+    def backward(ctx, g_m, g_v, g_sp):
+        mu, sv = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = (mu.detach().requires_grad_(True), sv.detach().requires_grad_(True))
+            outs = split_path(*leaves, ctx.cache)
+            pairs = [(o, g) for o, g in zip(outs, (g_m, g_v, g_sp)) if g is not None]
+            g_mu, g_sv = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
+                                             allow_unused=True)
+        return g_mu, g_sv, None
+
+
+def full_step(mu, sv, cache):
+    """M (ns,), V (ns, d), S_p (P,) of one moment-matching step in df32,
+    differentiable in mu (d,) and sv (ns, ns)."""
+    return FullStep.apply(mu, sv, cache)

@@ -96,6 +96,15 @@ def cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos):
 # ---------------------------------------------------------------------------
 
 
+MAX_NS = 8  # GPMPC_MAX_NS of csrc/cov_core.cu: a row's ns values live in fixed arrays
+
+
+def _check_ns(name: str, ns: int) -> None:
+    """Refuse, before the launch, a state width the kernels do not take."""
+    if not 1 <= ns <= MAX_NS:
+        raise NotImplementedError(f"{name}: the kernels take 1 <= ns <= {MAX_NS} state dims, got {ns}")
+
+
 def cov_fwd(a, c, u, xj, bi, bj, ik, diag_pos):
     """(S_p (P,), corr (n_diag,)). A CPU tensor takes the plain version
     (cov_core_ref); a CUDA tensor launches the kernel or raises."""
@@ -108,6 +117,7 @@ def cov_fwd(a, c, u, xj, bi, bj, ik, diag_pos):
     if u.shape != (p, nr, ns) or xj.shape != (p, nc, ns) or bi.shape != (p, nr) \
             or bj.shape != (p, nc) or ik.shape != (len(diag_pos), nr, nc):
         raise ValueError("cov_fwd: inconsistent shapes")
+    _check_ns("cov_fwd", ns)
     lib = _build.load()
     tiles = -(-nr // lib.gpmpc_cov_fwd_rows())
     sp_part = torch.empty((p, tiles), dtype=torch.float32, device=a.device)
@@ -180,6 +190,7 @@ def cov_bwd_row(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
             or xj.shape != (p, nc, ns) or wr.shape != (p, nr) or wc.shape != (p, nc) \
             or ik.shape != (len(diag_pos), nr, nc):
         raise ValueError("cov_bwd_row: inconsistent shapes")
+    _check_ns("cov_bwd_row", ns)
     lib = _build.load()
     ga = torch.empty((p, nr), dtype=torch.float32, device=a.device)
     gu = torch.empty((p, nr, ns), dtype=torch.float32, device=a.device)

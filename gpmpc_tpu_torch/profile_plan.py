@@ -1,11 +1,16 @@
 """Where a planning step's time goes on the card.
 
-    python -m gpmpc_tpu_torch.profile_plan [--steps 3] [--mixed] [--out FILE.json]
-    python -m gpmpc_tpu_torch.profile_plan --count-ops [--points 40 --bucket 64]
+    python -m gpmpc_tpu_torch.profile_plan [--steps 3] [--mixed [--points 300 --bucket 384]]
+                                          [--df-cov-route] [--out FILE.json]
+    python -m gpmpc_tpu_torch.profile_plan --count-ops [--points 40 --bucket 64] [--fused | --df-cov-route]
 
 For the flagship (300 points in the 384 bucket) and the 24-point case of
 chip_smoke.py's accuracy check, both f32, or with ``--mixed`` for the
-trained-GP flagship in mixed mode (an f64 master, a df32 rollout): refresh
+trained-GP problem in mixed mode (an f64 master, a df32 rollout; 300 points
+in the 384 bucket unless ``--points``/``--bucket`` say otherwise; at buckets
+32..128 the card runs the whole-step path, ``ops.df_mm``, and
+``--df-cov-route`` sends those steps through the df cov core route instead,
+by patching ``ops.use_df_fused``, for a comparison): refresh
 the cache, take warm-up steps, then profile ``--steps`` steady-state
 planning steps with ``torch.profiler`` (CPU and CUDA activity), each ended
 by ``torch.cuda.synchronize()``. Reports per step: wall ms, device-busy ms
@@ -18,8 +23,10 @@ without a CUDA device.
 ``--count-ops`` needs no card: it counts the PyTorch operator calls that
 launch work (views excluded) of one mixed-mode steady-state planning step of
 the trained-GP problem on the CPU, at ``--points`` in ``--bucket``, split
-into those outside the df32 cov core (each one kernel on the card) and the
-calls of the cov core (one kernel launch each on the card).
+into those outside the port's kernel wrappers (each one kernel on the card)
+and the calls of the wrappers (the df32 cov core, or with ``--fused`` the
+whole-step path's, which the CPU reaches only so patched), each one or two
+kernel launches on the card.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 from torch.autograd import DeviceType
@@ -38,7 +46,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import ops
 from .flagship import flagship_problem, plan_step, start_steps, trained_gp_problem
-from .models import gp as gp_mod
+from .ops import df_mm
 
 CASES = (("flagship_300_in_384", 300, 384), ("accuracy_24_in_32", 24, 32))
 MIXED_CASE = ("trained_gp_mixed_300_in_384", 300, 384)
@@ -61,6 +69,11 @@ def _problem(name, n_points, bucket, dev, steps):
     if name.startswith("trained_gp"):
         return trained_gp_problem(dev, n_points=n_points, iters=steps, bucket=bucket)
     return flagship_problem(dev, torch.float32, n_points=n_points, bucket=bucket)
+
+
+def _route(fused: bool):
+    """Patch the whole-step dispatch on (within its range) or off."""
+    return mock.patch.object(ops, "use_df_fused", lambda n, ns, d, device: fused and df_mm.supported(n, ns, d))
 
 
 def profile_case(name, n_points, bucket, steps, dev, warmup=2):
@@ -93,7 +106,8 @@ def profile_case(name, n_points, bucket, steps, dev, warmup=2):
         count[kname] += 1
     port = {}
     for short in ("gram_kernel", "cov_fwd_kernel", "cov_bwd_row_kernel", "df_fwd_kernel",
-                  "df_fwdres_kernel", "df_sum_parts_kernel"):
+                  "df_fwdres_kernel", "df_sum_parts_kernel", "df_mm_fwd_kernel", "df_mm_fwd_sum_kernel",
+                  "df_mm_bwd_kernel", "df_mm_bwd_sum_kernel"):
         names = [k for k in by_name if short in k]
         n = sum(count[k] for k in names)
         port[short] = (sum(by_name[k] for k in names) / 1e3 / n) if n else None
@@ -130,33 +144,40 @@ class _OpCounter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def count_ops(n_points, bucket) -> dict:
-    """Operator calls of one mixed-mode steady-state planning step on the CPU."""
+def count_ops(n_points, bucket, fused=False) -> dict:
+    """Operator calls of one mixed-mode steady-state planning step on the
+    CPU; ``fused`` patches the whole-step dispatch on, as the card takes it."""
     cpu = torch.device("cpu")
     prob = trained_gp_problem(cpu, n_points=n_points, iters=2, bucket=bucket)
-    planner = start_steps(prob, cpu, torch.float32, 2)
-    plan_step(planner, prob, 0)
     counter = _OpCounter()
-    dispatch = ops.df_cov_core
-    calls = {"value_and_grad": 0, "forward": 0}
+    calls = collections.Counter()
 
-    def counted(*args):
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            counter.depth += 1
+            try:
+                return fn(*args)
+            finally:
+                counter.depth -= 1
+        return call
+
+    def df_cov_core(*args):
         grad = torch.is_grad_enabled() and any(t.requires_grad for t in args[:14])
-        calls["value_and_grad" if grad else "forward"] += 1
-        counter.depth += 1
-        try:
-            return dispatch(*args)
-        finally:
-            counter.depth -= 1
+        return counted("df_cov_core " + ("value_and_grad" if grad else "forward"), dispatch)(*args)
 
-    gp_mod.ops.df_cov_core = counted
-    try:
-        with counter:
+    dispatch = ops.df_cov_core
+    with _route(fused):
+        planner = start_steps(prob, cpu, torch.float32, 2)
+        plan_step(planner, prob, 0)
+        with mock.patch.object(ops, "df_cov_core", df_cov_core), \
+                mock.patch.object(df_mm, "full_step_fwd", counted("df_mm_full", df_mm.full_step_fwd)), \
+                mock.patch.object(df_mm, "stage23_fwd", counted("df_mm_fwd", df_mm.stage23_fwd)), \
+                mock.patch.object(df_mm, "stage23_bwd", counted("df_mm_bwd", df_mm.stage23_bwd)), counter:
             plan_step(planner, prob, 1)
-    finally:
-        gp_mod.ops.df_cov_core = dispatch
-    return dict(points=n_points, bucket=bucket, ops_outside_cov_core=counter.outside,
-                ops_inside_plain_cov_core=counter.inside, cov_core_calls=calls)
+    return dict(points=n_points, bucket=bucket, route="fused" if fused else "df_cov",
+                ops_outside_kernel_wrappers=counter.outside, ops_inside_plain_twins=counter.inside,
+                wrapper_calls=dict(calls))
 
 
 def main(argv=None) -> int:
@@ -164,12 +185,15 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--mixed", action="store_true", help="profile the trained-GP flagship in mixed mode instead")
     ap.add_argument("--count-ops", action="store_true", help="count the operators of one mixed step on the CPU")
-    ap.add_argument("--points", type=int, default=40)
-    ap.add_argument("--bucket", type=int, default=64)
+    ap.add_argument("--points", type=int, default=None, help="stored points (40 for --count-ops, else 300)")
+    ap.add_argument("--bucket", type=int, default=None, help="bucket (64 for --count-ops, else 384)")
+    ap.add_argument("--fused", action="store_true", help="--count-ops: count the whole-step route")
+    ap.add_argument("--df-cov-route", action="store_true",
+                    help="--mixed: send the whole-step range through the df cov core route instead")
     ap.add_argument("--out", default=None, help="also write the results as JSON here")
     args = ap.parse_args(argv)
     if args.count_ops:
-        print(json.dumps(count_ops(args.points, args.bucket)), flush=True)
+        print(json.dumps(count_ops(args.points or 40, args.bucket or 64, fused=args.fused)), flush=True)
         return 0
     if not torch.cuda.is_available():
         print("profile_plan: no CUDA device", file=sys.stderr)
@@ -178,7 +202,10 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=30, check=True).stdout.strip()
     if args.mixed:
-        results = [profile_case(*MIXED_CASE, args.steps, dev, warmup=1)]
+        n, b = args.points or MIXED_CASE[1], args.bucket or MIXED_CASE[2]
+        with _route(not args.df_cov_route):
+            results = [profile_case(f"trained_gp_mixed_{n}_in_{b}" + ("_df_cov_route" if args.df_cov_route else ""),
+                                    n, b, args.steps, dev, warmup=1)]
     else:
         results = [profile_case(name, n, b, args.steps, dev) for name, n, b in CASES]
     for r in results:

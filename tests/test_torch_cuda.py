@@ -19,7 +19,13 @@ operations) and differ only in the order of their compensated sums, whose
 error is a small multiple of eps32^2 (3.6e-15) of the same scale:
 DF_COV_RTOL. The DfCovCore gradients, collapsed to f32 after the df
 combination, are held to DF_GRAD_RTOL of their largest entry, as
-tests/test_torch_df32.py holds them on the CPU.
+tests/test_torch_df32.py holds them on the CPU. The whole-step kernels
+(ops/df_mm.py) run at N = 32, 96, 128 and 384: their raw df partials within
+DF_COV_RTOL of each output's sum of |terms|, the whole step's f32 outputs
+within FULL_EPS of themselves plus DF_COV_RTOL of their scaled sum of
+|terms|, the VJP (df cotangents, collapsed at the end) within DF_GRAD_RTOL
+of its largest entry. The last test holds the dispatch's shape rules: state
+widths past the kernels' take the plain cores on the card.
 """
 
 import numpy as np
@@ -98,7 +104,8 @@ def test_covcore_autograd_matches_plain_and_counts_launches(dev):
 
     for o, r in zip(grads(ops.cov_core), grads(moment_cov.cov_core_ref)):
         torch.testing.assert_close(o, r, rtol=0, atol=1e-4 * float(r.abs().max()))
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 1, "cov_bwd_row": 2, "df_fwd": 0, "df_fwdres": 0}
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 1, "cov_bwd_row": 2, "df_fwd": 0, "df_fwdres": 0,
+                                   "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
 
 
 def test_cuda_wrappers_refuse_other_dtypes(dev):
@@ -175,7 +182,8 @@ def test_dfcovcore_autograd_matches_plain_and_counts_launches(dev):
     assert ops.launch_counts()["df_fwdres"] == 1 and ops.launch_counts()["df_fwd"] == 0
     with torch.no_grad():
         ops.df_cov_core(*args, DIAG)
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "df_fwd": 1, "df_fwdres": 1}
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "df_fwd": 1, "df_fwdres": 1,
+                                   "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
 
 
 def test_df_kernels_refuse_non_f32_halves(dev):
@@ -184,3 +192,161 @@ def test_df_kernels_refuse_non_f32_halves(dev):
         ops.df_cov_core(*args, DIAG)
     with pytest.raises(TypeError):
         df_cov.df_cov_fwdres(*args, DIAG)
+
+
+# ---------------------------------------------------------------------------
+# the whole-step df32 kernels (ops/df_mm.py): #12 df_mm_full, #8 df_mm_fwd,
+# #9 df_mm_bwd, each against its plain twin on the card
+# ---------------------------------------------------------------------------
+
+DF_MM_SIZES = [32, 96, 128, 384]
+# the final f32 outputs of #12: each within a few eps32 of itself (the
+# collapse after a df sum, then c or 1 / sqrt det R), plus DF_COV_RTOL of its
+# sum of |terms| (scaled as the output is) for the df sums' order
+FULL_EPS = 4 * 2.0 ** -23
+
+
+def _df_mm_problem(seed, n, dev, ns=3, d=4):
+    """A random DFCache-shaped operand set (f64 draws split into f32 halves)
+    whose outputs do not cancel, with an input mean and state covariance."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+
+    def split(x):
+        hi = x.astype(np.float32)
+        lo = (x - hi.astype(np.float64)).astype(np.float32)
+        return torch.tensor(hi, device=dev), torch.tensor(lo, device=dev)
+
+    ils = 1.0 / rng.uniform(0.3, 0.8, (ns, d))
+    ik = rng.normal(0, 0.1, (ns, n, n))
+    outs = rng.uniform(0.5, 1.0, ns)
+    f = {}
+    for name, x in (("x", rng.uniform(0, 1, (n, d))), ("ils", ils), ("ils2", ils * ils),
+                    ("log_outs", np.log(outs)), ("beta", rng.normal(0, 1, (ns, n))),
+                    ("iK", (ik + ik.transpose(0, 2, 1)) / 2)):
+        f[f"{name}_hi"], f[f"{name}_lo"] = split(x)
+    cache = SimpleNamespace(outs=torch.tensor(outs, dtype=torch.float32, device=dev), **f)
+    mu = torch.tensor(rng.uniform(0.3, 0.7, d), dtype=torch.float32, device=dev)
+    sv = torch.tensor(np.eye(ns) * 1e-2 + 2e-3, dtype=torch.float32, device=dev)
+    return cache, mu, sv
+
+
+def _stage1(cache, sv):
+    from gpmpc_tpu_torch.ops import df_mm
+
+    ii, jj, _, _ = df_mm.pair_indices(sv.shape[0], sv.device)
+    return df_mm.df_stage1(cache, sv, ii, jj)
+
+
+@pytest.mark.parametrize("n", DF_MM_SIZES)
+def test_df_mm_full_kernel_matches_plain(dev, n):
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(n, n, dev)
+    out = df_mm.full_step_fwd(mu, sv, cache)
+    ref = df_mm.full_step_plain(mu, sv, cache)
+    Bh, Bl, c32, Qh, Ql, sdr = _stage1(cache, sv)
+    m_abs, v_abs, sp_abs, co_abs = df_mm.abs_terms(mu, Bh, Bl, Qh, Ql, cache)
+    diag = df_mm.pair_indices(3, dev)[2]
+    sp_scale = (sp_abs + torch.zeros_like(sp_abs).index_add(0, diag, co_abs)) / sdr.double()
+    scales = (m_abs * c32.double(), v_abs * c32.double()[:, None], sp_scale)
+    for o, r, s in zip(out, ref, scales):
+        err = (o.double() - r.double()).abs()
+        assert torch.all(err <= FULL_EPS * r.double().abs() + DF_COV_RTOL * s), float(err.max())
+    assert all(torch.equal(a, b) for a, b in zip(df_mm.full_step_fwd(mu, sv, cache), out))  # bitwise repeatable
+
+
+@pytest.mark.parametrize("n", DF_MM_SIZES)
+def test_df_mm_fwd_kernel_matches_plain(dev, n):
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(n + 1, n, dev)
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
+    out = df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache)
+    ref = df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, cache)
+    for k, scale in enumerate(df_mm.abs_terms(mu, Bh, Bl, Qh, Ql, cache)):
+        _df_within(out[2 * k], out[2 * k + 1], ref[2 * k], ref[2 * k + 1], scale)
+
+
+@pytest.mark.parametrize("n", DF_MM_SIZES)
+def test_df_mm_bwd_kernel_matches_plain(dev, n):
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(n + 2, n, dev)
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
+    rng = np.random.default_rng(n)
+    g = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in ((3,), (3, 4), (6,), (3,))]
+    out = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    ref = df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        torch.testing.assert_close(o, r, rtol=0, atol=DF_GRAD_RTOL * float(r.abs().max()))
+
+
+def test_fullstep_autograd_matches_plain_and_counts_launches(dev):
+    """FullStep on the card (forward #12; backward #8 then #9 on the split
+    path) against FullStep on CPU copies, which runs the plain twins."""
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(11, 64, dev)
+    cpu_cache = type(cache)(**{k: v.cpu() for k, v in vars(cache).items()})
+    w = [torch.linspace(1.0, 2.0, s, device=dev) for s in (3, 12, 6)]
+
+    def grads(c, m, s):
+        leaves = (m.clone().requires_grad_(True), s.clone().requires_grad_(True))
+        M, V, Sp = df_mm.full_step(*leaves, c)
+        loss = sum((wi.to(M.device) * o.reshape(-1)).sum() for wi, o in zip(w, (M, V, Sp)))
+        return torch.autograd.grad(loss, leaves)
+
+    ops.reset_launch_counts()
+    g_card = grads(cache, mu, sv)
+    counts = ops.launch_counts()
+    assert (counts["df_mm_full"], counts["df_mm_fwd"], counts["df_mm_bwd"]) == (1, 1, 1), counts
+    assert counts["df_fwd"] == counts["df_fwdres"] == 0
+    for o, r in zip(g_card, grads(cpu_cache, mu.cpu(), sv.cpu())):
+        torch.testing.assert_close(o.cpu(), r, rtol=0, atol=DF_GRAD_RTOL * float(r.abs().max()))
+    with torch.no_grad():
+        df_mm.full_step(mu, sv, cache)
+    assert ops.launch_counts()["df_mm_full"] == 2 and ops.launch_counts()["df_mm_bwd"] == 1
+
+
+def test_df_mm_kernels_refuse_non_f32_halves(dev):
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(12, 32, dev)
+    with pytest.raises(TypeError):
+        df_mm.full_step_fwd(mu.double(), sv, cache)
+    bad = type(cache)(**{k: (v.double() if k == "iK_lo" else v) for k, v in vars(cache).items()})
+    with pytest.raises(TypeError):
+        df_mm.full_step_fwd(mu, sv, bad)
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
+    with pytest.raises(TypeError):
+        df_mm.stage23_fwd(mu, Bh.double(), Bl, Qh, Ql, cache)
+
+
+def test_wide_state_dispatch_takes_the_plain_cores(dev):
+    """ns = 4 in mixed mode (past the df kernels' 3) and ns = 9 in f32 (past
+    the cov kernels' 8) take the plain cores on the card, by the dispatch's
+    shape rules, and do not raise; forward and under autograd."""
+    ns, p = 4, 10
+    diag = tuple(k for k, (i, j) in enumerate(zip(*np.triu_indices(ns))) if i == j)
+    args = _df_problem(13, 24, dev, p=p, ns=ns, m=ns)
+    ops.reset_launch_counts()
+    out = ops.df_cov_core(*args, diag)
+    for o, r in zip(out, df_cov.df_cov_core_ref(*args, diag)):
+        assert torch.equal(o, r)
+    leaves = [t.clone().requires_grad_(True) for t in args[:2]]
+    sh, sl, ch, cl = ops.df_cov_core(*leaves, *args[2:], diag)
+    torch.autograd.grad((sh + sl).sum() - (ch + cl).sum(), leaves[0])
+    ns, p = 9, 45
+    diag = tuple(k for k, (i, j) in enumerate(zip(*np.triu_indices(ns))) if i == j)
+    a, c, u, xj, bi, bj, ik = _cov_problem(14, 24, dev, p=p, ns=ns, m=ns)
+    s, co = ops.cov_core(a, c, u, xj, bi, bj, ik, diag)
+    s_r, co_r = moment_cov.cov_core_ref(a, c, u, xj, bi, bj, ik, diag)
+    assert torch.equal(s, s_r) and torch.equal(co, co_r)
+    leaf = a.clone().requires_grad_(True)
+    torch.autograd.grad(ops.cov_core(leaf, c, u, xj, bi, bj, ik, diag)[0].sum(), leaf)
+    with pytest.raises(NotImplementedError):
+        moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, diag)
+    assert all(v == 0 for v in ops.launch_counts().values())

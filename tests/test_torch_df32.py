@@ -261,8 +261,8 @@ def test_dfcovcore_backward_matches_xla_grad():
     """DfCovCore (residual forward on its plain twin here, the residual
     backward) against jax.grad through df_cov_core_xla, with the hi-only
     cotangent convention, for the action-dependent inputs a, c, U, Xj; and
-    the CPU dispatch ops.df_cov_core (autograd through the plain core)
-    against the same gradients."""
+    the CPU dispatch ops.df_cov_core (DfCovCore on its plain twins, since
+    the repair of ROADMAP C1) against the same gradients."""
     n, ns = 64, 3
     flat, diag_pos = _cov_inputs(n, seed=1)
     p = flat[0].shape[0]

@@ -19,8 +19,9 @@ Tolerances:
   ``build_extend_plan_fn`` on the f64 cache with an f32 state, at the
   trained-GP flagship's parameters cut to 40 points in the 64 bucket and a
   horizon of 2 (the JAX program's XLA:CPU compile takes minutes and grows
-  with the horizon): PLAN_ATOL on a_opt (actions in [0, 1]), PLAN_RTOL on
-  the objective and TrajectoryInfo. Both sides optimize an f32 objective
+  with the horizon), by both routes of the port's rollout (the df cov core
+  and the whole-step path): PLAN_ATOL on a_opt (actions in [0, 1]),
+  PLAN_RTOL on the objective and TrajectoryInfo. Both sides optimize an f32 objective
   whose gradient differs in the last bits, and L-BFGS-B carries such
   differences into its iterates.
 """
@@ -44,6 +45,7 @@ from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.controllers import planner as tplanner
 from gpmpc_tpu_torch.flagship import start_steps, trained_gp_problem
 from gpmpc_tpu_torch.models import gp as tgp
+from gpmpc_tpu_torch.ops import df_mm
 
 CPU = torch.device("cpu")
 NS, NA = 3, 1
@@ -174,7 +176,13 @@ def _trained_specs(nh):
 def test_mixed_extend_plan_matches_jax():
     """The slice: one steady-state step in mixed mode (extend the f64 master
     by one point, split it into df32, one L-BFGS-B restart over the df32
-    rollout) against JAX build_extend_plan_fn, which splits inside."""
+    rollout) against JAX build_extend_plan_fn, which splits inside. The port
+    runs it twice, once per route of its rollout: the df cov core route
+    (``moment_match_df``, the CPU's dispatch) and the whole-step route
+    (``moment_match_df_fused``, the card's dispatch in the 32..128 buckets,
+    selected here by patching ``ops.use_df_fused``), both held against the
+    one JAX result, whose XLA ``moment_match_df`` is the reference's oracle
+    of its fused path."""
     nh = 2
     prob = trained_gp_problem(CPU, n_points=40, nh=nh, iters=4, bucket=64)
     jspec, tspec = _trained_specs(nh)
@@ -188,19 +196,29 @@ def test_mixed_extend_plan_matches_jax():
     jout = jplanner.build_extend_plan_fn(jspec)(jcache, jnp.asarray(x_new), jnp.asarray(y_new),
                                                 *(jnp.asarray(s) for s in state), 0)
     tcache = convert.cache_from_numpy(**_np(jcache), dtype=torch.float64, device=CPU)
-    tout = tplanner.extend_plan(tspec, tcache, torch.tensor(x_new), torch.tensor(y_new),
-                                *(torch.tensor(s) for s in state), 0)
+    fused = []
 
-    for name, o, r in zip(tcache._fields, tout[0], jout[0]):  # the extended f64 master
-        _close(o.double() if o.dtype != torch.bool else o, np.asarray(r, np.float64), 1e-9, name)
-    a_port, a_jax = tout[1].numpy(), np.asarray(jout[1])
-    assert tout[1].dtype == torch.float32
-    assert np.all(np.isfinite(a_port)) and a_port.min() >= 0 and a_port.max() <= 1
-    np.testing.assert_allclose(a_port, a_jax, rtol=0, atol=PLAN_ATOL)
-    _close(tout[2], jout[2], PLAN_RTOL, "actions_model")
-    for name, o, r in zip(tout[3]._fields, tout[3], jout[3]):
-        assert bool(torch.isfinite(o).all()), name
-        _close(o, r, PLAN_RTOL, name)
+    def use_fused(n, ns, d, device):
+        fused.append(df_mm.supported(n, ns, d))
+        return fused[-1]
+
+    for route in ("df_cov", "fused"):
+        before = df_mm.LAUNCHES["df_mm_full"]
+        with mock.patch.object(tgp.ops, "use_df_fused", use_fused if route == "fused" else tgp.ops.use_df_fused):
+            tout = tplanner.extend_plan(tspec, tcache, torch.tensor(x_new), torch.tensor(y_new),
+                                        *(torch.tensor(s) for s in state), 0)
+        assert df_mm.LAUNCHES["df_mm_full"] == before  # the CPU takes the plain twins
+        for name, o, r in zip(tcache._fields, tout[0], jout[0]):  # the extended f64 master
+            _close(o.double() if o.dtype != torch.bool else o, np.asarray(r, np.float64), 1e-9, name)
+        a_port, a_jax = tout[1].numpy(), np.asarray(jout[1])
+        assert tout[1].dtype == torch.float32
+        assert np.all(np.isfinite(a_port)) and a_port.min() >= 0 and a_port.max() <= 1
+        np.testing.assert_allclose(a_port, a_jax, rtol=0, atol=PLAN_ATOL, err_msg=route)
+        _close(tout[2], jout[2], PLAN_RTOL, f"{route} actions_model")
+        for name, o, r in zip(tout[3]._fields, tout[3], jout[3]):
+            assert bool(torch.isfinite(o).all()), name
+            _close(o, r, PLAN_RTOL, f"{route} {name}")
+    assert fused and all(fused)  # the fused route ran at every rollout step
 
 
 def test_mixed_planner_extends_the_f64_master_and_plans_on_df32():
@@ -286,38 +304,116 @@ def test_trained_gp_problem_draws_bench_df32_arrays():
     assert (prob.spec.maxiter, prob.spec.maxfun, prob.spec.maxls, prob.spec.maxcor) == (4, 4, 4, 4)
 
 
+_FLAGSHIP = {}
+
+
+def _flagship_cov_operands_and_f64_grads():
+    """The df cov core's operands of the first moment-matching step of the
+    trained-GP flagship (300 points in the 384 bucket, cond(K) ~ 1e6) at the
+    initial state, the loss weights of S_p - corr as moment_match_df forms
+    it, and that loss's f64 gradient in (a, c, U, Xj). Made once."""
+    from gpmpc_tpu_torch.ops import moment_cov
+
+    if not _FLAGSHIP:
+        prob = trained_gp_problem(CPU)
+        cache = tplanner._cast_cache(start_steps(prob, CPU, torch.float32, 0)._cache, torch.float32)
+        seen = []
+        dispatch = tgp.ops.df_cov_core
+
+        def record(*args):
+            seen.append(args)
+            return dispatch(*args)
+
+        mu = torch.cat([prob.state_mu, prob.inits[0, :NA]])
+        var = torch.zeros(D, D)
+        var[:NS, :NS] = prob.state_var
+        with mock.patch.object(tgp.ops, "df_cov_core", record), torch.no_grad():
+            tgp.moment_match_df(cache, mu, var)
+        *args, diag_pos = seen[0]
+        w = torch.ones(args[0].shape[0])
+        wc = -torch.ones(len(diag_pos))  # the loss moment_match_df forms: S_p(diag) - corr
+        c64 = [args[2 * i].double() + args[2 * i + 1].double() for i in range(7)]
+        leaves = [t.clone().requires_grad_(True) for t in c64[:4]]
+        s64, co64 = moment_cov.cov_core_ref(*leaves, *c64[4:], diag_pos)
+        g64 = torch.autograd.grad((w.double() * s64).sum() + (wc.double() * co64).sum(), leaves)
+        _FLAGSHIP.update(args=args, diag_pos=diag_pos, w=w, wc=wc, g64=g64)
+    f = _FLAGSHIP
+    return f["args"], f["diag_pos"], f["w"], f["wc"], f["g64"]
+
+
+def test_cpu_mixed_gradient_matches_f64_at_the_trained_gp_flagship():
+    """Fault C1 repaired: the CPU dispatch ops.df_cov_core under autograd
+    takes DfCovCore's residual backward on its plain twins (the card's
+    scheme), so its gradient of S_p - corr at the trained-GP flagship's
+    operands is within 1e-6 of f64 of its largest entry (the plain core's
+    misses by ~1e-2, pinned below)."""
+    args, diag_pos, w, wc, g64 = _flagship_cov_operands_and_f64_grads()
+    a = [t.clone() for t in args]
+    leaves = [a[i].requires_grad_(True) for i in (0, 2, 4, 6)]
+    sh, sl, ch, cl = tgp.ops.df_cov_core(*a, diag_pos)
+    grads = torch.autograd.grad((w * (sh + sl)).sum() + (wc * (ch + cl)).sum(), leaves)
+    for g, g_ref in zip(grads, g64):
+        err = float((g.double() - g_ref).abs().max()) / float(g_ref.abs().max())
+        assert err <= 1e-6, err
+
+
+def test_ns4_dispatch_refuses_the_df_kernels():
+    """The port's twin of tests/test_df32.py::test_ns4_pallas_gates_refuse:
+    a 4-state env never takes the whole-step path (on any device, at any
+    bucket) and, on the card, sends the df cov core to its plain form; Ns = 3
+    is eligible on the card only."""
+    cuda = torch.device("cuda")
+    for bucket in (64, 128, 256, 384, 512):
+        assert not tgp.ops.use_df_fused(bucket, 4, 5, cuda)
+        assert not tgp.ops.use_df_fused(bucket, 3, 4, CPU)
+    assert 4 > tgp.ops.DF_COV_MAX_NS
+    assert tgp.ops.use_df_fused(128, 3, 4, cuda) and tgp.ops.use_df_fused(32, 3, 4, cuda)
+    assert not tgp.ops.use_df_fused(192, 3, 4, cuda) and not tgp.ops.use_df_fused(16, 3, 4, cuda)
+
+
+def test_ns4_moment_match_df_matches_jax():
+    """Ns = 4, which the df kernels do not take: moment_match_df (the plain
+    df core on every device) against JAX moment_match_df (its XLA df core)
+    and both against f64, on a small cache of 48 points (the fast half of
+    tests/test_df32.py::test_ns4_env_falls_back_to_xla_df_and_matches_oracle)."""
+    ns, d, n = 4, 5, 48
+    rng = np.random.default_rng(7)
+    x = jnp.asarray(rng.uniform(0, 1, (n, d)), f64)
+    y = jnp.asarray(rng.normal(0, 0.05, (n, ns)), f64)
+    bounds = jgp.GPBounds(
+        jnp.full((ns, d), 4e-3, f64), jnp.full((ns, d), 10.0, f64), jnp.full((ns,), 1e-3, f64),
+        jnp.full((ns,), 0.95, f64), jnp.full((ns,), 1e-7, f64), jnp.full((ns,), 1e-3, f64))
+    params = jgp.params_from_constrained(jnp.asarray(np.full((ns, d), 0.3), f64), jnp.full((ns,), 0.1, f64),
+                                         jnp.full((ns,), 1e-6, f64), bounds)
+    jcache = jgp.masked_cholesky_factorize(params, bounds, x, y, jnp.ones((n,), bool))
+    mu = rng.uniform(0.3, 0.7, d)
+    var = np.zeros((d, d))
+    var[:ns, :ns] = np.eye(ns) * 1e-4
+    ref64 = jax.jit(jgp.moment_match)(jcache, jnp.asarray(mu), jnp.asarray(var))
+    refdf = jax.jit(jgp.moment_match_df)(jgp.split_cache_df(jcache), jnp.asarray(mu, f32), jnp.asarray(var, f32))
+    port = tgp.moment_match_df(convert.df_cache_from_numpy(**_np(jcache), device=CPU),
+                               torch.tensor(mu, dtype=torch.float32), torch.tensor(var, dtype=torch.float32))
+    for name, o, j, r in zip("MSV", port, refdf, ref64):
+        _close(o, j, MM_RTOL, f"{name} port vs JAX df32")
+        _close(o, r, MM_F64_RTOL, f"{name} port df32 vs f64")
+
+
 def test_plain_core_gradient_cancels_at_the_trained_gp_flagship_in_both_packages():
     """Pins a fault of the CPU path (ROADMAP C). At the trained-GP flagship
     (300 points in the 384 bucket, cond(K) ~ 1e6) the df cov core's
     S_p(diag) and corr cancel from ~1e3 terms, and so do their gradients.
     Differentiated by autograd through the plain df core, which sums each
-    cotangent-weighted E term in plain f32 (the port's CPU path, and the JAX
-    package's df_cov_core_xla under jax.grad), the gradient of S_p - corr
+    cotangent-weighted E term in plain f32 (the port's CPU dispatch before
+    C1 was repaired, and the JAX package's df_cov_core_xla under jax.grad,
+    which the JAX CPU path still runs), the gradient of S_p - corr
     misses f64 by ~1e-2 of its largest entry; DfCovCore's residual backward
     (the card's path, here on its plain twins) keeps the residuals in df
     until the cotangents are applied and agrees to ~1e-8. Operands: the cov
     core's of the first moment-matching step at the initial state."""
     from gpmpc_tpu.ops import df_cov_core_xla
-    from gpmpc_tpu_torch.ops import df_cov, moment_cov
+    from gpmpc_tpu_torch.ops import df_cov
 
-    prob = trained_gp_problem(CPU)
-    cache = tplanner._cast_cache(start_steps(prob, CPU, torch.float32, 0)._cache, torch.float32)
-    seen = []
-    dispatch = tgp.ops.df_cov_core
-
-    def record(*args):
-        seen.append(args)
-        return dispatch(*args)
-
-    mu = torch.cat([prob.state_mu, prob.inits[0, :NA]])
-    var = torch.zeros(D, D)
-    var[:NS, :NS] = prob.state_var
-    with mock.patch.object(tgp.ops, "df_cov_core", record), torch.no_grad():
-        tgp.moment_match_df(cache, mu, var)
-    *args, diag_pos = seen[0]
-    p = args[0].shape[0]
-    w = torch.ones(p)
-    wc = -torch.ones(len(diag_pos))  # the loss moment_match_df forms: S_p(diag) - corr
+    args, diag_pos, w, wc, g64 = _flagship_cov_operands_and_f64_grads()
 
     def torch_grads(core):
         a = [t.clone() for t in args]
@@ -334,10 +430,6 @@ def test_plain_core_gradient_cancels_at_the_trained_gp_flagship_in_both_packages
         return jnp.sum(sh + sl) - jnp.sum(co_h + co_l)
 
     g_jax = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3)))(jargs[0], jargs[2], jargs[4], jargs[6])
-    c64 = [args[2 * i].double() + args[2 * i + 1].double() for i in range(7)]
-    leaves = [t.clone().requires_grad_(True) for t in c64[:4]]
-    s64, co64 = moment_cov.cov_core_ref(*leaves, *c64[4:], diag_pos)
-    g64 = torch.autograd.grad((w.double() * s64).sum() + (wc.double() * co64).sum(), leaves)
     worst = {"plain": 0.0, "jax": 0.0}
     for g_plain, g_res, g_j, g_ref in zip(torch_grads(df_cov.df_cov_core_ref), torch_grads(df_cov.DfCovCore.apply),
                                           g_jax, g64):

@@ -195,6 +195,22 @@ def test_wrappers_raise_off_cpu_without_cuda():
         df_cov.df_cov_fwdres(*df_args, DIAG)
     with pytest.raises(ValueError, match="CUDA"):
         ops.df_cov_core(*df_args, DIAG)
+    from types import SimpleNamespace
+
+    from gpmpc_tpu_torch.ops import df_mm
+
+    shapes = dict(x=(8, 4), ils=(3, 4), ils2=(3, 4), log_outs=(3,), beta=(3, 8), iK=(3, 8, 8))
+    cache = SimpleNamespace(outs=torch.empty(3, device="meta"),
+                            **{f"{k}_{h}": torch.empty(s, device="meta") for k, s in shapes.items() for h in ("hi", "lo")})
+    mu, sv = torch.empty(4, device="meta"), torch.empty(3, 3, device="meta")
+    b, q = torch.empty(3, 3, 3, device="meta"), torch.empty(6, 3, 3, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        df_mm.full_step_fwd(mu, sv, cache)
+    with pytest.raises(ValueError, match="CUDA"):
+        df_mm.stage23_fwd(mu, b, b, q, q, cache)
+    with pytest.raises(ValueError, match="CUDA"):
+        df_mm.stage23_bwd(mu, b, b, q, q, cache, torch.empty(3, device="meta"), torch.empty(3, 4, device="meta"),
+                          torch.empty(6, device="meta"), torch.empty(3, device="meta"))
 
 
 def test_launch_counts_untouched_on_cpu():
@@ -206,4 +222,18 @@ def test_launch_counts_untouched_on_cpu():
     df_args = [t for a in args for t in (a, torch.zeros_like(a))]  # (hi, lo) halves
     ops.df_cov_core(*df_args, DIAG)
     df_cov.DfCovCore.apply(*df_args, DIAG)
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "df_fwd": 0, "df_fwdres": 0}
+    from types import SimpleNamespace
+
+    from gpmpc_tpu_torch.ops import df_mm
+
+    rng = np.random.default_rng(9)
+    f = {f"{k}_{h}": torch.tensor(rng.uniform(0.1, 1.0, shape), dtype=torch.float32) * (1.0 if h == "hi" else 1e-8)
+         for k, shape in (("x", (16, 4)), ("ils", (3, 4)), ("ils2", (3, 4)), ("log_outs", (3,)), ("beta", (3, 16)),
+                          ("iK", (3, 16, 16))) for h in ("hi", "lo")}
+    cache = SimpleNamespace(outs=torch.ones(3), **f)
+    mu = torch.full((4,), 0.5, requires_grad=True)
+    sv = (torch.eye(3) * 1e-2).requires_grad_(True)
+    M, V, Sp = df_mm.full_step(mu, sv, cache)  # #12 forward, #8 and #9 in the backward
+    torch.autograd.grad(M.sum() + V.sum() + Sp.sum(), (mu, sv))
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "df_fwd": 0, "df_fwdres": 0,
+                                   "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
