@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``gpmpc_tpu_torch/ops/csrc`` (one nvcc call,
-into ``build/gpmpc_tpu_torch/``), holds each kernel against its plain
-PyTorch version at the flagship shapes (phase 3), then drives the port's
-two main paths, each with the launch counts set to 0 just before it and
-read just after:
+Builds the CUDA kernels from ``gpmpc_tpu_torch/ops/csrc`` (one nvcc -c per
+source, all started together, and one link, into ``build/gpmpc_tpu_torch/``),
+holds each kernel against its plain PyTorch version at the flagship shapes
+(phase 3), then drives the port's paths, each with the launch counts set to
+0 just before it and read just after:
 
 * the f32 flagship (phase 4): one refresh of the factorization cache, then
   steady-state f32 planning steps of the pendulum flagship (Ns=3, Na=1,
@@ -24,14 +24,25 @@ read just after:
 * the trained-GP problem at 100 points in the 128 bucket in mixed mode
   (phase 4, whole-step): the same, with every rollout step through the
   whole-step df32 kernels (#12 forward, #8 and #9 in the backward) instead
-  of the df cov kernels, held to the card's f64 plan.
+  of the df cov kernels, held to the card's f64 plan;
+* the gradient of the f32 planning objective with respect to the
+  factorization cache's iK (phase 4, iK gradient) at 24 points, where the
+  cov core's iK-gradient kernel runs, held to the port's float64 CPU run;
+* the trained-GP flagship in mixed mode under the stacked df32 VJP (phase 4,
+  stacked: ``df_cov.VJP_MODE = "stacked"``, the reference's
+  ``GPMPC_DF_COV_VJP=stacked``): the lean forward and the stacked backward
+  kernel instead of the forward with residuals, held to the same f64 plan.
 
-Phase 3 holds the eight kernels to their plain versions: the f32 Gram and
-cov kernels at the flagship's shapes, the df cov kernels on the trained-GP
-flagship's operands and random ones, the whole-step kernels at N = 32, 96,
-128 and 384 on the trained-GP problem's operands and random ones. Phase 5
-times the blocked planning step of the three paths and 15-step rollouts of
-both mixed routes at three buckets.
+Phase 3 holds the twelve kernels to their plain versions: the f32 Gram and
+cov kernels (forward, row backward, iK gradient) at the flagship's shapes,
+the df cov kernels (lean forward, forward with residuals, stacked backward)
+on the trained-GP flagship's operands and random ones, the whole-step
+kernels at N = 32, 96, 128 and 384 and the split backward (the mean path's
+and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
+and random ones. Phase 5 times the blocked planning step of the paths and
+15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the whole-step
+route's value-and-grad rollout runs the split backward, and its gradient is
+held to the df cov route's and to the f64 rollout's.
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -64,10 +75,13 @@ from gpmpc_tpu_torch.ops import gram_rbf as gram_mod
 from gpmpc_tpu_torch.ops import moment_cov
 
 WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
-PLAN_STEPS = 5
-TIMED_STEPS = 10
+# Depths of the paths. A cold run took 102-160 s on H100 hosts of different
+# speed (the f32 step 416-848 ms) with 5, 10 and 2 here, so they were cut to
+# keep a slow host well inside WATCHDOG_S; no path or check was dropped.
+PLAN_STEPS = 3
+TIMED_STEPS = 5
 MIXED_STEPS = 1  # trained-GP flagship steps in mixed mode, each checked and timed
-FUSED_STEPS = 2  # whole-step path steps, each checked and timed
+FUSED_STEPS = 1  # whole-step path steps, each checked and timed
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # f32 add or multiply instructions per second that cannot fuse into an FMA:
@@ -94,6 +108,17 @@ H100_F32_INSTR_PER_S = 33.5e12
 GRAM_RTOL, GRAM_ATOL = 2e-5, 2e-6
 COV_TOL = 3e-7
 MIN_RESOLVED = 5e-4
+# The cov core's iK gradient (cov_gik) has independent entries g_corr[m] E,
+# so it is held elementwise. The kernel forms E's exponent a + c + sum_e
+# U_e Xj_e with FMAs, the plain twin with an add and an einsum: the two
+# round in another order, each by at most (ns + 2) / 2 eps32 of the sum of
+# the terms' magnitudes (moment_cov.cov_gik_expo_abs), which moves E by as
+# much relative to itself, and expf and torch.exp each round within 2 ulp.
+# So |kernel - plain| <= GIK_RTOL (1 + that sum) |plain| per element, with
+# GIK_RTOL = 8 eps32 (2.5 eps32 per unit of the sum at ns = 3, 4 eps32 for
+# the two exps, room to spare), plus |g_corr| 2^-126 where E is subnormal.
+# A wrong pair slot or a dropped factor moves an entry by O(1) of itself.
+GIK_RTOL = 8 * 2.0 ** -23
 
 # Accuracy of the planning step against the port's float64 CPU run of the
 # same steps, on the flagship's widths, horizon, optimizer budget and GP
@@ -128,6 +153,16 @@ DF_TOL = 1e-11
 # outputs, so against its plain twin it differs by the order of its df sums;
 # it is held to the same DF_GRAD_TOL of its largest entry.
 DF_GRAD_TOL = 3e-6
+# The stacked backward (df_bwd) is the same VJP as the residual scheme: both
+# sum every cotangent-weighted term in df and collapse at the end, so on the
+# same operands their gradients agree to DF_GRAD_TOL (phase 3 prints the
+# gap). The whole objective's gradient need not: downstream of the cov core
+# the rollout's tangents are plain f32 (the df32 custom derivatives) and its
+# sums over the stored points cancel, so a last-bit difference in the cov
+# core's gradient can move the objective's gradient by up to its f32-grade
+# error (MIXED_TOL's gradient; phase 4 prints the gap). The stacked step is
+# therefore held, like the residual one, to the card's f64 plan by
+# MIXED_TOL, and its gradient to the residual step's by MIXED_TOL's gradient.
 # The whole-step kernels (ops/df_mm.py) at these N on the trained-GP problem
 # (0.8 N points in the N bucket, 300 in 384) and on random operands. Their
 # raw df partials (df_mm_fwd) are held as the df cov kernels' are (DF_TOL of
@@ -136,12 +171,17 @@ DF_GRAD_TOL = 3e-6
 # held to FULL_EPS of itself plus DF_TOL of its sum of |terms| scaled as the
 # output is (by c, or by 1 / sqrt det R).
 DF_MM_SIZES = (32, 96, 128, 384)
+# the split backward (#10 mean path, #11 pairs) that serves N > 128, each
+# output against its plain twin to DF_GRAD_TOL of its largest entry, and the
+# combined split route against #9 at 384 (#9 is right at any N)
+SPLIT_SIZES = (192, 384)
 FULL_EPS = 4 * 2.0 ** -23
 # the whole-step path (phase 4): the trained-GP problem at 100 points in the
 # 128 bucket, where the card's dispatch takes it (ops.use_df_fused)
 FUSED_POINTS, FUSED_BUCKET = 100, 128
-# phase 5's 15-step rollouts of each route, for the H100 dispatch range
-ROLLOUT_BUCKETS = (64, 128, 384)
+# phase 5's 15-step rollouts of each route, for the H100 dispatch range (64
+# was dropped to keep the cold run well inside WATCHDOG_S: 139 s on a slow host)
+ROLLOUT_BUCKETS = (128, 384)
 
 # Mixed mode against the card's float64 plan of the same trained-GP step.
 # objective and gradient: at the initial actions on the caches after the
@@ -261,19 +301,28 @@ def bound_ms(nbytes: float, flops: float, ops_per_s: float = H100_F32_FLOPS) -> 
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def df_op_instructions() -> SimpleNamespace:
+    """f32 add, multiply and logic instructions of each df32 operation of
+    csrc/df32.cuh (none may fuse into an FMA)."""
+    two_sum, fast_two_sum = 6, 3
+    two_prod = 2 * 2 + 4 + 2 * two_sum + 2 + fast_two_sum  # 2 splits, 4 products, 2 two_sums
+    df_add = two_sum + 2 + fast_two_sum
+    df_mul = two_prod + 4 + fast_two_sum
+    return SimpleNamespace(
+        two_sum=two_sum, fast_two_sum=fast_two_sum, two_prod=two_prod, df_add=df_add, df_mul=df_mul,
+        df_add_f32=two_sum + 1 + fast_two_sum, df_mul_f32=two_prod + 2 + fast_two_sum,
+        # rint(x / ln2), k ln2 in df, r = x - k ln2, 12 Horner steps, 2^k, 2 scales
+        df_exp=2 + two_prod + 2 + fast_two_sum + df_add + 12 * (df_mul + df_add) + 5 + 2)
+
+
 def df_instructions_per_element(ns: int) -> dict:
     """f32 add, multiply and logic instructions per slab element of the df32
     kernels, counted from csrc/df32.cuh and csrc/df_cov.cu (none may fuse
     into an FMA): per element of every pair, and the extra on the diagonal
     pairs (the iK terms)."""
-    two_sum, fast_two_sum = 6, 3
-    two_prod = 2 * 2 + 4 + 2 * two_sum + 2 + fast_two_sum  # 2 splits, 4 products, 2 two_sums
-    df_add = two_sum + 2 + fast_two_sum
-    df_mul = two_prod + 4 + fast_two_sum
-    # rint(x / ln2), k ln2 in df, r = x - k ln2, 12 Horner steps, 2^k, 2 scales
-    df_exp = 2 + two_prod + 2 + fast_two_sum + df_add + 12 * (df_mul + df_add) + 5 + 2
-    e = two_sum + 2 + fast_two_sum + ns * (df_mul + df_add) + 1 + df_exp
-    df_mul_f32 = two_prod + 2 + fast_two_sum
+    c = df_op_instructions()
+    df_add, df_mul, df_mul_f32 = c.df_add, c.df_mul, c.df_mul_f32
+    e = c.two_sum + 2 + c.fast_two_sum + ns * (df_mul + df_add) + 1 + c.df_exp
     # df_mm_bwd: G = E (bi bj gs (+ iK gco)), its row and column sums, and
     # both sides' sums weighted by Xj and U (collapsed coefficients)
     bwd = e + df_mul + df_mul_f32 + df_mul + 1 + 2 * df_add + 2 * ns * (df_mul_f32 + df_add)
@@ -281,10 +330,28 @@ def df_instructions_per_element(ns: int) -> dict:
         "df_fwd": (e + 2 * df_mul + df_add, df_mul + df_add),
         "df_fwdres": (e + 2 * df_mul + 2 * df_add + 2 * ns * (df_mul + df_add),
                       df_mul + 2 * df_add + 2 * ns * (df_mul + df_add)),
+        # df_bwd, per element of each of the 2P stacked rows: w = bi bj gs
+        # (+ iK gco), gE = w E, its sum and ns sums weighted by Xj (in df)
+        "df_bwd": (e + 2 * df_mul + df_mul_f32 + df_add + ns * (df_mul + df_add), df_mul_f32 + df_add),
         "df_mm_full": (e + 2 * df_mul + df_add, df_mul + df_add),
         "df_mm_fwd": (e + 2 * df_mul + df_add, df_mul + df_add),
         "df_mm_bwd": (bwd, df_mul_f32 + df_add),
+        "df_mm_bwd_pair": (bwd, df_mul_f32 + df_add),
     }
+
+
+def mean_vjp_instructions(ns: int, d: int) -> int:
+    """f32 instructions per (model, stored point) of the mean path's VJP
+    (df_mm_bwd_mean, csrc/df_mm.cuh mean_point and df_mm_bwd.cu
+    bwd_mean_tile): the point's forward quantities, then its df cotangents
+    and their warp sums; none may fuse into an FMA."""
+    c = df_op_instructions()
+    fwd = (d * (c.df_add_f32 + c.df_mul) + ns * (ns * c.df_mul + (ns - 1) * c.df_add) + d * c.df_mul
+           + (d - 1) * c.df_add + 2 + c.df_exp + c.df_mul)
+    vjp = (d * (c.df_mul + 2 * c.two_prod + c.df_add + c.df_mul_f32 + 4) + 2 * c.df_mul_f32 + 2
+           + d * (2 * c.df_mul_f32 + c.df_add) + ns * ns * (2 * c.df_mul_f32 + c.df_add) + (d - ns) * c.df_add
+           + d * c.df_mul_f32 + (d + ns * ns) * c.df_add)
+    return fwd + vjp
 
 
 def flagship_cov_operands(device):
@@ -365,7 +432,50 @@ def check_kernels(dev):
     log(f"kernel cov_bwd_row (one side): kernel {ms:.4f} ms plain {plain:.4f} ms "
         f"bound {b:.5f} ms ({by}); host {host:.4f} ms per call")
     results["cov_bwd_row"] = dict(err=err_bwd, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+
+    err_gik = max(check_cov_gik("flagship", cov_flag, diag_pos), check_cov_gik("random", cov_rand, diag_pos))
+    g_corr = torch.linspace(1.0, 3.0, nd, device=dev)
+    ms, host = cuda_ms(lambda: moment_cov.cov_gik(g_corr, a, c, u, xj, diag_pos))
+    plain, _ = cuda_ms(lambda: moment_cov.cov_gik_plain(g_corr, a, c, u, xj, diag_pos))
+    b, by = bound_ms(4 * (nd + nd * (2 * n + 2 * n * ns_) + nd * n * n), nd * n * n * (2 * ns_ + 3))
+    log(f"kernel cov_gik (Ns={nd}, N={n}, ns={ns_}): kernel {ms:.4f} ms plain {plain:.4f} ms "
+        f"bound {b:.5f} ms ({by}); host {host:.4f} ms per call")
+    results["cov_gik"] = dict(err=err_gik, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
     return results
+
+
+def hold_gik(what, label, out, ref, g_corr, expo_abs) -> float:
+    """Hold an iK gradient elementwise to GIK_RTOL (1 + sum|exponent terms|)
+    of itself, plus |g_corr| 2^-126 (see GIK_RTOL)."""
+    diff = (out.double() - ref.double()).abs()
+    tol = GIK_RTOL * (1.0 + expo_abs.double()) * ref.double().abs() + g_corr.double().abs()[:, None, None] * 2.0 ** -126
+    worst = float((diff / tol).max())
+    log(f"kernel {what} [{label}]: max abs err {float(diff.max()):.3e}, {worst:.3e} of its elementwise tolerance "
+        f"(GIK_RTOL {GIK_RTOL:.2e} (1 + sum|exponent terms|) |ref|); max |ref| {float(ref.abs().max()):.4g}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{what} [{label}] disagrees with its plain version")
+    return float(diff.max())
+
+
+def check_cov_gik(label, operands, diag_pos) -> float:
+    """The iK-gradient kernel against its plain twin, and CovCore's iK
+    gradient (which launches it) against autograd of the plain core."""
+    a, c, u, xj, bi, bj, ik = operands
+    p, nd = a.shape[0], len(diag_pos)
+    expo = moment_cov.cov_gik_expo_abs(a, c, u, xj, diag_pos)
+    g_corr = torch.linspace(1.0, -2.0, nd, device=a.device)
+    err = hold_gik("cov_gik", label, moment_cov.cov_gik(g_corr, a, c, u, xj, diag_pos),
+                   moment_cov.cov_gik_plain(g_corr, a, c, u, xj, diag_pos), g_corr, expo)
+    w_s = torch.linspace(1.0, 2.0, p, device=a.device)
+    w_c = torch.linspace(1.0, 3.0, nd, device=a.device)
+
+    def ik_grad(core):
+        leaf = ik.clone().requires_grad_(True)
+        s, co = core(a, c, u, xj, bi, bj, leaf, diag_pos)
+        return torch.autograd.grad((s * w_s).sum() + (co * w_c).sum(), leaf)[0]
+
+    return max(err, hold_gik("cov_gik via CovCore iK gradient", label, ik_grad(moment_cov.CovCore.apply),
+                             ik_grad(moment_cov.cov_core_ref), w_c, expo))
 
 
 def random_cov_operands(dev, p, n, ns, diag_pos, seed=0):
@@ -524,11 +634,7 @@ def check_df_operands(label, args, diag_pos) -> tuple[float, float]:
 
         for name, g, r in zip(("ga", "gc", "gU", "gXj"), grads(df_cov.DfCovCore.apply),
                               grads(df_cov.df_cov_core_ref)):
-            abs_e, rel_e = max_err(g, r)
-            log(f"kernel df_fwdres via DfCovCore {name} [{label}]: max abs err {abs_e:.3e} = {rel_e:.3e} "
-                f"of max |grad| (tol {DF_GRAD_TOL})")
-            if not rel_e <= DF_GRAD_TOL:
-                raise AssertionError(f"DfCovCore {name} disagrees with autograd of the plain core")
+            hold_grad(f"df_fwdres via DfCovCore {name}, against autograd of the plain core", label, g, r)
     return err_fwd, err_res
 
 
@@ -555,7 +661,56 @@ def check_df_kernels(dev):
             f"plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 "
             f"instructions per element over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
         results[name] = dict(err=max(e[i] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+    # the stacked backward on the flagship's operands and random ones at 384,
+    # and random ones at 96 (tests/test_torch_cuda.py adds ragged N)
+    err_bwd = max(check_df_bwd("flagship", flag, diag_pos), check_df_bwd("random", rand, diag_pos),
+                  check_df_bwd("random N=96", random_df_operands(dev, p, 96, ns, diag_pos, seed=2), diag_pos))
+    gs = torch.linspace(1.0, 2.0, p, device=dev)
+    gco = _scatter_diag(torch.linspace(1.0, 3.0, nd, device=dev), p, diag_pos)
+    ms, host = cuda_ms(lambda: df_cov.df_cov_bwd(*flag, gs, gco, diag_pos))
+    plain_ms = event_ms(lambda: df_cov.df_cov_bwd_plain(*flag, gs, gco, diag_pos))
+    per, per_diag = counts["df_bwd"]
+    b, by = bound_ms(in_bytes + 4 * 2 * p + 4 * 2 * p * n * (1 + ns), 2 * (p * per + nd * per_diag) * n * n,
+                     H100_F32_INSTR_PER_S)
+    log(f"kernel df_bwd (2P={2 * p} stacked rows, N={n}, ns={ns}): kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 instructions per element of each side "
+        f"over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
+    results["df_bwd"] = dict(err=err_bwd, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
     return results
+
+
+def check_df_bwd(label, args, diag_pos) -> float:
+    """The stacked backward kernel against its plain twin (ga and gU of both
+    sides, DF_GRAD_TOL of each output's largest entry), and the stacked
+    composite's gradients (lean forward, then this kernel) against the
+    residual composite's (DfCovCore): the same VJP, to the same tolerance."""
+    p, nd = args[0].shape[0], len(diag_pos)
+    dev = args[0].device
+    w = torch.linspace(1.0, 2.0, p, device=dev)
+    wc = torch.linspace(1.0, 3.0, nd, device=dev)
+    out = df_cov.df_cov_bwd(*args, w, _scatter_diag(wc, p, diag_pos), diag_pos)
+    ref = df_cov.df_cov_bwd_plain(*args, w, _scatter_diag(wc, p, diag_pos), diag_pos)
+
+    def grads(core):
+        a = [t.clone() for t in args]
+        leaves = [a[i].requires_grad_(True) for i in (0, 2, 4, 6)]
+        sh, sl, ch, cl = core(*a, diag_pos)
+        return torch.autograd.grad((w * (sh + sl)).sum() + (wc * (ch + cl)).sum(), leaves)
+
+    errs = [hold_grad(f"df_bwd {nm}", label, o, r) for nm, o, r in zip(("ga", "gU"), out, ref)]
+    for nm, o, r in zip(("ga", "gc", "gU", "gXj"), grads(df_cov.DfCovCoreStacked.apply), grads(df_cov.DfCovCore.apply)):
+        hold_grad(f"df_bwd via DfCovCoreStacked {nm}, against DfCovCore", label, o, r)
+    return max(errs)
+
+
+def hold_grad(what, label, out, ref) -> float:
+    """Hold a gradient to DF_GRAD_TOL of its largest entry."""
+    abs_e, rel_e = max_err(out, ref)
+    log(f"kernel {what} [{label}]: max abs err {abs_e:.3e} = {rel_e:.3e} of max |grad| (tol {DF_GRAD_TOL})")
+    if not rel_e <= DF_GRAD_TOL:
+        raise AssertionError(f"{what} [{label}] disagrees")
+    return abs_e
 
 
 def trained_gp_step_inputs(dev, n):
@@ -649,58 +804,116 @@ def check_df_mm_operands(label, cache, mu, sv) -> tuple[float, float, float]:
     g = [torch.linspace(lo, hi, k, device=mu.device).reshape(shape)
          for lo, hi, k, shape in ((1.0, 2.0, ns, (ns,)), (-1.0, 1.0, ns * d, (ns, d)), (1.0, 2.0, p, (p,)),
                                   (-1.0, -2.0, ns, (ns,)))]
-    out = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    out = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)  # #9, at every N
     ref = df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)
-    err_bwd = 0.0
-    for nm, o, r in zip(("g_mu", "g_B", "g_Q"), out, ref):
-        abs_e, rel_e = max_err(o, r)
-        err_bwd = max(err_bwd, abs_e)
-        log(f"kernel df_mm_bwd {nm} (N={n}) [{label}]: max abs err {abs_e:.3e} = {rel_e:.3e} of max |grad| "
-            f"(tol {DF_GRAD_TOL})")
-        if not rel_e <= DF_GRAD_TOL:
-            raise AssertionError(f"df_mm_bwd {nm} [{label}] (N={n}) disagrees with its plain twin")
+    err_bwd = max(hold_grad(f"df_mm_bwd {nm} (N={n})", label, o, r) for nm, o, r in zip(("g_mu", "g_B", "g_Q"), out, ref))
     return err_full, err_fwd, err_bwd
+
+
+def split_cotangents(mu, p):
+    """The fixed cotangents g_M, g_V, g_S_p, g_corr of the phase 3 VJP checks."""
+    ns, d = 3, mu.shape[0]
+    return [torch.linspace(lo, hi, k, device=mu.device).reshape(shape)
+            for lo, hi, k, shape in ((1.0, 2.0, ns, (ns,)), (-1.0, 1.0, ns * d, (ns, d)), (1.0, 2.0, p, (p,)),
+                                     (-1.0, -2.0, ns, (ns,)))]
+
+
+def check_df_mm_split(label, cache, mu, sv) -> tuple[float, float]:
+    """The split backward (#10 the mean path, #11 every pair) against its
+    plain twins, each output (a df contribution collapsed in f64, or an f32
+    gradient) to DF_GRAD_TOL of its largest entry; at N = 384 also the
+    combined split route (``stage23_bwd``) against #9 at the same N."""
+    ns = cache.ils_hi.shape[0]
+    n = cache.x_hi.shape[0]
+    ii, jj, _, _ = df_mm.pair_indices(ns, mu.device)
+    Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(cache, sv, ii, jj)
+    g = split_cotangents(mu, Qh.shape[0])
+
+    def v(x):
+        return x[0].double() + x[1].double()
+
+    (m_inp, g_b), (m_ref, g_b_ref) = (df_mm.stage23_bwd_mean(mu, Bh, Bl, cache, g[0], g[1]),
+                                      df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, cache, g[0], g[1]))
+    err_mean = max(hold_grad(f"df_mm_bwd_mean g_inp (N={n})", label, v(m_inp), v(m_ref)),
+                   hold_grad(f"df_mm_bwd_mean g_B (N={n})", label, g_b, g_b_ref))
+    (p_inp, g_q), (p_ref, g_q_ref) = (df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3]),
+                                      df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, cache, g[2], g[3]))
+    err_pair = max(hold_grad(f"df_mm_bwd_pair g_inp (N={n})", label, v(p_inp), v(p_ref)),
+                   hold_grad(f"df_mm_bwd_pair g_Q (N={n})", label, g_q, g_q_ref))
+    if n == 384:
+        for nm, o, r in zip(("g_mu", "g_B", "g_Q"), df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g),
+                            df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)):
+            hold_grad(f"split route (df_mm_bwd_mean + df_mm_bwd_pair) {nm}, against df_mm_bwd (N={n})", label, o, r)
+    return err_mean, err_pair
 
 
 def check_df_mm_kernels(dev):
     """#12, #8 and #9 against their plain twins on the card at N = 32, 96
-    (the bucket that is not a power of two), 128 and 384, on the trained-GP
-    problem's operands and on random ones; then their times at the 128
-    bucket's trained-GP operands (the phase-4 path's shape)."""
-    errs = []
-    for n in DF_MM_SIZES:
-        step = trained_gp_step_inputs(dev, n)
-        errs.append(check_df_mm_operands("trained-GP", *step))
-        errs.append(check_df_mm_operands("random", *random_df_mm_problem(dev, n, seed=n)))
-        if n == 128:
-            timed = step
-    cache, mu, sv = timed
-    ns, d = cache.ils_hi.shape
-    n = cache.x_hi.shape[0]
-    ii, jj, _, _ = df_mm.pair_indices(ns, dev)
-    Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(cache, sv, ii, jj)
-    p = Qh.shape[0]
-    g = (torch.ones(ns, device=dev), torch.ones(ns, d, device=dev), torch.ones(p, device=dev), -torch.ones(ns, device=dev))
-    calls = {"df_mm_full": (lambda: df_mm.full_step_fwd(mu, sv, cache), lambda: df_mm.full_step_plain(mu, sv, cache)),
-             "df_mm_fwd": (lambda: df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache),
-                           lambda: df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, cache)),
-             "df_mm_bwd": (lambda: df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g),
-                           lambda: df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g))}
-    counts = df_instructions_per_element(ns)
-    in_bytes = 4 * 2 * (n * d + 3 * ns * d + ns + ns * n + ns * n * n) + 4 * (d + ns * ns + 2 * ns ** 3 + 2 * p * ns * ns)
-    out_bytes = {"df_mm_full": 4 * (ns + ns * d + p), "df_mm_fwd": 4 * 2 * (2 * ns + ns * d + p),
-                 "df_mm_bwd": 4 * (d + ns ** 3 + p * ns * ns)}
+    (the bucket that is not a power of two), 128 and 384, and #10 and #11
+    at N = 192 and 384, on the trained-GP problem's operands and on random
+    ones; then their times at the trained-GP operands of the paths' shapes:
+    N = 128 for #12, #8 and #9 (the whole-step planning step), N = 384 for
+    #10 and #11 (phase 5's value-and-grad rollout), with #9 beside them."""
+    errs, split_errs, steps = [], [], {}
+    for n in sorted(set(DF_MM_SIZES) | set(SPLIT_SIZES)):
+        steps[n] = trained_gp_step_inputs(dev, n)
+        rand = random_df_mm_problem(dev, n, seed=n)
+        if n in DF_MM_SIZES:
+            errs.append(check_df_mm_operands("trained-GP", *steps[n]))
+            errs.append(check_df_mm_operands("random", *rand))
+        if n in SPLIT_SIZES:
+            split_errs.append(check_df_mm_split("trained-GP", *steps[n]))
+            split_errs.append(check_df_mm_split("random", *rand))
     results = {}
-    for i, (name, (kern, plain)) in enumerate(calls.items()):
-        ms, host = cuda_ms(kern)
-        plain_ms = event_ms(plain)
-        per, per_diag = counts[name]
-        b, by = bound_ms(in_bytes + out_bytes[name], (p * per + ns * per_diag) * n * n, H100_F32_INSTR_PER_S)
-        log(f"kernel {name} (P={p}, N={n}, ns={ns}, trained-GP operands): wrapper {ms:.4f} ms (device, 2 launches) "
-            f"plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 instructions "
-            f"per slab element over {H100_F32_INSTR_PER_S:.3g}/s; the per-point work is not counted); "
-            f"host {host:.4f} ms per call")
-        results[name] = dict(err=max(e[i] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    for n, names in ((128, ("df_mm_full", "df_mm_fwd", "df_mm_bwd")), (384, ("df_mm_bwd_mean", "df_mm_bwd_pair"))):
+        cache, mu, sv = steps[n]
+        ns, d = cache.ils_hi.shape
+        ii, jj, _, _ = df_mm.pair_indices(ns, dev)
+        Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(cache, sv, ii, jj)
+        p = Qh.shape[0]
+        g = (torch.ones(ns, device=dev), torch.ones(ns, d, device=dev), torch.ones(p, device=dev),
+             -torch.ones(ns, device=dev))
+        calls = {"df_mm_full": (lambda: df_mm.full_step_fwd(mu, sv, cache), lambda: df_mm.full_step_plain(mu, sv, cache)),
+                 "df_mm_fwd": (lambda: df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache),
+                               lambda: df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, cache)),
+                 "df_mm_bwd": (lambda: df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g),
+                               lambda: df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)),
+                 "df_mm_bwd_mean": (lambda: df_mm.stage23_bwd_mean(mu, Bh, Bl, cache, g[0], g[1]),
+                                    lambda: df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, cache, g[0], g[1])),
+                 "df_mm_bwd_pair": (lambda: df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3]),
+                                    lambda: df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, cache, g[2], g[3]))}
+        counts = df_instructions_per_element(ns)
+        in_bytes = 4 * 2 * (n * d + 3 * ns * d + ns + ns * n + ns * n * n) + 4 * (d + ns * ns + 2 * ns ** 3
+                                                                               + 2 * p * ns * ns)
+        out_bytes = {"df_mm_full": 4 * (ns + ns * d + p), "df_mm_fwd": 4 * 2 * (2 * ns + ns * d + p),
+                     "df_mm_bwd": 4 * (d + ns ** 3 + p * ns * ns), "df_mm_bwd_mean": 4 * (2 * d + ns ** 3),
+                     "df_mm_bwd_pair": 4 * (2 * p * d + p * ns * ns)}
+        for name in names:
+            kern, plain = calls[name]
+            ms, host = cuda_ms(kern)
+            plain_ms = event_ms(plain)
+            if name == "df_mm_bwd_mean":
+                per = mean_vjp_instructions(ns, d)
+                ops_, what = ns * n * per, f"{per} f32 instructions per (model, point)"
+            else:
+                per, per_diag = counts[name]
+                ops_ = (p * per + ns * per_diag) * n * n
+                what = (f"{per} + {per_diag} on diagonal pairs f32 instructions per slab element; the per-point "
+                        f"work is not counted")
+            nbytes = (4 * 2 * (n * d + 3 * ns * d + ns + ns * n) + 4 * (d + 2 * ns ** 3) if name == "df_mm_bwd_mean"
+                      else in_bytes) + out_bytes[name]  # the mean path reads no iK and no Q
+            b, by = bound_ms(nbytes, ops_, H100_F32_INSTR_PER_S)
+            log(f"kernel {name} (P={p}, N={n}, ns={ns}, trained-GP operands): wrapper {ms:.4f} ms (device, "
+                f"2 launches) plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {what}, over "
+                f"{H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
+            err = max(e[names.index(name)] for e in (errs if n == 128 else split_errs))
+            results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+        if n == 384:
+            ms_all, _ = cuda_ms(calls["df_mm_bwd"][0])
+            # the split route's df combination is ~60 small launches: queue fewer calls
+            ms_split, _ = cuda_ms(lambda: df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g), reps=4)
+            log(f"kernel df_mm_bwd at N={n} (trained-GP operands): {ms_all:.4f} ms against the split route "
+                f"(df_mm_bwd_mean + df_mm_bwd_pair + the df combination) {ms_split:.4f} ms, device, per call")
     return results
 
 
@@ -719,7 +932,8 @@ def check_plans(plans, spec, finite_info):
 
 def compare_to_f64(dev, n_points, bucket):
     """Run the same steps on the card in f32 and on the CPU in f64; return
-    (objective rel, gradient rel, a_opt abs, info rel) gaps and the card's plans."""
+    (objective rel, gradient rel, a_opt abs, info rel) gaps, the card's plans
+    and both sides' (problem, cache) after the steps."""
     cpu = torch.device("cpu")
     prob = flagship_problem(dev, torch.float32, n_points=n_points, bucket=bucket)
     planner, plans, _ = run_steps(prob, dev, torch.float32, PLAN_STEPS)
@@ -736,24 +950,44 @@ def compare_to_f64(dev, n_points, bucket):
     )
     log(f"  {n_points} points in the {bucket} bucket, card f32 vs CPU f64: objective {f_card:.9g} vs "
         f"{f_ref:.9g}; gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
-    return gaps, plans
+    return gaps, plans, ((prob, planner._cache), (ref_prob, ref_planner._cache))
 
 
-def compare_mixed_to_f64(dev, prob, planner, plans, witness=True, **sizes):
-    """The card's own float64 plan of the same trained-GP steps (``sizes``:
-    n_points and bucket of the problem, the flagship's by default): the gaps
-    of MIXED_TOL (the plan gap the largest over the steps, each plan's f64
-    objective taken on the caches after the last step) and the a_opt gap of
-    each step (printed only). Then ``a_opt_witness`` on the first step."""
-    ref_prob = trained_gp_problem(dev, dtype=torch.float64, **sizes)
-    ref_planner = start_steps(ref_prob, dev, torch.float64, len(plans))
-    ref_plans = []
-    for i in range(len(plans)):
-        ref_plans.append(plan_step(ref_planner, ref_prob, i))
+def ik_gradient(prob, cache, actions):
+    """The gradient of the planning objective at fixed actions with respect
+    to the factorization cache's iK (how the plan's cost moves with the
+    cached inverse): the cov core's iK gradient, summed over the rollout."""
+    ik = cache.iK.detach().clone().requires_grad_(True)
+    cost, _ = _objective_and_info(prob.spec, cache._replace(iK=ik), actions, prob.state_mu, prob.state_var,
+                                  prob.action_prev, 0)
+    (g,) = torch.autograd.grad(cost, ik)
+    return g.double().cpu()
+
+
+def f64_reference(dev, steps, **sizes):
+    """The card's own float64 plan of ``steps`` trained-GP steps (``sizes``:
+    n_points and bucket of the problem, the flagship's by default), the
+    reference of ``compare_mixed_to_f64``: made once, held against both
+    df32 VJP schemes."""
+    prob = trained_gp_problem(dev, dtype=torch.float64, **sizes)
+    planner = start_steps(prob, dev, torch.float64, steps)
+    plans = []
+    for i in range(steps):
+        plans.append(plan_step(planner, prob, i))
         if i == 0:
-            cache0 = ref_planner._cache
+            cache0 = planner._cache
+    f, g = objective_and_grad(prob, planner._cache, prob.inits[0])
+    return SimpleNamespace(prob=prob, planner=planner, plans=plans, cache0=cache0, f=f, g=g)
+
+
+def compare_mixed_to_f64(prob, planner, plans, ref, witness=True):
+    """The gaps of MIXED_TOL against the card's f64 plan ``ref`` of the same
+    steps (the plan gap the largest over the steps, each plan's f64
+    objective taken on the caches after the last step) and the a_opt gap of
+    each step (printed only); then ``a_opt_witness`` on the first step.
+    Returns the gaps and the mixed gradient at the initial actions."""
+    ref_prob, ref_planner = ref.prob, ref.planner
     f_card, g_card = objective_and_grad(prob, planner._cache, prob.inits[0])
-    f_ref, g_ref = objective_and_grad(ref_prob, ref_planner._cache, ref_prob.inits[0])
 
     def f64_at(a):
         with torch.no_grad():
@@ -761,7 +995,7 @@ def compare_mixed_to_f64(dev, prob, planner, plans, witness=True, **sizes):
                                        ref_prob.state_var, ref_prob.action_prev, 0)
 
     plan_gaps, a_gaps = [], []
-    for (a_mix, _), (a_ref, _) in zip(plans, ref_plans):
+    for (a_mix, _), (a_ref, _) in zip(plans, ref.plans):
         f_mix_plan, f_ref_plan = float(f64_at(a_mix)[0]), float(f64_at(a_ref)[0])
         plan_gaps.append((f_mix_plan - f_ref_plan) / abs(f_ref_plan))
         a_gaps.append(max_err(a_mix, a_ref)[0])
@@ -769,16 +1003,16 @@ def compare_mixed_to_f64(dev, prob, planner, plans, witness=True, **sizes):
             f"{f_ref_plan:.9g} (f64); a_opt gap {a_gaps[-1]:.3e} (not held, see MIXED_TOL)")
     _, info64 = f64_at(plans[-1][0])
     gaps = dict(
-        objective=abs(f_card - f_ref) / abs(f_ref),
-        gradient=max_err(g_card, g_ref)[1],
+        objective=abs(f_card - ref.f) / abs(ref.f),
+        gradient=max_err(g_card, ref.g)[1],
         info=max(max_err(x, y)[1] for x, y in zip(plans[-1][1], info64)),
         plan=max(plan_gaps),
     )
     log(f"  trained-GP {prob.n_points} points in the {prob.x.shape[0]} bucket, card mixed vs card f64: "
-        f"objective {f_card:.9g} vs {f_ref:.9g}; gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+        f"objective {f_card:.9g} vs {ref.f:.9g}; gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
     if witness:
-        a_opt_witness(prob, ref_prob, cache0, ref_plans[0][0], plans[0][0])
-    return gaps
+        a_opt_witness(prob, ref_prob, ref.cache0, ref.plans[0][0], plans[0][0])
+    return gaps, g_card
 
 
 def a_opt_witness(prob, ref_prob, cache, a_ref, a_mix):
@@ -835,38 +1069,77 @@ def time_rollouts(dev, card):
     of ROLLOUT_BUCKETS (0.8 N points, 300 in 384) at the initial actions,
     through ``moment_match_df_fused`` and through ``moment_match_df``, each
     called directly, forward-only and value-and-grad (the gradient in the
-    actions); blocked ms (host clock, ended by a synchronize) of one
-    rollout each, after one forward-only warm-up rollout of each route."""
+    actions); at 384 also ``moment_match_df`` under the stacked df32 VJP
+    (value-and-grad: its forward is the df cov route's). Blocked ms (host
+    clock, ended by a synchronize) of one rollout each, after one
+    forward-only warm-up rollout of each route. At 384 the whole-step
+    route's value-and-grad rollout is the split backward's driven path: its
+    launch counts are set to 0 just before it and read just after (returned),
+    and its gradient is held to the df cov route's and to the card's f64
+    rollout's by MIXED_TOL["gradient"]."""
+    split_launches = None
     for n in ROLLOUT_BUCKETS:
         prob = trained_gp_problem(dev, n_points=min(300, int(0.8 * n)), bucket=n)
         cache = _cast_cache(Planner(prob.spec, dtype=torch.float32, device=dev, master_dtype=torch.float64)
                             .refresh_cache(prob.x, prob.y, prob.mask, prob.params, prob.bounds), torch.float32)
         ns, d = cache.ils_hi.shape
-        times = {}
-        for route, mm in (("fused", gp_mod.moment_match_df_fused), ("df_cov", gp_mod.moment_match_df)):
-            for grad in (False, True):
-                def rollout():
-                    a = prob.inits[0].reshape(-1, 1).clone().requires_grad_(grad)
-                    mu, var = prob.state_mu, prob.state_var
-                    with torch.set_grad_enabled(grad):
-                        for t in range(a.shape[0]):
-                            input_var = torch.nn.functional.pad(var, (0, d - ns, 0, d - ns))
-                            dmu, dvar, v = mm(cache, torch.cat([mu, a[t]]), input_var)
-                            sv = input_var[:ns]
-                            mu, var = mu + dmu, dvar + var + sv @ v + v.T @ sv.T
-                        out = mu.sum() + var.sum()
-                        if grad:
-                            torch.autograd.grad(out, a)
-                    torch.cuda.synchronize()
 
-                if not grad:
-                    rollout()  # warm-up
-                t0 = time.perf_counter()
-                rollout()
-                times[(route, grad)] = (time.perf_counter() - t0) * 1e3
+        def rollout(mm, cache, prob, grad):
+            a = prob.inits[0].reshape(-1, 1).clone().requires_grad_(grad)
+            mu, var = prob.state_mu, prob.state_var
+            with torch.set_grad_enabled(grad):
+                for t in range(a.shape[0]):
+                    input_var = torch.nn.functional.pad(var, (0, d - ns, 0, d - ns))
+                    dmu, dvar, v = mm(cache, torch.cat([mu, a[t]]), input_var)
+                    sv = input_var[:ns]
+                    mu, var = mu + dmu, dvar + var + sv @ v + v.T @ sv.T
+                out = mu.sum() + var.sum()
+                g = torch.autograd.grad(out, a)[0] if grad else None
+            torch.cuda.synchronize()
+            return g
+
+        routes = [("fused", gp_mod.moment_match_df_fused, "residual", (False, True)),
+                  ("df_cov", gp_mod.moment_match_df, "residual", (False, True))]
+        if n == 384:
+            routes.append(("df_cov stacked", gp_mod.moment_match_df, "stacked", (True,)))
+        times, grads = {}, {}
+        for route, mm, mode, modes in routes:
+            df_cov.VJP_MODE = mode
+            try:
+                for grad in modes:
+                    if not grad:
+                        rollout(mm, cache, prob, False)  # warm-up
+                    if grad and route == "fused" and n == 384:
+                        ops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    grads[route] = rollout(mm, cache, prob, grad)
+                    times[(route, grad)] = (time.perf_counter() - t0) * 1e3
+                    if grad and route == "fused" and n == 384:
+                        split_launches = ops.launch_counts()
+            finally:
+                df_cov.VJP_MODE = "residual"
         log(f"phase 5 rollout N={n} ({prob.n_points} points), 15 steps, blocked ms: " + ", ".join(
             f"{route} {'value-and-grad' if grad else 'forward'} {ms:.2f}" for (route, grad), ms in times.items())
             + f" on {card}")
+        if n == 384:
+            log(f"  launches in the whole-step value-and-grad rollout at N={n}: {split_launches}")
+            for name in ("df_mm_bwd_mean", "df_mm_bwd_pair"):
+                if split_launches[name] <= 0:
+                    raise AssertionError(f"kernel {name} was not launched by the whole-step backward at N={n}")
+            if split_launches["df_mm_bwd"] != 0:
+                raise AssertionError(f"kernel df_mm_bwd was launched at N={n}, past the reference's single-launch range")
+            ref_prob = trained_gp_problem(dev, dtype=torch.float64, n_points=prob.n_points, bucket=n)
+            ref_cache = Planner(ref_prob.spec, dtype=torch.float64, device=dev).refresh_cache(
+                ref_prob.x, ref_prob.y, ref_prob.mask, ref_prob.params, ref_prob.bounds)
+            g64 = rollout(gp_mod.moment_match, ref_cache, ref_prob, True).double()
+            gaps = {f"{route} vs {other}": max_err(grads[route].double(), ref)[1]
+                    for route, other, ref in (("fused", "df_cov", grads["df_cov"].double()), ("fused", "f64", g64),
+                                              ("df_cov", "f64", g64), ("df_cov stacked", "f64", g64))}
+            log(f"  value-and-grad gradient gaps at N={n} (relative to the largest entry): "
+                + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+            if not all(v <= MIXED_TOL["gradient"] for v in gaps.values()):
+                raise AssertionError(f"rollout gradients at N={n} disagree beyond {MIXED_TOL['gradient']}: {gaps}")
+    return split_launches
 
 
 def main() -> int:
@@ -901,7 +1174,7 @@ def _run() -> int:
     kern = check_kernels(dev)
     kern.update(check_df_kernels(dev))
     kern.update(check_df_mm_kernels(dev))
-    log("phase 3 kernels: all eight match their plain versions on the card")
+    log("phase 3 kernels: all twelve match their plain versions on the card")
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec
@@ -913,16 +1186,31 @@ def _run() -> int:
     for name in ("gram", "cov_fwd", "cov_bwd_row"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the f32 main path")
+    if launches["cov_gik"] != 0:
+        raise AssertionError("kernel cov_gik was launched by a planning step (iK is constant while planning)")
     check_plans(plans, spec, finite_info=False)
     f_card, _ = objective_and_grad(prob, planner._cache, prob.inits[0])
     log(f"  flagship f32 objective at the initial actions: {f_card:.9g} (f32 breaks down at "
         f"300 points, in the JAX package too; see ACC_TOL)")
 
-    gaps, plans = compare_to_f64(dev, ACC_POINTS, ACC_BUCKET)
+    gaps, plans, ((aprob, acache), (rprob, rcache)) = compare_to_f64(dev, ACC_POINTS, ACC_BUCKET)
     check_plans(plans, spec, finite_info=True)
     if not all(v <= ACC_TOL for v in gaps.values()):
         raise AssertionError(f"card f32 disagrees with CPU f64 beyond {ACC_TOL}: {gaps}")
     log(f"phase 4 accuracy: {ACC_POINTS} points within {ACC_TOL} of f64")
+
+    ops.reset_launch_counts()
+    gk_card = ik_gradient(aprob, acache, aprob.inits[0])
+    torch.cuda.synchronize()
+    gik_launches = ops.launch_counts()
+    gk_gap = max_err(gk_card, ik_gradient(rprob, rcache, rprob.inits[0]))[1]
+    log(f"phase 4 iK gradient: the f32 objective's gradient in the cache's iK ({ACC_POINTS} points in the "
+        f"{ACC_BUCKET} bucket), launches {gik_launches}; gap to CPU f64 {gk_gap:.3e} of its largest entry "
+        f"(tol {ACC_TOL})")
+    if gik_launches["cov_gik"] <= 0:
+        raise AssertionError("kernel cov_gik was not launched by the iK gradient")
+    if not gk_gap <= ACC_TOL:
+        raise AssertionError(f"card iK gradient disagrees with CPU f64 beyond {ACC_TOL}: {gk_gap:.3e}")
 
     mprob = trained_gp_problem(dev)
     torch.cuda.reset_peak_memory_stats()
@@ -936,16 +1224,45 @@ def _run() -> int:
     check_plans(mplans, mprob.spec, finite_info=True)
     # accuracy before the launch check, so that a path which skips a kernel
     # shows what it does to the plan
-    mgaps = compare_mixed_to_f64(dev, mprob, mplanner, mplans)
+    ref64 = f64_reference(dev, MIXED_STEPS)
+    mgaps, g_residual = compare_mixed_to_f64(mprob, mplanner, mplans, ref64)
     if not all(v <= MIXED_TOL[k] for k, v in mgaps.items()):  # plan: a signed excess
         raise AssertionError(f"card mixed mode disagrees with card f64 beyond {MIXED_TOL}: {mgaps}")
     for name in ("df_fwd", "df_fwdres"):
         if mixed_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the mixed main path")
-    for name in ("df_mm_full", "df_mm_fwd", "df_mm_bwd"):  # the 384 bucket is outside the whole-step range
+    for name in ("df_bwd", "df_mm_full", "df_mm_fwd", "df_mm_bwd"):  # residual scheme; 384 is outside 32..128
         if mixed_launches[name] != 0:
-            raise AssertionError(f"kernel {name} was launched at the 384 bucket")
+            raise AssertionError(f"kernel {name} was launched on the mixed main path")
     log(f"phase 4 mixed accuracy: within {MIXED_TOL} of the card's f64 plan")
+
+    df_cov.VJP_MODE = "stacked"
+    try:
+        sprob = trained_gp_problem(dev)
+        ops.reset_launch_counts()
+        splanner, splans, ssecs = run_steps(sprob, dev, torch.float32, MIXED_STEPS, sync=torch.cuda.synchronize)
+        torch.cuda.synchronize()
+        stacked_launches = ops.launch_counts()
+        log(f"phase 4 main path mixed, stacked VJP: f64 refresh + {MIXED_STEPS} trained-GP flagship plans "
+            f"(300 points in the {sprob.x.shape[0]} bucket), launches {stacked_launches}")
+        check_plans(splans, sprob.spec, finite_info=True)
+        sgaps, g_stacked = compare_mixed_to_f64(sprob, splanner, splans, ref64, witness=False)
+    finally:
+        df_cov.VJP_MODE = "residual"
+    if not all(v <= MIXED_TOL[k] for k, v in sgaps.items()):
+        raise AssertionError(f"card mixed mode (stacked VJP) disagrees with card f64 beyond {MIXED_TOL}: {sgaps}")
+    vjp_gap = max_err(g_stacked, g_residual)[1]
+    log(f"  stacked vs residual VJP: objective gradient at the initial actions differs by {vjp_gap:.3e} of its "
+        f"largest entry (tol MIXED_TOL gradient {MIXED_TOL['gradient']}; the two cov-core VJPs agree to "
+        f"DF_GRAD_TOL in phase 3)")
+    if not vjp_gap <= MIXED_TOL["gradient"]:
+        raise AssertionError(f"the stacked VJP's gradient disagrees with the residual VJP's: {vjp_gap:.3e}")
+    for name in ("df_fwd", "df_bwd"):
+        if stacked_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the stacked mixed path")
+    if stacked_launches["df_fwdres"] != 0:
+        raise AssertionError("kernel df_fwdres was launched under the stacked VJP")
+    log(f"phase 4 stacked accuracy: within {MIXED_TOL} of the card's f64 plan")
 
     sizes = dict(n_points=FUSED_POINTS, bucket=FUSED_BUCKET)
     fprob = trained_gp_problem(dev, **sizes)
@@ -956,13 +1273,13 @@ def _run() -> int:
     log(f"phase 4 main path mixed, whole-step: f64 refresh + {FUSED_STEPS} trained-GP plans ({FUSED_POINTS} points "
         f"in the {FUSED_BUCKET} bucket), launches {fused_launches}")
     check_plans(fplans, fprob.spec, finite_info=True)
-    fgaps = compare_mixed_to_f64(dev, fprob, fplanner, fplans, witness=False, **sizes)
+    fgaps, _ = compare_mixed_to_f64(fprob, fplanner, fplans, f64_reference(dev, FUSED_STEPS, **sizes), witness=False)
     if not all(v <= MIXED_TOL[k] for k, v in fgaps.items()):
         raise AssertionError(f"card mixed mode (whole-step) disagrees with card f64 beyond {MIXED_TOL}: {fgaps}")
     for name in ("df_mm_full", "df_mm_fwd", "df_mm_bwd"):
         if fused_launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the whole-step path")
-    for name in ("df_fwd", "df_fwdres"):
+    for name in ("df_fwd", "df_fwdres", "df_bwd", "df_mm_bwd_mean", "df_mm_bwd_pair"):
         if fused_launches[name] != 0:
             raise AssertionError(f"kernel {name} was launched on the whole-step path")
     log(f"phase 4 whole-step accuracy: within {MIXED_TOL} of the card's f64 plan")
@@ -976,35 +1293,33 @@ def _run() -> int:
         f"{statistics.median(msecs) * 1e3:.2f} ms over the {len(msecs)} steps of phase 4 ("
         + ", ".join(f"{t * 1e3:.2f}" for t in msecs) + f" ms; {mixed_launches['df_fwd']} df_fwd and "
         f"{mixed_launches['df_fwdres']} df_fwdres launches in all; peak {peak_mib:.1f} MiB) on {card}")
+    log(f"phase 5 timing: median blocked trained-GP mixed planning step under the stacked VJP "
+        f"{statistics.median(ssecs) * 1e3:.2f} ms over the {len(ssecs)} steps of phase 4 ("
+        + ", ".join(f"{t * 1e3:.2f}" for t in ssecs) + f" ms; {stacked_launches['df_fwd']} df_fwd and "
+        f"{stacked_launches['df_bwd']} df_bwd launches in all) on {card}")
     log(f"phase 5 timing: median blocked trained-GP whole-step planning step ({FUSED_POINTS} points in the "
         f"{FUSED_BUCKET} bucket) {statistics.median(fsecs) * 1e3:.2f} ms over the {len(fsecs)} steps of phase 4 ("
         + ", ".join(f"{t * 1e3:.2f}" for t in fsecs) + f" ms) on {card}")
-    time_rollouts(dev, card)
+    split_launches = time_rollouts(dev, card)
 
-    sources = {"gram": "gpmpc_tpu_torch/ops/csrc/gram.cu",
-               "cov_fwd": "gpmpc_tpu_torch/ops/csrc/cov_core.cu",
-               "cov_bwd_row": "gpmpc_tpu_torch/ops/csrc/cov_core.cu",
-               "df_fwd": "gpmpc_tpu_torch/ops/csrc/df_cov.cu",
-               "df_fwdres": "gpmpc_tpu_torch/ops/csrc/df_cov.cu",
-               "df_mm_full": "gpmpc_tpu_torch/ops/csrc/df_mm_fwd.cu",
-               "df_mm_fwd": "gpmpc_tpu_torch/ops/csrc/df_mm_fwd.cu",
-               "df_mm_bwd": "gpmpc_tpu_torch/ops/csrc/df_mm_bwd.cu"}
-    replaces = {"gram": "gpmpc_tpu/ops/pallas_gram.py:28",
-                "cov_fwd": "gpmpc_tpu/ops/pallas_moment_cov.py:111",
-                "cov_bwd_row": "gpmpc_tpu/ops/pallas_moment_cov.py:175",
-                "df_fwd": "gpmpc_tpu/ops/pallas_df_cov.py:214",
-                "df_fwdres": "gpmpc_tpu/ops/pallas_df_cov.py:378",
-                "df_mm_full": "gpmpc_tpu/ops/pallas_df_mm.py:688",
-                "df_mm_fwd": "gpmpc_tpu/ops/pallas_df_mm.py:451",
-                "df_mm_bwd": "gpmpc_tpu/ops/pallas_df_mm.py:510"}
-    counts = {**{k: launches[k] for k in ("gram", "cov_fwd", "cov_bwd_row")},
-              **{k: mixed_launches[k] for k in ("df_fwd", "df_fwdres")},
-              **{k: fused_launches[k] for k in ("df_mm_full", "df_mm_fwd", "df_mm_bwd")}}
-    kernels = [dict(name=name, route="cuda", source=sources[name], replaces=replaces[name],
+    kernels_of = {  # name: (source, the TPU kernel it replaces, the driven path's launch counts)
+        "gram": ("gram.cu", "pallas_gram.py:28", launches),
+        "cov_fwd": ("cov_core.cu", "pallas_moment_cov.py:111", launches),
+        "cov_bwd_row": ("cov_core.cu", "pallas_moment_cov.py:175", launches),
+        "cov_gik": ("cov_core.cu", "pallas_moment_cov.py:192", gik_launches),
+        "df_fwd": ("df_cov.cu", "pallas_df_cov.py:214", mixed_launches),
+        "df_fwdres": ("df_cov.cu", "pallas_df_cov.py:378", mixed_launches),
+        "df_bwd": ("df_cov.cu", "pallas_df_cov.py:478", stacked_launches),
+        "df_mm_full": ("df_mm_fwd.cu", "pallas_df_mm.py:688", fused_launches),
+        "df_mm_fwd": ("df_mm_fwd.cu", "pallas_df_mm.py:451", fused_launches),
+        "df_mm_bwd": ("df_mm_bwd.cu", "pallas_df_mm.py:510", fused_launches),
+        "df_mm_bwd_mean": ("df_mm_bwd.cu", "pallas_df_mm.py:483", split_launches),
+        "df_mm_bwd_pair": ("df_mm_bwd.cu", "pallas_df_mm.py:557", split_launches)}
+    kernels = [dict(name=name, route="cuda", source=f"gpmpc_tpu_torch/ops/csrc/{src}", replaces=f"gpmpc_tpu/ops/{rep}",
                     launches=counts[name], max_abs_err=kern[name]["err"], ms=kern[name]["ms"],
                     plain_ms=kern[name]["plain_ms"], bound_ms=kern[name]["bound_ms"],
                     bound_by=kern[name]["bound_by"], library_ms=None)
-               for name in sources]
+               for name, (src, rep, counts) in kernels_of.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,11 +22,14 @@ to its XLA twins:
   ``use_df_pallas`` would: on the card, within ``df_mm.supported``
   (32 <= N <= 128, ns <= 3, d <= 8), see ``use_df_fused``.
 
-Under autograd the df32 cov core keeps its residual backward on every
-device: ``DfCovCore`` (the forward-with-residuals kernel on the card, its
-plain twin on the CPU), whose cotangent sums stay df. Differentiating the
-plain core by autograd sums each cotangent-weighted E term in plain f32,
-which cancels at cond(K) ~ 1e6 (ROADMAP C1).
+Under autograd the df32 cov core keeps a df backward on every device,
+whose cotangent sums stay df: by default the residual scheme ``DfCovCore``
+(the forward-with-residuals kernel on the card, its plain twin on the CPU);
+with ``df_cov.VJP_MODE == "stacked"`` (``GPMPC_DF_COV_VJP=stacked``, read at
+import, or the attribute set by the program) ``DfCovCoreStacked`` (the lean
+forward, then the stacked backward kernel; their twins on the CPU).
+Differentiating the plain core by autograd sums each cotangent-weighted E
+term in plain f32, which cancels at cond(K) ~ 1e6 (ROADMAP C1).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from . import df_cov as _df_mod
 from . import df_mm
 from . import gram_rbf as _gram_mod
 from . import moment_cov as _cov_mod
-from .df_cov import DfCovCore, df_cov_core_ref, df_cov_fwd
+from .df_cov import DfCovCore, DfCovCoreStacked, df_cov_core_ref, df_cov_fwd
 from .gram_rbf import gram, gram_ref
 from .moment_cov import CovCore, cov_core_ref
 
@@ -59,15 +62,17 @@ def df_cov_core(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, 
     """df32 (S_p h, l, corr h, l) of the moment-matching covariance (see
     df_cov). Under autograd (grad mode on and an operand requiring a
     gradient) DfCovCore, which takes the forward-with-residuals kernel on
-    the card and its plain twin on the CPU; otherwise the lean forward
-    kernel on the card (as the JAX core runs its primal kernel outside
-    value_and_grad) and the plain core on the CPU. On the card past
+    the card and its plain twin on the CPU, or DfCovCoreStacked when
+    ``df_cov.VJP_MODE`` is "stacked" (read at each call); otherwise the
+    lean forward kernel on the card (as the JAX core runs its primal kernel
+    outside value_and_grad) and the plain core on the CPU. On the card past
     DF_COV_MAX_NS state dims, the plain core, differentiable by autograd."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
     if ah.device.type != "cpu" and uh.shape[-1] > DF_COV_MAX_NS:
         return df_cov_core_ref(*args, diag_pos)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return DfCovCore.apply(*args, tuple(diag_pos))
+        core = DfCovCoreStacked if _df_mod.VJP_MODE == "stacked" else DfCovCore
+        return core.apply(*args, tuple(diag_pos))
     if ah.device.type == "cpu":
         return df_cov_core_ref(*args, diag_pos)
     return df_cov_fwd(*args, tuple(diag_pos))
@@ -95,5 +100,5 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-__all__ = ["cov_core", "cov_core_ref", "CovCore", "df_cov_core", "df_cov_core_ref", "DfCovCore", "df_mm",
-           "gram", "gram_ref", "launch_counts", "reset_launch_counts", "use_df_fused"]
+__all__ = ["cov_core", "cov_core_ref", "CovCore", "df_cov_core", "df_cov_core_ref", "DfCovCore", "DfCovCoreStacked",
+           "df_mm", "gram", "gram_ref", "launch_counts", "reset_launch_counts", "use_df_fused"]

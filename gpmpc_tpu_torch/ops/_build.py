@@ -35,15 +35,19 @@ _SIGNATURES = {
     "gpmpc_cov_fwd_rows": (),
     "gpmpc_cov_fwd_f32": (_P,) * 8 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
     "gpmpc_cov_bwd_row_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
+    "gpmpc_cov_gik_f32": (_P,) * 6 + (_I,) + (_P,) + (_I,) * 3 + (_P,),
     "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
     "gpmpc_df_tile_rows": (),
     "gpmpc_df_tile_cols": (),
     "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
     "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 4 + (_I,) * 4 + (_P,),
+    "gpmpc_df_bwd_f32": (_P,) * 17 + (_I,) + (_P,) * 2 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_tile": (),
     "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_bwd_f32": (_P,) * 23 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_mean_f32": (_P,) * 18 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_pair_f32": (_P,) * 20 + (_I,) * 3 + (_P,),
 }
 
 

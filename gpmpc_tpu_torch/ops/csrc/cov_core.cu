@@ -4,18 +4,24 @@
 // S_p[p]     = sum_{n,k} bi[p, n] E[p, n, k] bj[p, k]
 // corr[m]    = sum_{n,k} iK[m, n, k] E[diag_pos[m], n, k]
 //
-// Replaces gpmpc_tpu/ops/pallas_moment_cov.py: _cov_fwd_kernel (forward) and
+// Replaces gpmpc_tpu/ops/pallas_moment_cov.py: _cov_fwd_kernel (forward),
 // _bwd_row_kernel (row-side backward; the col side is the same kernel with the
-// roles of (a, c), (U, Xj) and (bi, bj) swapped by the caller). The iK model
-// slab of a pair is found from diag_pos inside the kernel, as _ik_slot does.
+// roles of (a, c), (U, Xj) and (bi, bj) swapped by the caller) and
+// _gik_kernel (the gradient with respect to iK: gK[m] = g_corr[m] E of the
+// diagonal pair diag_pos[m]). The iK model slab of a pair is found from
+// diag_pos inside the kernel, as _ik_slot does.
 //
 // Layouts (all contiguous, row major): a, bi (P, Nr); c, bj (P, Nc);
-// U (P, Nr, ns); Xj (P, Nc, ns); iK (n_diag, Nr, Nc).
+// U (P, Nr, ns); Xj (P, Nc, ns); iK and gK (n_diag, Nr, Nc).
 //
-// Both kernels read iK once (the only O(N^2) input) and compute E on the fly,
-// never writing it. The ns-contraction is ns scalar f32 FMAs: no tensor
-// cores, whose TF32 inputs would put a ~1e-3 error inside the exp.
-// No atomics: each block writes its own partial, so runs repeat bitwise.
+// The forward and the row backward read iK once (the only O(N^2) input) and
+// compute E on the fly, never writing it. The iK gradient is the one kernel
+// with an O(N^2) output: it is bound by writing gK (1.77 MB at the flagship),
+// so each thread computes and stores one element at a time, a warp 32
+// neighbouring columns of one row. Every kernel computes E by cov_e, the
+// same f32 operations in the same order. The ns-contraction is ns scalar f32
+// FMAs: no tensor cores, whose TF32 inputs would put a ~1e-3 error inside the
+// exp. No atomics: each block writes its own partial, so runs repeat bitwise.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +50,15 @@ __device__ __forceinline__ float gpmpc_block_sum(float v, float* red) {
   v = (threadIdx.x < nwarps) ? red[threadIdx.x] : 0.f;
   if (warp == 0) v = gpmpc_warp_sum(v);
   return v;
+}
+
+// one element of E: exp(min(a + c + sum_e u_e x_e, 60)), the FMAs in e order
+__device__ __forceinline__ float cov_e(float an, float ck, const float* un, const float* xk, int ns) {
+  float expo = an + ck;
+#pragma unroll
+  for (int e = 0; e < GPMPC_MAX_NS; ++e)
+    if (e < ns) expo = fmaf(un[e], xk[e], expo);
+  return expf(fminf(expo, 60.f));
 }
 
 constexpr int kFwdRows = 16;      // rows of E per forward block
@@ -96,11 +111,7 @@ cov_fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
       xk[e] = e < ns ? xj[((size_t)p * nc + k) * ns + e] : 0.f;
     float col = 0.f;  // sum_n bi[n] E[n, k] over this block's rows
     for (int r = 0; r < rows; ++r) {
-      float expo = s_a[r] + ck;
-#pragma unroll
-      for (int e = 0; e < GPMPC_MAX_NS; ++e)
-        if (e < ns) expo = fmaf(s_u[r * ns + e], xk[e], expo);
-      const float ev = expf(fminf(expo, 60.f));
+      const float ev = cov_e(s_a[r], ck, s_u + r * ns, xk, ns);
       col = fmaf(s_bi[r], ev, col);
       if (ik_rows) acc_c = fmaf(ik_rows[(size_t)r * nc + k], ev, acc_c);
     }
@@ -152,13 +163,9 @@ cov_bwd_row_kernel(const float* __restrict__ g, const float* __restrict__ a,
   float s_ewc = 0.f;
   for (int k = lane; k < nc; k += 32) {
     float xk[GPMPC_MAX_NS];
-    float expo = an + c[(size_t)p * nc + k];
 #pragma unroll
-    for (int e = 0; e < GPMPC_MAX_NS; ++e) {
-      xk[e] = e < ns ? xj[((size_t)p * nc + k) * ns + e] : 0.f;
-      if (e < ns) expo = fmaf(un[e], xk[e], expo);
-    }
-    const float ev = expf(fminf(expo, 60.f));
+    for (int e = 0; e < GPMPC_MAX_NS; ++e) xk[e] = e < ns ? xj[((size_t)p * nc + k) * ns + e] : 0.f;
+    const float ev = cov_e(an, c[(size_t)p * nc + k], un, xk, ns);
     const float ewc = ev * wc[(size_t)p * nc + k];
     float w = g_wr * ewc;
     if (ik_row) w = fmaf(gcp * ik_row[k], ev, w);
@@ -179,6 +186,32 @@ cov_bwd_row_kernel(const float* __restrict__ g, const float* __restrict__ a,
 #pragma unroll
     for (int e = 0; e < GPMPC_MAX_NS; ++e)
       if (e < ns) gu[((size_t)p * nr + n) * ns + e] = s_gu[e];
+  }
+}
+
+constexpr int kGikThreads = 128;  // iK gradient: threads stride the Nc columns of one row
+
+// grid (n_diag, Nr), block kGikThreads: gK[m, n, k] = g_corr[m] E_p[n, k] for
+// the diagonal pair p = diag_pos[m].
+__global__ void __launch_bounds__(kGikThreads)
+cov_gik_kernel(const float* __restrict__ g_corr, const float* __restrict__ a,
+               const float* __restrict__ c, const float* __restrict__ u,
+               const float* __restrict__ xj, const int* __restrict__ diag_pos,
+               float* __restrict__ gk, int nr, int nc, int ns) {
+  const int m = blockIdx.x;
+  const int n = blockIdx.y;
+  const int p = diag_pos[m];
+  const float g = g_corr[m];
+  const float an = a[(size_t)p * nr + n];
+  float un[GPMPC_MAX_NS];
+#pragma unroll
+  for (int e = 0; e < GPMPC_MAX_NS; ++e) un[e] = e < ns ? u[((size_t)p * nr + n) * ns + e] : 0.f;
+  float* out = gk + ((size_t)m * nr + n) * nc;
+  for (int k = threadIdx.x; k < nc; k += blockDim.x) {
+    float xk[GPMPC_MAX_NS];
+#pragma unroll
+    for (int e = 0; e < GPMPC_MAX_NS; ++e) xk[e] = e < ns ? xj[((size_t)p * nc + k) * ns + e] : 0.f;
+    out[k] = g * cov_e(an, c[(size_t)p * nc + k], un, xk, ns);
   }
 }
 
@@ -213,6 +246,17 @@ int gpmpc_cov_bwd_row_f32(const float* g, const float* a, const float* c,
   const dim3 grid(p, (nr + kBwdWarps - 1) / kBwdWarps);
   cov_bwd_row_kernel<<<grid, 32 * kBwdWarps, 0, (cudaStream_t)stream>>>(
       g, a, c, u, xj, wr, wc, ik, gco, diag_pos, n_diag, ga, gu, gwr, nr, nc, ns);
+  return (int)cudaGetLastError();
+}
+
+int gpmpc_cov_gik_f32(const float* g_corr, const float* a, const float* c,
+                      const float* u, const float* xj, const int* diag_pos,
+                      int n_diag, float* gk, int nr, int nc, int ns, void* stream) {
+  if (n_diag < 1 || nr < 1 || nc < 1 || ns < 1 || ns > GPMPC_MAX_NS || nr > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_diag, nr);
+  cov_gik_kernel<<<grid, kGikThreads, 0, (cudaStream_t)stream>>>(
+      g_corr, a, c, u, xj, diag_pos, gk, nr, nc, ns);
   return (int)cudaGetLastError();
 }
 

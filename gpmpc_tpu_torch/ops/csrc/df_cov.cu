@@ -1,5 +1,5 @@
-// Moment-matching covariance core in double-float32: the lean forward and the
-// forward with linearization residuals.
+// Moment-matching covariance core in double-float32: the lean forward, the
+// forward with linearization residuals and the stacked backward.
 //
 // E[p, n, k] = exp(min(a[p, n] (+) c[p, k] (+) sum_e U[p, n, e] Xj[p, k, e], 60))
 // lean forward:   S_p[p] = sum_{n,k} bi E bj,  corr[p] = sum_{n,k} iK_slot E
@@ -7,12 +7,18 @@
 //                                      B1_e = sum bj E Xj_e,  B2_e = sum iK E Xj_e
 //                 column side (over n) C1 = sum bi E,  C2 = sum iK E,
 //                                      D1_e = sum bi E U_e,  D2_e = sum iK E U_e
+// stacked backward, for 2P stacked rows (rows 0..P-1 the row side, rows
+// P..2P-1 the column side with the roles of (a, U, bi) and (c, Xj, bj)
+// swapped), with w = gs bi bj (+) gco iK and gE = w E:
+//                                      ga = sum_k gE,  gU_e = sum_k gE Xj_e
 // every value and sum a df32 (hi, lo) pair (df32.cuh). The iK terms exist on
 // the diagonal pairs only (the slot comes from diag_pos, as in cov_core.cu);
 // elsewhere they are zero.
 //
 // Replaces gpmpc_tpu/ops/pallas_df_cov.py: _fwd_kernel (lean forward, body
-// _fwd_cell) and _fwdres_kernel (forward with residuals, body _fwdres_cell).
+// _fwd_cell), _fwdres_kernel (forward with residuals, body _fwdres_cell) and
+// _bwd_kernel (stacked backward, body _bwd_cell, launched by _build_bwd with
+// sides=2; the reference's GPMPC_DF_COV_VJP=stacked scheme).
 // The TPU kernels walk (pair, 128-row tile) grid steps over whole-N rows in
 // VMEM; here a block owns a 32 x 64 tile of one pair's slab (8 warps, each
 // warp one row at a time, each lane two columns), so a flagship call
@@ -24,6 +30,13 @@
 // its partials (lean forward: one per block; row side: one per row and block
 // column; column side: one per column and block row) and a second launch
 // (df_sum_parts_kernel) sums them per output, sequentially in df.
+//
+// The stacked backward gives each warp one whole stacked row: its lanes
+// stride the N columns, each lane sums its columns sequentially in df, and a
+// shuffle tree finishes the row. N = 384 columns is 12 per lane, so every
+// sum ends inside its warp: one launch, no partials, no second pass. The
+// column side reads iK's row slab at its own row index, as the reference
+// does: that is iK's column slab because iK is symmetric (square slabs only).
 //
 // Bound: arithmetic. One E element is ~700 f32 add/multiply instructions, a
 // row-side and column-side residual element another ~350, and none may fuse
@@ -40,7 +53,9 @@ namespace {
 using gpmpc_df::df;
 using gpmpc_df::df_add;
 using gpmpc_df::df_exp;
+using gpmpc_df::df_collapse;
 using gpmpc_df::df_mul;
+using gpmpc_df::df_mul_f32;
 using gpmpc_df::fast_two_sum;
 using gpmpc_df::two_sum;
 
@@ -267,6 +282,59 @@ df_fwdres_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag,
   }
 }
 
+// grid (ceil(N / kWarps), 2P), block kThreads. Warp w of block (x, b) owns
+// stacked row n = x kWarps + w of stacked pair b: pair b on the row side
+// (b < P), pair b - P with the roles swapped on the column side. gs and gco
+// are (P,), gco zero off the diagonal pairs; ga (2P, N), gu (2P, N, NS).
+template <int NS>
+__global__ void __launch_bounds__(kThreads)
+df_bwd_kernel(Operands o, const float* __restrict__ gs, const float* __restrict__ gco,
+              const int* __restrict__ diag_pos, int n_diag, float* __restrict__ ga,
+              float* __restrict__ gu, int n) {
+  const int np = gridDim.y / 2;
+  const int b = blockIdx.y;
+  const bool col_side = b >= np;
+  const int p = col_side ? b - np : b;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row_n = blockIdx.x * kWarps + warp;
+  if (row_n >= n) return;  // warp-uniform; no block-wide sync follows
+  const Operands s = col_side ? Operands{o.ch, o.cl, o.ah, o.al, o.xjh, o.xjl, o.uh, o.ul,
+                                         o.bjh, o.bjl, o.bih, o.bil, o.ikh, o.ikl}
+                              : o;
+  const int slot = ik_slot(p, diag_pos, n_diag);
+  const float g_s = gs[p];
+  const float g_c = slot >= 0 ? gco[p] : 0.f;
+  const size_t ik_row = ((size_t)(slot < 0 ? 0 : slot) * n + row_n) * n;
+
+  Row<NS> row;
+  row.load(s, p, n, row_n);
+  df sa = {0.f, 0.f}, su[NS];
+#pragma unroll
+  for (int e = 0; e < NS; ++e) su[e] = {0.f, 0.f};
+  for (int k = lane; k < n; k += 32) {
+    const size_t i = (size_t)p * n + k;
+    const df c = {s.ch[i], s.cl[i]};
+    df xj[NS];
+#pragma unroll
+    for (int e = 0; e < NS; ++e) xj[e] = {s.xjh[i * NS + e], s.xjl[i * NS + e]};
+    df w = df_mul_f32(df_mul(row.bi, {s.bjh[i], s.bjl[i]}), g_s);
+    if (slot >= 0) w = df_add(w, df_mul_f32({o.ikh[ik_row + k], o.ikl[ik_row + k]}, g_c));
+    const df ge = df_mul(w, e_elem<NS>(row.a, row.u, c, xj));
+    sa = df_add(sa, ge);
+#pragma unroll
+    for (int e = 0; e < NS; ++e) su[e] = df_add(su[e], df_mul(ge, xj[e]));
+  }
+  sa = warp_df_sum(sa);
+#pragma unroll
+  for (int e = 0; e < NS; ++e) su[e] = warp_df_sum(su[e]);
+  if (lane == 0) {
+    const size_t r = (size_t)b * n + row_n;
+    ga[r] = df_collapse(sa);
+#pragma unroll
+    for (int e = 0; e < NS; ++e) gu[r * NS + e] = df_collapse(su[e]);
+  }
+}
+
 // out[o, i] = df sum over t of part[o, t, i], sequentially in t.
 // part: planes [2][outer][n_parts][inner]; out: planes [2][outer][inner]
 __global__ void df_sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
@@ -318,6 +386,14 @@ int launch_fwdres(const Operands& o, const int* diag_pos, int n_diag, float* row
   return launch_sum_parts(col_part, col_out, p, grid.y, NV * nc, stream);
 }
 
+template <int NS>
+int launch_bwd(const Operands& o, const float* gs, const float* gco, const int* diag_pos, int n_diag,
+               float* ga, float* gu, int p, int n, cudaStream_t stream) {
+  const dim3 grid((n + kWarps - 1) / kWarps, 2 * p);
+  df_bwd_kernel<NS><<<grid, kThreads, 0, stream>>>(o, gs, gco, diag_pos, n_diag, ga, gu, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -355,6 +431,23 @@ int gpmpc_df_fwdres_f32(const float* ah, const float* al, const float* ch, const
     case 1: return launch_fwdres<1>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
     case 2: return launch_fwdres<2>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
     case 3: return launch_fwdres<3>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int gpmpc_df_bwd_f32(const float* ah, const float* al, const float* ch, const float* cl,
+                     const float* uh, const float* ul, const float* xjh, const float* xjl,
+                     const float* bih, const float* bil, const float* bjh, const float* bjl,
+                     const float* ikh, const float* ikl, const float* gs, const float* gco,
+                     const int* diag_pos, int n_diag, float* ga, float* gu, int p, int n, int ns,
+                     void* stream) {
+  if (p < 1 || n < 1 || 2 * p > 65535) return (int)cudaErrorInvalidValue;
+  const Operands o{ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ns) {
+    case 1: return launch_bwd<1>(o, gs, gco, diag_pos, n_diag, ga, gu, p, n, s);
+    case 2: return launch_bwd<2>(o, gs, gco, diag_pos, n_diag, ga, gu, p, n, s);
+    case 3: return launch_bwd<3>(o, gs, gco, diag_pos, n_diag, ga, gu, p, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

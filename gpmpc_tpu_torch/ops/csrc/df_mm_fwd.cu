@@ -9,7 +9,8 @@
 //   df_mm_fwd_kernel<NS, false> + df_mm_fwd_sum_kernel<NS, false>
 //       -> _build.fwd_kernel (#8): the raw df partials (wrapper df_mm_fwd)
 //   df_mm_bwd_kernel + df_mm_bwd_sum_kernel (df_mm_bwd.cu)
-//       -> _build.bwd_all_kernel (#9) (wrapper df_mm_bwd)
+//       -> _build.bwd_all_kernel (#9) (wrapper df_mm_bwd), and its split for
+//          N > 128, #10 and #11 (df_mm_bwd.cu)
 // The shared device code is in df_mm.cuh; the two files compile in parallel.
 // The math and the operation order of every element are those of the plain
 // twins in gpmpc_tpu_torch/ops/df_mm.py (see its docstring).

@@ -29,6 +29,23 @@ and S_p and corr cancel from ~1e3 terms to ~1e-2, so plain f32 drowns both
   D1_e = sum_n bi E U_e, D2_e = sum_n iK E U_e (column side). S_p and corr
   follow from A1 and A2, so one launch serves a value-and-grad evaluation
   and the backward is small df math outside the kernel (``DfCovCore``).
+* ``df_bwd`` replaces ``_bwd_kernel`` (body ``_bwd_cell``, launched by
+  ``_build_bwd``): the stacked backward of the reference's
+  ``GPMPC_DF_COV_VJP=stacked`` scheme. For 2P stacked rows (the row side
+  (a, U, bi) against (c, Xj, bj), then the column side with the roles
+  swapped), with w = gs bi bj (+) gco iK and gE = w E in df: ga = sum_k gE
+  and gU_e = sum_k gE Xj_e, summed in df and collapsed to f32 at the end.
+  Both sides read iK's row slab at their own row index, which is iK's
+  column slab because iK is symmetric (square slabs only). A warp owns one
+  whole stacked row (N = 384 columns is 12 per lane), so every sum ends
+  inside its warp: one launch, no partials. ``DfCovCoreStacked`` pairs it
+  with the lean forward.
+
+The VJP scheme is read once, at import, from ``GPMPC_DF_COV_VJP`` into
+``VJP_MODE``, as the reference reads it (``pallas_df_cov._VJP_MODE``):
+"residual" (the default; any value other than "stacked") or "stacked".
+``ops.df_cov_core`` reads ``VJP_MODE`` at each call, so a program may set
+the attribute to switch schemes.
 
 The iK-weighted residuals (A2, B2, C2, D2) exist only on the diagonal pairs
 and are zero on the others (the TPU kernel reads an unused model's slab
@@ -47,6 +64,7 @@ runs repeat bitwise.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -55,8 +73,9 @@ from . import _build
 from .df32 import df_add, df_exp, df_mul, df_mul_f32, df_sum, fast_two_sum, two_sum
 from .moment_cov import _index
 
-LAUNCHES = {"df_fwd": 0, "df_fwdres": 0}
+LAUNCHES = {"df_fwd": 0, "df_fwdres": 0, "df_bwd": 0}
 MAX_NS = 3  # the kernels' template instantiations (csrc/df_cov.cu)
+VJP_MODE = "stacked" if os.environ.get("GPMPC_DF_COV_VJP", "residual") == "stacked" else "residual"
 
 
 def _e_exponent_df(ah, al, ch, cl, uh, ul, xjh, xjl):
@@ -145,6 +164,36 @@ def df_cov_fwdres_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ik
     col += [csum(*df_mul(vbh, vbl, uh[:, :, None, e], ul[:, :, None, e])) for e in range(ns)]
     col += [csum(*df_mul(qh, ql, uh[:, :, None, e], ul[:, :, None, e])) for e in range(ns)]
     return [t for pair in row for t in pair], [t for pair in col for t in pair]
+
+
+def _stacked_sides(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl):
+    """The 12 non-iK operands of the 2P stacked rows: the row side, then the
+    column side with (a, U, bi) and (c, Xj, bj) swapped."""
+    def cat(x, y):
+        return torch.cat([x, y])
+
+    return (cat(ah, ch), cat(al, cl), cat(ch, ah), cat(cl, al), cat(uh, xjh), cat(ul, xjl), cat(xjh, uh),
+            cat(xjl, ul), cat(bih, bjh), cat(bil, bjl), cat(bjh, bih), cat(bjl, bil))
+
+
+def df_cov_bwd_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, gs, gco, diag_pos):
+    """What ``df_cov_bwd`` computes (``_bwd_cell`` over both sides' whole
+    slabs): ga (2P, N) and gU (2P, N, ns) in f32 at the cotangents gs (P,)
+    and gco (P,), gco zero off the diagonal pairs."""
+    p = ah.shape[0]
+    sah, sal, sch, scl, suh, sul, sxh, sxl, sbih, sbil, sbjh, sbjl = _stacked_sides(
+        ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl)
+    ikph, ikpl = _ik_pairs(ikh, ikl, p, diag_pos)  # both sides read the row slab (iK symmetric)
+    ikph, ikpl = torch.cat([ikph, ikph]), torch.cat([ikpl, ikpl])
+    gs2, gco2 = torch.cat([gs, gs])[:, None, None], torch.cat([gco, gco])[:, None, None]
+    eh, el = _e_slab_df(sah, sal, sch, scl, suh, sul, sxh, sxl)
+    wh, wl = df_mul_f32(*df_mul(sbih[:, :, None], sbil[:, :, None], sbjh[:, None, :], sbjl[:, None, :]), gs2)
+    wh, wl = df_add(wh, wl, *df_mul_f32(ikph, ikpl, gco2))
+    geh, gel = df_mul(wh, wl, eh, el)
+    ga = (lambda s: s[0] + s[1])(df_sum(geh, gel, axis=-1))
+    gu = [(lambda s: s[0] + s[1])(df_sum(*df_mul(geh, gel, sxh[:, None, :, e], sxl[:, None, :, e]), axis=-1))
+          for e in range(uh.shape[-1])]
+    return ga, torch.stack(gu, dim=-1)
 
 
 def df_cov_abs_terms(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
@@ -258,8 +307,34 @@ def df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl
     return rows, cols
 
 
+def df_cov_bwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, gs, gco, diag_pos):
+    """(ga (2P, N), gU (2P, N, ns)) of the stacked backward, as in
+    ``df_cov_bwd_plain``, square slabs only. A CPU tensor takes the plain
+    twin; a CUDA tensor launches the kernel or raises."""
+    args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
+    if ah.device.type == "cpu":
+        return df_cov_bwd_plain(*args, gs, gco, diag_pos)
+    p, nr, nc, ns = _check("df_cov_bwd", args, diag_pos)
+    if nr != nc:
+        raise NotImplementedError("df_cov_bwd: the stacked backward takes square slabs only (nr == nc)")
+    for arg, t in (("gs", gs), ("gco", gco)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"df_cov_bwd: {arg} is {t.dtype}; the kernel takes float32 only")
+        if t.device != ah.device or tuple(t.shape) != (p,) or not t.is_contiguous():
+            raise ValueError(f"df_cov_bwd: {arg} must be a contiguous ({p},) tensor on {ah.device}")
+    lib = _build.load()
+    ga = torch.empty((2 * p, nr), dtype=torch.float32, device=ah.device)
+    gu = torch.empty((2 * p, nr, ns), dtype=torch.float32, device=ah.device)
+    rc = lib.gpmpc_df_bwd_f32(*_ptrs(args), gs.data_ptr(), gco.data_ptr(),
+                              _index(diag_pos, ah.device, torch.int32).data_ptr(), len(diag_pos),
+                              ga.data_ptr(), gu.data_ptr(), p, nr, ns, torch.cuda.current_stream(ah.device).cuda_stream)
+    _build.check(rc, "df_cov_bwd")
+    LAUNCHES["df_bwd"] += 1
+    return ga, gu
+
+
 # ---------------------------------------------------------------------------
-# autograd composite
+# autograd composites
 # ---------------------------------------------------------------------------
 
 
@@ -314,3 +389,31 @@ class DfCovCore(torch.autograd.Function):
         ga, gu = side(bih, bil, rows)
         gc, gxj = side(bjh, bjl, cols)
         return (ga, None, gc, None, gu, None, gxj, None, None, None, None, None, None, None, None)
+
+
+class DfCovCoreStacked(torch.autograd.Function):
+    """df (S_p, corr) whose backward is the stacked scheme of ``_make_core``
+    (gpmpc_tpu/ops/pallas_df_cov.py:643-700, ``GPMPC_DF_COV_VJP=stacked``):
+    the forward is the lean forward (``df_cov_fwd``) and saves the operands;
+    the backward is one ``df_cov_bwd`` launch over the row side and the
+    role-swapped column side, with the hi cotangents only (see DfCovCore).
+    It returns gradients for a, c, U and Xj. Square slabs only: the
+    rectangular (sharded) variant is not ported."""
+
+    @staticmethod
+    def forward(ctx, ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+        ctx.diag_pos = tuple(diag_pos)
+        ctx.save_for_backward(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
+        return df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, ctx.diag_pos)
+
+    @staticmethod
+    def backward(ctx, ct_sh, ct_sl, ct_ch, ct_cl):
+        args = ctx.saved_tensors
+        p, nr = args[0].shape
+        if args[2].shape[1] != nr:
+            raise NotImplementedError("DfCovCoreStacked: rectangular (sharded) slabs are not ported")
+        gs = ct_sh.contiguous()  # hi cotangent only
+        gco = torch.zeros(p, dtype=ct_ch.dtype, device=ct_ch.device).index_copy(
+            0, _index(ctx.diag_pos, ct_ch.device, torch.long), ct_ch)
+        ga, gu = df_cov_bwd(*args, gs, gco, ctx.diag_pos)
+        return (ga[:p], None, ga[p:], None, gu[:p], None, gu[p:], None, None, None, None, None, None, None, None)

@@ -38,6 +38,13 @@ kernel of ``gpmpc_tpu/ops/pallas_df_mm.py``:
   chain rule through a, c, U and Xj to inp = x - mu and Q, the mean path's
   VJP and the sums over N. Only the outputs are collapsed to f32. The sums
   that cancel at cond(K) ~ 1e6 (fault C1 in ROADMAP) therefore cancel in df.
+* ``df_mm_bwd_mean`` replaces ``_build.bwd_mean_kernel`` (#10) and
+  ``df_mm_bwd_pair`` replaces ``_build.make_bwd_pair_kernel`` (#11): #9
+  split into the mean path's VJP (to mu and B^-1) and every pair's (to mu
+  and Q_k; the pair is a grid axis of one launch, where the reference
+  launches once per pair), built from #9's device code. The reference's
+  rule (``SINGLE_BWD_MAX_N``) runs them in place of #9 past N = 128; their
+  contributions to mu's cotangent are added in df (``combine_split``).
 
 ``FullStep`` is the differentiable whole step: forward #12, backward the
 split path of ``_build_full`` (``df_stage1`` by autograd, then ``Stage23``:
@@ -71,8 +78,14 @@ from .df32 import df_add, df_add_f32, df_div, df_exp, df_mul, df_mul_f32, df_sqr
 from .df_cov import _e_exponent_df
 from .df_cov import df_cov_abs_terms as _df_cov_abs
 
-LAUNCHES = {"df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
+LAUNCHES = {"df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0, "df_mm_bwd_mean": 0, "df_mm_bwd_pair": 0}
 MAX_NS, MAX_D = 3, 8
+# The reference's rule for the stages 2-3 backward (pallas_df_mm._build:
+# ``single_bwd = n <= 128``): up to this N one whole VJP launch (#9), past it
+# the mean path's VJP (#10) and the pairs' (#11). A TPU scoped-VMEM limit set
+# it; whether #9 should serve every N on the H100 is a measured question for
+# a later change (#9 is right at any N).
+SINGLE_BWD_MAX_N = 128
 
 
 def supported(n: int, ns: int, d: int) -> bool:
@@ -325,19 +338,12 @@ def _mf(x, coef):
     return df_mul_f32(*x, coef)
 
 
-def stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
-    """What ``df_mm_bwd`` computes: the VJP of ``stage23_plain`` at the hi
-    cotangents g_m (ns,), g_v (ns, d), g_sp (P,) and g_corr (ns,), under the
-    reference's derivative rules, every cotangent carried as a df (see the
-    module docstring). Returns (g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns))
-    in f32: the gradient of each B^-1 and Q entry, the same for its hi and
-    lo half."""
+def _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v):
+    """The mean path's VJP at the hi cotangents g_m (ns,) and g_v (ns, d):
+    its contributions to the cotangent of inp[:, e], a df (ns, N) per e, and
+    g_B (ns, ns, ns) in f32 (``_mean_part``'s VJP, every cotangent a df)."""
     ns, d = cache.ils_hi.shape
     ils_c = cache.ils_hi + cache.ils_lo
-    ils2_c = cache.ils2_hi + cache.ils2_lo
-    g_inp = [[] for _ in range(d)]  # df (…, N) contributions to the cotangent of inp[:, e]
-
-    # ---- the mean path: per (m, n), coefficients collapsed to f32 -------------
     iN, t, ex_hi, q, lb = _mean_rows(mu, bh, bl, cache)
     iN_c = [iN[0][..., e] + iN[1][..., e] for e in range(d)]
     t_c = [h + l for h, l in t]
@@ -364,10 +370,22 @@ def stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
             g_b[k][j] = df_sum(*_mf(g_t[j], iN_c[k]), axis=-1)  # (ns,)
     for e in range(ns, d):
         g_iN[e] = df_add(*g_iN[e], *g_t[e])
-    for e in range(d):
-        g_inp[e].append(_mf(g_iN[e], ils_c[:, e:e + 1]))
+    g_inp = [_mf(g_iN[e], ils_c[:, e:e + 1]) for e in range(d)]
+    g_B = torch.stack([torch.stack([g_b[k][j][0] + g_b[k][j][1] for j in range(ns)], dim=-1)
+                       for k in range(ns)], dim=-2)
+    return g_inp, g_B
 
-    # ---- the pairs: df residuals of the exponent's cotangent G ---------------
+
+def _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr):
+    """The pairs' VJP at the hi cotangents g_sp (P,) and g_corr (ns,): per
+    e, the row- and column-side contributions to the cotangent of inp[:, e]
+    (two df (P, N)), and g_Q (P, ns, ns) in f32 (``_pair_part``'s VJP for
+    every pair, every cotangent a df: the exponent's cotangent
+    G = E (gs bi bj + gco iK) and its df residuals, then the chain rule)."""
+    ns, d = cache.ils_hi.shape
+    ils_c = cache.ils_hi + cache.ils_lo
+    ils2_c = cache.ils2_hi + cache.ils2_lo
+    g_inp = [[] for _ in range(d)]
     r = _pair_rows(mu, qh, ql, cache)
     ii, jj, dpos, _ = pair_indices(ns, mu.device)
     p = len(ii)
@@ -421,18 +439,60 @@ def stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
             if e < ns:
                 g = df_add(*g, *_mf(g_xi[e], ils2_s[:, e:e + 1]))
             g_inp[e].append(g)
+    g_Q = torch.stack([torch.stack([(lambda s: s[0] + s[1])(df_sum(*_cat_pair(g_q[k][e]), axis=-1))
+                                    for e in range(ns)], dim=-1) for k in range(ns)], dim=-2)
+    return g_inp, g_Q
+
+
+def stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
+    """What ``df_mm_bwd`` computes: the VJP of ``stage23_plain`` at the hi
+    cotangents g_m (ns,), g_v (ns, d), g_sp (P,) and g_corr (ns,), under the
+    reference's derivative rules, every cotangent carried as a df (see the
+    module docstring). Returns (g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns))
+    in f32: the gradient of each B^-1 and Q entry, the same for its hi and
+    lo half."""
+    d = cache.ils_hi.shape[1]
+    mean_inp, g_B = _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v)
+    pair_inp, g_Q = _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr)
 
     def total(parts):
         h = torch.cat([t[0].reshape(-1) for t in parts])
         l = torch.cat([t[1].reshape(-1) for t in parts])
         return df_sum(h, l, axis=-1)
 
-    g_mu = torch.stack([-(lambda s: s[0] + s[1])(total(g_inp[e])) for e in range(d)])
-    g_B = torch.stack([torch.stack([g_b[k][j][0] + g_b[k][j][1] for j in range(ns)], dim=-1)
-                       for k in range(ns)], dim=-2)
-    g_Q = torch.stack([torch.stack([(lambda s: s[0] + s[1])(df_sum(*_cat_pair(g_q[k][e]), axis=-1))
-                                    for e in range(ns)], dim=-1) for k in range(ns)], dim=-2)
+    g_mu = torch.stack([-(lambda s: s[0] + s[1])(total([mean_inp[e], *pair_inp[e]])) for e in range(d)])
     return g_mu, g_B, g_Q
+
+
+def stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v):
+    """What ``df_mm_bwd_mean`` computes (#10): the mean path's VJP at the hi
+    cotangents g_m (ns,) and g_v (ns, d). Returns its contribution to the
+    cotangent of inp = x - mu summed over the points, as a df ((d,), (d,)),
+    and g_B (ns, ns, ns) in f32."""
+    g_inp, g_B = _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v)
+    sums = [df_sum(h.reshape(-1), l.reshape(-1), axis=-1) for h, l in g_inp]
+    return (torch.stack([h for h, _ in sums]), torch.stack([l for _, l in sums])), g_B
+
+
+def stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr):
+    """What ``df_mm_bwd_pair`` computes (#11, every pair): the VJP of each
+    pair k at the hi cotangents g_sp[k] and, on the diagonal pairs,
+    g_corr[i]. Returns each pair's contribution to the cotangent of inp
+    summed over the points, as a df ((P, d), (P, d)), and g_Q (P, ns, ns)
+    in f32."""
+    g_inp, g_Q = _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr)
+    sums = [df_sum(*_cat_pair(parts), axis=-1) for parts in g_inp]  # per e, (P,)
+    return (torch.stack([h for h, _ in sums], dim=-1), torch.stack([l for _, l in sums], dim=-1)), g_Q
+
+
+def combine_split(mean_inp, pairs_inp):
+    """g_mu (d,) from the df contributions of #10 and #11 to the cotangent of
+    inp, as the reference's ``core_bwd`` combines them (the mean part, then
+    the pairs in pair order), but added in df and collapsed once."""
+    h, l = mean_inp
+    for k in range(pairs_inp[0].shape[0]):
+        h, l = df_add(h, l, pairs_inp[0][k], pairs_inp[1][k])
+    return -(h + l)
 
 
 def _cat_pair(parts):
@@ -559,9 +619,22 @@ def stage23_fwd(mu, bh, bl, qh, ql, cache):
 
 
 def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
-    """(g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns)) of ``stage23_vjp_plain``
-    (#9). A CPU tensor takes the plain twin; a CUDA tensor launches the
-    kernel or raises."""
+    """(g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns)): the VJP of stages 2-3
+    at the hi cotangents, by the reference's rule (``SINGLE_BWD_MAX_N``): up
+    to N = 128 one #9 launch (``stage23_bwd_all``); past it #10 and #11
+    (``stage23_bwd_mean``, ``stage23_bwd_pairs``), combined by
+    ``combine_split``. A CPU tensor takes the plain twins."""
+    if cache.x_hi.shape[0] <= SINGLE_BWD_MAX_N:
+        return stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr)
+    mean_inp, g_B = stage23_bwd_mean(mu, bh, bl, cache, g_m, g_v)
+    pairs_inp, g_Q = stage23_bwd_pairs(mu, qh, ql, cache, g_sp, g_corr)
+    return combine_split(mean_inp, pairs_inp), g_B, g_Q
+
+
+def stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
+    """The whole VJP of ``stage23_vjp_plain`` in one launch (#9), at any N. A
+    CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
+    raises."""
     if mu.device.type == "cpu":
         return stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr)
     mu, bh, bl, qh, ql, g_m, g_v, g_sp, g_corr = (t.contiguous() for t in (mu, bh, bl, qh, ql, g_m, g_v, g_sp,
@@ -586,14 +659,68 @@ def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
     return out[:d], out[d:d + ns ** 3].view(ns, ns, ns), out[d + ns ** 3:].view(p, ns, ns)
 
 
+def _full_ct(cache, g_m=None, g_v=None, g_sp=None, g_corr=None):
+    """The kernels' cotangent block g_M, g_V, g_S_p, g_corr, zeros where a
+    launch reads none."""
+    ns, d = cache.ils_hi.shape
+    dev = cache.x_hi.device
+    parts = [g if g is not None else torch.zeros(shape, dtype=torch.float32, device=dev)
+             for g, shape in ((g_m, (ns,)), (g_v, (ns, d)), (g_sp, (ns * (ns + 1) // 2,)), (g_corr, (ns,)))]
+    return torch.cat([t.reshape(-1) for t in parts])
+
+
+def stage23_bwd_mean(mu, bh, bl, cache, g_m, g_v):
+    """The mean path's VJP (#10) as in ``stage23_vjp_mean_plain``. A CPU
+    tensor takes the plain twin; a CUDA tensor launches the kernel or raises."""
+    if mu.device.type == "cpu":
+        return stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v)
+    mu, bh, bl, g_m, g_v = (t.contiguous() for t in (mu, bh, bl, g_m, g_v))
+    n, ns, d = _check("df_mm_bwd_mean", cache, mu=mu, bh=bh, bl=bl, g_m=g_m, g_v=g_v)
+    lib = _build.load()
+    nt, _, _ = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
+    dev = mu.device
+    ct = _full_ct(cache, g_m=g_m, g_v=g_v)
+    mean_part = torch.empty((2, ns, nt, d + ns * ns), dtype=torch.float32, device=dev)
+    out = torch.empty(2 * d + ns ** 3, dtype=torch.float32, device=dev)
+    rc = lib.gpmpc_df_mm_bwd_mean_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), *_cache_ptrs(cache),
+                                      ct.data_ptr(), mean_part.data_ptr(), out.data_ptr(), n, ns, d, _stream(mu))
+    _build.check(rc, "df_mm_bwd_mean")
+    LAUNCHES["df_mm_bwd_mean"] += 1
+    return (out[:d], out[d:2 * d]), out[2 * d:].view(ns, ns, ns)
+
+
+def stage23_bwd_pairs(mu, qh, ql, cache, g_sp, g_corr):
+    """Every pair's VJP (#11; the pair is a grid axis of one launch, where the
+    reference launches once per pair) as in ``stage23_vjp_pairs_plain``. A CPU
+    tensor takes the plain twin; a CUDA tensor launches the kernel or raises."""
+    if mu.device.type == "cpu":
+        return stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr)
+    mu, qh, ql, g_sp, g_corr = (t.contiguous() for t in (mu, qh, ql, g_sp, g_corr))
+    n, ns, d = _check("df_mm_bwd_pair", cache, mu=mu, qh=qh, ql=ql, g_sp=g_sp, g_corr=g_corr)
+    lib = _build.load()
+    nt, _, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
+    dev = mu.device
+    ct = _full_ct(cache, g_sp=g_sp, g_corr=g_corr)
+    row_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
+    col_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
+    unit_part = torch.empty((2, 2 * p * nt, d + ns * ns), dtype=torch.float32, device=dev)
+    out = torch.empty(2 * p * d + p * ns * ns, dtype=torch.float32, device=dev)
+    rc = lib.gpmpc_df_mm_bwd_pair_f32(mu.data_ptr(), qh.data_ptr(), ql.data_ptr(), *_cache_ptrs(cache),
+                                      ct.data_ptr(), row_part.data_ptr(), col_part.data_ptr(), unit_part.data_ptr(),
+                                      out.data_ptr(), n, ns, d, _stream(mu))
+    _build.check(rc, "df_mm_bwd_pair")
+    LAUNCHES["df_mm_bwd_pair"] += 1
+    return (out[:p * d].view(p, d), out[p * d:2 * p * d].view(p, d)), out[2 * p * d:].view(p, ns, ns)
+
+
 # ---------------------------------------------------------------------------
 # autograd composites
 # ---------------------------------------------------------------------------
 
 
 class Stage23(torch.autograd.Function):
-    """Stages 2-3 as raw df partials: forward #8, backward #9 with the hi
-    cotangents only (each raw output is a df reduction whose tangent is
+    """Stages 2-3 as raw df partials: forward #8, backward ``stage23_bwd``
+    (#9, or #10 and #11 past N = 128) with the hi cotangents only (each raw output is a df reduction whose tangent is
     (dv, 0), so the lo cotangent carries nothing). B^-1 and Q get the same
     gradient on both halves; the cache gets none."""
 
@@ -625,8 +752,8 @@ def split_path(mu, sv, cache):
 
 class FullStep(torch.autograd.Function):
     """The whole step: forward #12; backward by autograd of ``split_path``
-    with respect to (mu, sv), which launches #8 and #9 (the reference's
-    ``_build_full.core``)."""
+    with respect to (mu, sv), which launches #8 and #9 (#10 and #11 past
+    N = 128; the reference's ``_build_full.core``)."""
 
     @staticmethod
     def forward(ctx, mu, sv, cache):

@@ -24,16 +24,20 @@ Kernels (``csrc/cov_core.cu``), each replacing a Pallas TPU kernel of
   g_wr = g (E wc). ``CovCore.backward`` runs it twice, the second time with
   (a, c), (U, Xj) and (bi, bj) swapped for the column side; iK is symmetric
   in the square case, so the same slab serves both sides.
-
-``_gik_kernel`` (grad wrt iK) is not ported: iK is constant while planning,
-and ``CovCore`` refuses a gradient wrt iK.
+* ``cov_gik`` replaces ``_gik_kernel`` (via ``_gik_call``): the gradient
+  with respect to iK, gK[m] = g_corr[m] E[diag_pos[m]] (Ns, Nr, Nc). Grid
+  (Ns, Nr), 128 threads striding a row's columns, one element each; E by
+  the same f32 operations as the forward. ``CovCore.backward`` launches it,
+  as a launch of its own, only when iK needs a gradient (the reference's
+  separate call, which XLA drops when nothing consumes it): iK is constant
+  while planning, so a planning step launches it zero times.
 
 What bounds them on an H100: at the flagship shape (P=6, N=384, ns=3) each
 call reads the 1.77 MB iK slab once and evaluates 0.9 M exps, about half a
 microsecond of memory traffic at 3.35 TB/s, so the launch latency (several
 microseconds) dominates. The design keeps E out of device memory entirely
 (recomputed in the backward, never stored) and uses no atomics, so results
-repeat bitwise.
+repeat bitwise. ``cov_gik`` writes its 1.77 MB output once: bytes bound it.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"cov_fwd": 0, "cov_bwd_row": 0}
+LAUNCHES = {"cov_fwd": 0, "cov_bwd_row": 0, "cov_gik": 0}
 
 _INDEX_CACHE: dict = {}
 
@@ -208,13 +212,64 @@ def cov_bwd_row(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
 
 
 # ---------------------------------------------------------------------------
+# iK gradient kernel and its plain twin
+# ---------------------------------------------------------------------------
+
+
+def cov_gik_plain(g_corr, a, c, u, xj, diag_pos):
+    """What ``cov_gik`` computes, in plain PyTorch (the CPU path): the
+    gradient with respect to iK, g_corr[m] E[diag_pos[m]] (Ns, Nr, Nc)."""
+    d = _index(diag_pos, a.device, torch.long)
+    e = _e_slab(a.index_select(0, d), c.index_select(0, d), u.index_select(0, d), xj.index_select(0, d))
+    return g_corr[:, None, None] * e
+
+
+def cov_gik_expo_abs(a, c, u, xj, diag_pos):
+    """|a| + |c| + sum_e |U_e Xj_e| of each element of the diagonal pairs'
+    exponent (Ns, Nr, Nc): the rounding of the exponent, whatever the order
+    of its terms, is a small multiple of eps32 times this, and moves E by as
+    much relative to itself."""
+    d = _index(diag_pos, a.device, torch.long)
+    a, c, u, xj = (t.index_select(0, d).abs() for t in (a, c, u, xj))
+    return a[:, :, None] + c[:, None, :] + torch.einsum("pne,pke->pnk", u, xj)
+
+
+def cov_gik(g_corr, a, c, u, xj, diag_pos):
+    """gK (Ns, Nr, Nc) = g_corr[m] E[diag_pos[m]]. A CPU tensor takes the
+    plain twin; a CUDA tensor launches the kernel or raises."""
+    if a.device.type == "cpu":
+        return cov_gik_plain(g_corr, a, c, u, xj, diag_pos)
+    _check_cuda_f32("cov_gik", g_corr=g_corr, a=a, c=c, u=u, xj=xj)
+    p, nr = a.shape
+    nc = c.shape[1]
+    ns = u.shape[2]
+    if g_corr.shape != (len(diag_pos),) or u.shape != (p, nr, ns) or xj.shape != (p, nc, ns) \
+            or c.shape != (p, nc):
+        raise ValueError("cov_gik: inconsistent shapes")
+    if not all(0 <= q < p for q in diag_pos):  # the kernel reads pair diag_pos[m]'s operands
+        raise ValueError(f"cov_gik: diag_pos {tuple(diag_pos)} outside the {p} pairs")
+    _check_ns("cov_gik", ns)
+    lib = _build.load()
+    gk = torch.empty((len(diag_pos), nr, nc), dtype=torch.float32, device=a.device)
+    rc = lib.gpmpc_cov_gik_f32(
+        g_corr.data_ptr(), a.data_ptr(), c.data_ptr(), u.data_ptr(), xj.data_ptr(),
+        _index(diag_pos, a.device, torch.int32).data_ptr(), len(diag_pos), gk.data_ptr(), nr, nc, ns,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    _build.check(rc, "cov_gik")
+    LAUNCHES["cov_gik"] += 1
+    return gk
+
+
+# ---------------------------------------------------------------------------
 # autograd composite
 # ---------------------------------------------------------------------------
 
 
 class CovCore(torch.autograd.Function):
     """(S_p, corr) with the kernel backward; mirrors _make_cov_core
-    (gpmpc_tpu/ops/pallas_moment_cov.py:241-285) for the square case."""
+    (gpmpc_tpu/ops/pallas_moment_cov.py:241-285) for the square case. The
+    iK gradient is its own launch (``cov_gik``), made only when iK needs one."""
 
     @staticmethod
     def forward(ctx, a, c, u, xj, bi, bj, ik, diag_pos):
@@ -226,10 +281,6 @@ class CovCore(torch.autograd.Function):
     def backward(ctx, g_s, g_corr):
         a, c, u, xj, bi, bj, ik = ctx.saved_tensors
         diag_pos = ctx.diag_pos
-        if ctx.needs_input_grad[6]:
-            raise NotImplementedError(
-                "CovCore: the gradient wrt iK needs kernel #4 (_gik_kernel, "
-                "gpmpc_tpu/ops/pallas_moment_cov.py:192), which is not ported")
         if a.shape[1] != c.shape[1]:
             raise NotImplementedError("CovCore: rectangular (sharded) slabs are not ported")
         p = a.shape[0]
@@ -240,4 +291,9 @@ class CovCore(torch.autograd.Function):
             g_co = g_co.index_copy(0, _index(diag_pos, a.device, torch.long), g_corr)
         ga, gu, gbi = cov_bwd_row(g_s, a, c, u, xj, bi, bj, ik, g_co, diag_pos)
         gc, gxj, gbj = cov_bwd_row(g_s, c, a, xj, u, bj, bi, ik, g_co, diag_pos)
-        return ga, gc, gu, gxj, gbi, gbj, None, None
+        gik = None
+        if ctx.needs_input_grad[6]:
+            g_corr = torch.zeros(len(diag_pos), dtype=a.dtype, device=a.device) if g_corr is None \
+                else g_corr.contiguous()
+            gik = cov_gik(g_corr, a, c, u, xj, diag_pos)
+        return ga, gc, gu, gxj, gbi, gbj, gik, None

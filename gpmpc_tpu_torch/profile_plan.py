@@ -173,7 +173,10 @@ def count_ops(n_points, bucket, fused=False) -> dict:
         with mock.patch.object(ops, "df_cov_core", df_cov_core), \
                 mock.patch.object(df_mm, "full_step_fwd", counted("df_mm_full", df_mm.full_step_fwd)), \
                 mock.patch.object(df_mm, "stage23_fwd", counted("df_mm_fwd", df_mm.stage23_fwd)), \
-                mock.patch.object(df_mm, "stage23_bwd", counted("df_mm_bwd", df_mm.stage23_bwd)), counter:
+                mock.patch.object(df_mm, "stage23_bwd_all", counted("df_mm_bwd", df_mm.stage23_bwd_all)), \
+                mock.patch.object(df_mm, "stage23_bwd_mean", counted("df_mm_bwd_mean", df_mm.stage23_bwd_mean)), \
+                mock.patch.object(df_mm, "stage23_bwd_pairs", counted("df_mm_bwd_pair", df_mm.stage23_bwd_pairs)), \
+                counter:
             plan_step(planner, prob, 1)
     return dict(points=n_points, bucket=bucket, route="fused" if fused else "df_cov",
                 ops_outside_kernel_wrappers=counter.outside, ops_inside_plain_twins=counter.inside,

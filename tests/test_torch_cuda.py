@@ -24,8 +24,13 @@ tests/test_torch_df32.py holds them on the CPU. The whole-step kernels
 DF_COV_RTOL of each output's sum of |terms|, the whole step's f32 outputs
 within FULL_EPS of themselves plus DF_COV_RTOL of their scaled sum of
 |terms|, the VJP (df cotangents, collapsed at the end) within DF_GRAD_RTOL
-of its largest entry. The last test holds the dispatch's shape rules: state
-widths past the kernels' take the plain cores on the card.
+of its largest entry. The dispatch's shape rules: state widths past the
+kernels' take the plain cores on the card. The backward kernels of the
+last slice: the stacked df cov backward and the split whole-step VJP (the
+mean path's and the pairs', at N = 160, 192 and 384) within DF_GRAD_RTOL of
+each output's largest entry, and the cov core's iK gradient elementwise
+within GIK_RTOL (1 + the sum of the exponent's |terms|) of itself (the
+exponent's rounding in another order, see chip_smoke.py).
 """
 
 import numpy as np
@@ -104,8 +109,9 @@ def test_covcore_autograd_matches_plain_and_counts_launches(dev):
 
     for o, r in zip(grads(ops.cov_core), grads(moment_cov.cov_core_ref)):
         torch.testing.assert_close(o, r, rtol=0, atol=1e-4 * float(r.abs().max()))
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 1, "cov_bwd_row": 2, "df_fwd": 0, "df_fwdres": 0,
-                                   "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 1, "cov_bwd_row": 2, "cov_gik": 0, "df_fwd": 0,
+                                   "df_fwdres": 0, "df_bwd": 0, "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0,
+                                   "df_mm_bwd_mean": 0, "df_mm_bwd_pair": 0}
 
 
 def test_cuda_wrappers_refuse_other_dtypes(dev):
@@ -182,8 +188,9 @@ def test_dfcovcore_autograd_matches_plain_and_counts_launches(dev):
     assert ops.launch_counts()["df_fwdres"] == 1 and ops.launch_counts()["df_fwd"] == 0
     with torch.no_grad():
         ops.df_cov_core(*args, DIAG)
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "df_fwd": 1, "df_fwdres": 1,
-                                   "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "cov_gik": 0, "df_fwd": 1,
+                                   "df_fwdres": 1, "df_bwd": 0, "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0,
+                                   "df_mm_bwd_mean": 0, "df_mm_bwd_pair": 0}
 
 
 def test_df_kernels_refuse_non_f32_halves(dev):
@@ -277,7 +284,7 @@ def test_df_mm_bwd_kernel_matches_plain(dev, n):
     Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
     rng = np.random.default_rng(n)
     g = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in ((3,), (3, 4), (6,), (3,))]
-    out = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    out = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)  # #9 at every N, 384 included
     ref = df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)
     for o, r in zip(out, ref):
         assert o.shape == r.shape
@@ -350,3 +357,148 @@ def test_wide_state_dispatch_takes_the_plain_cores(dev):
     with pytest.raises(NotImplementedError):
         moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, diag)
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels of the last slice: #7 df_bwd, #10 df_mm_bwd_mean,
+# #11 df_mm_bwd_pair, #4 cov_gik
+# ---------------------------------------------------------------------------
+
+GIK_RTOL = 8 * 2.0 ** -23
+SPLIT_SIZES = [160, 192, 384]
+
+
+def _within_largest(out, ref, rtol=DF_GRAD_RTOL):
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=0, atol=rtol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_df_bwd_kernel_matches_plain(dev, n):
+    args = _df_problem(n + 2, n, dev)
+    gs = torch.linspace(1.0, 2.0, 6, device=dev)
+    gco = torch.zeros(6, device=dev).index_copy(0, torch.tensor(DIAG, device=dev),
+                                                 torch.tensor([1.0, -2.0, 3.0], device=dev))
+    out = df_cov.df_cov_bwd(*args, gs, gco, DIAG)
+    ref = df_cov.df_cov_bwd_plain(*args, gs, gco, DIAG)
+    for o, r in zip(out, ref):
+        _within_largest(o, r)
+    assert all(torch.equal(a, b) for a, b in zip(df_cov.df_cov_bwd(*args, gs, gco, DIAG), out))  # repeatable
+
+
+def test_stacked_dispatch_matches_residual_and_counts_launches(dev):
+    """Under VJP_MODE "stacked" the dispatch's autograd takes the lean
+    forward and the stacked backward (never the residual kernel), and its
+    gradients agree with the residual scheme's."""
+    args = _df_problem(15, 96, dev)
+    w = torch.linspace(1.0, 2.0, 6, device=dev)
+    wc = torch.tensor([1.0, 2.0, 3.0], device=dev)
+
+    def grads(core):
+        a = [t.clone() for t in args]
+        leaves = [a[i].requires_grad_(True) for i in (0, 2, 4, 6)]
+        sh, sl, ch, cl = core(*a, DIAG)
+        return torch.autograd.grad((w * (sh + sl)).sum() + (wc * (ch + cl)).sum(), leaves)
+
+    ref = grads(df_cov.DfCovCore.apply)
+    mode = df_cov.VJP_MODE
+    df_cov.VJP_MODE = "stacked"
+    try:
+        ops.reset_launch_counts()
+        out = grads(ops.df_cov_core)
+        counts = ops.launch_counts()
+    finally:
+        df_cov.VJP_MODE = mode
+    assert (counts["df_fwd"], counts["df_bwd"], counts["df_fwdres"]) == (1, 1, 0), counts
+    for o, r in zip(out, ref):
+        _within_largest(o, r)
+
+
+@pytest.mark.parametrize("n", SPLIT_SIZES)
+def test_df_mm_split_bwd_kernels_match_plain(dev, n):
+    """#10 and #11 against their twins (each df output collapsed in f64),
+    and the split route of stage23_bwd (N > 128) against #9 at the same N."""
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(n + 3, n, dev)
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
+    rng = np.random.default_rng(n)
+    g = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in ((3,), (3, 4), (6,), (3,))]
+
+    def v(x):
+        return x[0].double() + x[1].double()
+
+    (m_inp, g_b) = df_mm.stage23_bwd_mean(mu, Bh, Bl, cache, g[0], g[1])
+    (m_inp_r, g_b_r) = df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, cache, g[0], g[1])
+    _within_largest(v(m_inp), v(m_inp_r))
+    _within_largest(g_b, g_b_r)
+    (p_inp, g_q) = df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3])
+    (p_inp_r, g_q_r) = df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, cache, g[2], g[3])
+    _within_largest(v(p_inp), v(p_inp_r))
+    _within_largest(g_q, g_q_r)
+    ops.reset_launch_counts()
+    split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    counts = ops.launch_counts()
+    assert (counts["df_mm_bwd_mean"], counts["df_mm_bwd_pair"], counts["df_mm_bwd"]) == (1, 1, 0), counts
+    whole = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)  # #9 at the same N
+    assert ops.launch_counts()["df_mm_bwd"] == 1
+    for o, r in zip(split, whole):
+        _within_largest(o, r)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_cov_gik_kernel_matches_plain(dev, n):
+    a, c, u, xj, bi, bj, ik = _cov_problem(n + 4, n, dev)
+    g = torch.tensor([1.0, -2.0, 0.5], device=dev)
+    out = moment_cov.cov_gik(g, a, c, u, xj, DIAG)
+    ref = moment_cov.cov_gik_plain(g, a, c, u, xj, DIAG)
+    expo = moment_cov.cov_gik_expo_abs(a, c, u, xj, DIAG)
+    assert out.shape == ref.shape == (3, n, n)
+    assert torch.all((out - ref).abs() <= GIK_RTOL * (1.0 + expo) * ref.abs())
+
+
+def test_covcore_ik_grad_launches_cov_gik_only_when_asked(dev):
+    """CovCore's iK gradient is the cov_gik kernel, launched once when iK
+    needs a gradient and never otherwise; it equals autograd of the plain
+    core elementwise."""
+    a, c, u, xj, bi, bj, ik = _cov_problem(16, 64, dev)
+    ops.reset_launch_counts()
+    leaf = a.clone().requires_grad_(True)
+    s, co = ops.cov_core(leaf, c, u, xj, bi, bj, ik, DIAG)
+    torch.autograd.grad(s.sum() + co.sum(), leaf)
+    assert ops.launch_counts()["cov_gik"] == 0
+
+    def ik_grad(core):
+        ik_leaf = ik.clone().requires_grad_(True)
+        s, co = core(a, c, u, xj, bi, bj, ik_leaf, DIAG)
+        return torch.autograd.grad(s.sum() + (co * torch.tensor([1.0, 2.0, 3.0], device=dev)).sum(), ik_leaf)[0]
+
+    out = ik_grad(ops.cov_core)
+    assert ops.launch_counts()["cov_gik"] == 1
+    ref = ik_grad(moment_cov.cov_core_ref)
+    expo = moment_cov.cov_gik_expo_abs(a, c, u, xj, DIAG)
+    assert torch.all((out - ref).abs() <= GIK_RTOL * (1.0 + expo) * ref.abs())
+
+
+def test_backward_kernels_refuse_non_f32(dev):
+    from gpmpc_tpu_torch.ops import df_mm
+
+    args = _df_problem(17, 16, dev)
+    gs = torch.ones(6, device=dev)
+    with pytest.raises(TypeError):
+        df_cov.df_cov_bwd(*[t.double() for t in args], gs, gs, DIAG)
+    with pytest.raises(TypeError):
+        df_cov.df_cov_bwd(*args, gs.double(), gs, DIAG)
+    with pytest.raises(ValueError):
+        df_cov.df_cov_bwd(*args, gs[:3], gs, DIAG)
+    a, c, u, xj, bi, bj, ik = _cov_problem(18, 16, dev)
+    with pytest.raises(TypeError):
+        moment_cov.cov_gik(torch.ones(3, device=dev), a.double(), c, u, xj, DIAG)
+    with pytest.raises(ValueError):
+        moment_cov.cov_gik(torch.ones(3, device=dev), a, c, u, xj, (0, 3, 6))
+    cache, mu, sv = _df_mm_problem(19, 160, dev)
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
+    with pytest.raises(TypeError):
+        df_mm.stage23_bwd_mean(mu, Bh.double(), Bl, cache, torch.ones(3, device=dev), torch.ones(3, 4, device=dev))
+    with pytest.raises(TypeError):
+        df_mm.stage23_bwd_pairs(mu, Qh, Ql.double(), cache, torch.ones(6, device=dev), torch.ones(3, device=dev))

@@ -14,10 +14,12 @@ Same numpy inputs through both packages, JAX on the CPU:
   expression;
 * the df cov core: df_cov_core_ref against df_cov_core_xla, the kernels'
   plain twins against the Pallas cell bodies ``_fwd_cell`` / ``_fwdres_cell``
-  (128-row tiles over whole rows, joined with ``_df_tree`` as the JAX wrapper
-  does), and DfCovCore's residual backward against ``jax.grad`` through
-  df_cov_core_xla. The Pallas cells run eagerly, as tests/test_df_cov_tiled.py
-  runs them: interpret mode is far too slow for these bodies.
+  / ``_bwd_cell`` (128-row tiles over whole rows, joined with ``_df_tree`` as
+  the JAX wrapper does), and the two backward schemes (DfCovCore's residual
+  one, DfCovCoreStacked's stacked one) against ``jax.grad`` through
+  df_cov_core_xla and against each other. The Pallas cells run eagerly, as
+  tests/test_df_cov_tiled.py runs them: interpret mode is far too slow for
+  these bodies.
 
 Cov-core tolerances are relative to each output's sum of |terms|
 (df_cov_abs_terms): the two sides sum the same df terms in different orders,
@@ -27,6 +29,8 @@ additions each chain holds; a plain-f32 term or a dropped lo half misses by
 ~1e-8 or more.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +39,7 @@ import torch
 
 from gpmpc_tpu.ops import df32 as jdf
 from gpmpc_tpu.ops import df_cov_core_xla
-from gpmpc_tpu.ops.pallas_df_cov import _df_tree, _fwd_cell, _fwdres_cell
+from gpmpc_tpu.ops.pallas_df_cov import _bwd_cell, _df_tree, _fwd_cell, _fwdres_cell
 from gpmpc_tpu_torch import ops
 from gpmpc_tpu_torch.ops import df32 as tdf
 from gpmpc_tpu_torch.ops import df_cov
@@ -257,12 +261,74 @@ def test_kernel_plain_twins_match_pallas_cells(n):
             _within(_v(out[k], out[k + 1]), _v(ref[k], ref[k + 1]), scale[k], what=f"{side} residual {k // 2}")
 
 
-def test_dfcovcore_backward_matches_xla_grad():
-    """DfCovCore (residual forward on its plain twin here, the residual
-    backward) against jax.grad through df_cov_core_xla, with the hi-only
-    cotangent convention, for the action-dependent inputs a, c, U, Xj; and
-    the CPU dispatch ops.df_cov_core (DfCovCore on its plain twins, since
-    the repair of ROADMAP C1) against the same gradients."""
+def test_df_bwd_twin_matches_pallas_bwd_cell():
+    """The stacked backward's plain twin (what df_bwd computes) against the
+    JAX cell body ``_bwd_cell`` on the row side and on the role-swapped
+    column side, N = 128 (one 128-row tile of whole rows). Both collapse a
+    df sum of the same terms to f32: each entry within one f32 rounding of
+    itself plus COV_RTOL of its sum of |terms|."""
+    n, ns = 128, 3
+    flat, diag_pos = _cov_inputs(n, seed=5)
+    p = flat[0].shape[0]
+    gs = np.linspace(1.0, 2.0, p).astype(np.float32)
+    gco = np.zeros(p, np.float32)
+    gco[list(diag_pos)] = [1.0, -2.0, 3.0]
+    ga, gu = df_cov.df_cov_bwd_plain(*_t(*flat), *_t(gs, gco), diag_pos)
+    ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl = _j(*flat)
+    zero = jnp.zeros((n, n), jnp.float32)
+    v = [_v(flat[2 * i], flat[2 * i + 1]) for i in range(7)]  # a, c, U, Xj, bi, bj, iK in f64
+    for side in range(2):
+        rows = (ah, al, uh, ul, bih, bil) if side == 0 else (ch, cl, xjh, xjl, bjh, bjl)
+        cols = (ch, cl, xjh, xjl, bjh, bjl) if side == 0 else (ah, al, uh, ul, bih, bil)
+        for b in range(p):
+            slot = diag_pos.index(b) if b in diag_pos else None
+            ik_t = (ikh[slot], ikl[slot]) if slot is not None else (zero, zero)
+            ga_j, gu_j = _bwd_cell(rows[0][b][:, None], rows[1][b][:, None], cols[0][b][:, None], cols[1][b][:, None],
+                                   rows[2][b], rows[3][b], cols[2][b], cols[3][b], rows[4][b][:, None],
+                                   rows[5][b][:, None], cols[4][b][:, None], cols[5][b][:, None], *ik_t,
+                                   jnp.float32(gs[b]), jnp.float32(gco[b]), ns)
+            a_r, u_r, b_r = (v[0], v[2], v[4]) if side == 0 else (v[1], v[3], v[5])
+            c_c, x_c, b_c = (v[1], v[3], v[5]) if side == 0 else (v[0], v[2], v[4])
+            e = np.exp(np.minimum(a_r[b][:, None] + c_c[b][None, :] + u_r[b] @ x_c[b].T, 60.0))
+            ik_abs = np.abs(v[6][slot]) * abs(gco[b]) if slot is not None else 0.0
+            w = (abs(gs[b]) * np.abs(b_r[b])[:, None] * np.abs(b_c[b])[None, :] + ik_abs) * e
+            scales = [w.sum(-1)] + [(w * np.abs(x_c[b][:, q])[None, :]).sum(-1) for q in range(ns)]
+            outs = [ga[side * p + b]] + [gu[side * p + b, :, q] for q in range(ns)]
+            refs = [ga_j[:, 0]] + [gu_j[q][:, 0] for q in range(ns)]
+            for o, r, sc in zip(outs, refs, scales):
+                err = np.abs(o.numpy().astype(np.float64) - np.asarray(r, np.float64))
+                tol = 2.0 ** -23 * np.abs(np.asarray(r, np.float64)) + COV_RTOL * sc
+                assert np.all(err <= tol), (side, b, float(np.max(err / tol)))
+
+
+def test_dfcovcore_stacked_backward_matches_xla_grad_and_residual():
+    """The stacked scheme (DfCovCoreStacked: the lean forward's twin, then
+    the stacked backward's twin), and the CPU dispatch ops.df_cov_core with
+    ``df_cov.VJP_MODE = "stacked"``, against jax.grad through
+    df_cov_core_xla with the hi-only cotangent convention (3e-6 of the
+    largest entry, as the residual scheme is held) and against the residual
+    scheme DfCovCore, the same VJP summed in another order (1e-9 of the
+    largest entry)."""
+    _, _, gx, torch_grads = _backward_case()
+    residual = torch_grads(df_cov.DfCovCore.apply)
+    mode = df_cov.VJP_MODE
+    df_cov.VJP_MODE = "stacked"
+    try:
+        dispatched = torch_grads(ops.df_cov_core)
+    finally:
+        df_cov.VJP_MODE = mode
+    for g_t in (torch_grads(df_cov.DfCovCoreStacked.apply), dispatched):
+        for g, g_x, g_r, name in zip(g_t, gx, residual, ("a", "c", "U", "Xj")):
+            np.testing.assert_allclose(g.numpy(), g_x, rtol=0, atol=3e-6 * np.abs(g_x).max(),
+                                       err_msg=f"grad mismatch for {name}")
+            np.testing.assert_allclose(g.numpy(), g_r.numpy(), rtol=0, atol=1e-9 * float(g_r.abs().max()),
+                                       err_msg=f"stacked vs residual for {name}")
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_case():
+    """The operands, jax.grad through df_cov_core_xla for a, c, U and Xj, and
+    the port's gradients of the same loss for a given core (N = 64)."""
     n, ns = 64, 3
     flat, diag_pos = _cov_inputs(n, seed=1)
     p = flat[0].shape[0]
@@ -285,8 +351,17 @@ def test_dfcovcore_backward_matches_xla_grad():
         loss = (torch.tensor(w) * (sh + sl)).sum() + (torch.tensor(wc) * (co_h + co_l)).sum()
         return torch.autograd.grad(loss, leaves)
 
+    return flat, diag_pos, [np.asarray(g) for g in gx], torch_grads
+
+
+def test_dfcovcore_backward_matches_xla_grad():
+    """DfCovCore (residual forward on its plain twin here, the residual
+    backward) against jax.grad through df_cov_core_xla, with the hi-only
+    cotangent convention, for the action-dependent inputs a, c, U, Xj; and
+    the CPU dispatch ops.df_cov_core (DfCovCore on its plain twins, since
+    the repair of ROADMAP C1) against the same gradients."""
+    _, _, gx, torch_grads = _backward_case()
     for core in (df_cov.DfCovCore.apply, ops.df_cov_core):
         for g_t, g_x, name in zip(torch_grads(core), gx, ("a", "c", "U", "Xj")):
-            g_x = np.asarray(g_x)
             np.testing.assert_allclose(g_t.numpy(), g_x, rtol=0, atol=3e-6 * np.abs(g_x).max(),
                                        err_msg=f"grad mismatch for {name}")

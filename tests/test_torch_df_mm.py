@@ -32,7 +32,16 @@ Tolerances:
   against central finite differences in f64 of the collapsed outputs, on a
   well-conditioned random cache (noise 5e-2; measured 2.9e-6 and 1.6e-6):
   VJP_RTOL and FD_RTOL of the largest entry. At noise 1e-3 autograd's plain
-  f32 sums already miss the finite differences by 1.5e-3.
+  f32 sums already miss the finite differences by 1.5e-3;
+* the split backward's twins (the mean path's VJP, #10, and each pair's,
+  #11) against ``jax.vjp`` of the reference's ``_mean_part`` and
+  ``_pair_part`` bodies with its cotangent layout, on the same
+  well-conditioned cache in the 64 bucket (the bodies reduce by halving, so
+  N is a power of two): VJP_RTOL of the largest entry, as autograd above;
+* the split route (``stage23_bwd`` past N = 128) against #9's twin
+  ``stage23_vjp_plain`` at N = 160 on the trained-GP problem's cache
+  (cond(K) ~ 1e6): both sum the same df terms, grouped differently, and
+  collapse once (SPLIT_RTOL).
 """
 
 from unittest import mock
@@ -47,7 +56,10 @@ from gpmpc_tpu import ops as jops
 from gpmpc_tpu.envs.pendulum import PendulumEnv
 from gpmpc_tpu.models import gp as jgp
 from gpmpc_tpu.ops import df_cov_core_xla
+from gpmpc_tpu.ops import pallas_df_mm as jpdm
 from gpmpc_tpu_torch import convert
+from gpmpc_tpu_torch.controllers import planner as tplanner
+from gpmpc_tpu_torch.flagship import trained_gp_problem
 from gpmpc_tpu_torch.models import gp as tgp
 from gpmpc_tpu_torch.ops import df_cov, df_mm
 
@@ -62,6 +74,8 @@ GRAD_JAX_RTOL = 3e-4
 GRAD_F64_RTOL = 3e-5
 VJP_RTOL = 1e-5
 FD_RTOL = 1e-5
+SPLIT_RTOL = 1e-9
+PAIR_JAX_RTOL = 1e-3  # JAX's f32 transposes of one pair's VJP, measured up to 4.8e-4 off the port
 CASES = [(40, 64), (90, 96)]
 
 
@@ -267,3 +281,99 @@ def test_stage23_vjp_plain_matches_autograd_and_finite_differences():
     errs = [_rel(o, r) for o, r in zip(vjp, fds)]
     print("stage23_vjp_plain vs f64 finite differences:", errs)
     assert max(errs) <= FD_RTOL, errs
+
+
+def test_split_bwd_twins_match_jax_vjp_of_mean_and_pair_parts():
+    """#10's twin against jax.vjp of ``_mean_part`` with respect to mu and
+    B^-1 (hi and lo halves: the port gives both the same gradient, as the
+    reference's custom derivatives do), and #11's twin, pair by pair,
+    against jax.vjp of ``_pair_part`` with respect to mu and Q_k, at the
+    cotangents of the reference's layout (ct[0:4] for the mean path, ct[4, k]
+    and, on the diagonal pairs, ct[6, i] for pair k; the lo cotangents reach
+    no input). The port's contributions are to inp = x - mu: g_mu = -them.
+    The mean path to VJP_RTOL. The pairs to PAIR_JAX_RTOL: JAX's transposes
+    sum each pair's cotangent-weighted E terms in plain f32, which cancel
+    (JAX and the port differ by up to 4.8e-4 there); so the pairs' gradients
+    are also held to f64 central differences of the df forward, along a
+    random direction in mu and one in Q, by FD_RTOL of the sum of |terms|
+    (the port measured 1.1e-6 and 6.1e-8 there)."""
+    cache = _random_cache()
+    mu, var = _inputs()
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, var[:NS, :NS] * 100)
+    rng = np.random.default_rng(7)
+    g_m, g_v, g_sp, g_corr = (rng.normal(size=s).astype(np.float32) for s in ((NS,), (NS, D), (6,), (NS,)))
+    c = {k: jnp.asarray(getattr(cache, k).numpy()) for k in ("x_hi", "x_lo", "ils_hi", "ils_lo", "ils2_hi", "ils2_lo",
+                                                             "log_outs_hi", "log_outs_lo", "beta_hi", "beta_lo",
+                                                             "iK_hi", "iK_lo")}
+    mu_j = [jnp.float32(v) for v in mu.numpy()]
+    bh_j, bl_j = ([jnp.float32(v) for v in t.numpy().reshape(-1)] for t in (Bh, Bl))
+
+    def mean(*rows):
+        return jpdm._mean_part(list(rows[:D]), list(rows[D:D + NS ** 3]), list(rows[D + NS ** 3:]), c["x_hi"], c["x_lo"],
+                               c["ils_hi"], c["ils_lo"], c["beta_hi"], c["beta_lo"], ns=NS, d=D)
+
+    _, pull = jax.vjp(mean, *(mu_j + bh_j + bl_j))
+    lo_ct = rng.normal(size=NS + NS * D).astype(np.float32)
+    grads = [np.asarray(g) for g in pull((jnp.asarray(g_m), jnp.asarray(lo_ct[:NS]), jnp.asarray(g_v.reshape(-1)),
+                                          jnp.asarray(lo_ct[NS:])))]
+    (inp_h, inp_l), g_b = df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, cache, torch.tensor(g_m), torch.tensor(g_v))
+    assert _rel(-(inp_h.double() + inp_l.double()), np.array(grads[:D])) <= VJP_RTOL
+    for half in (grads[D:D + NS ** 3], grads[D + NS ** 3:]):
+        assert _rel(g_b.reshape(-1), np.array(half)) <= VJP_RTOL
+
+    (p_h, p_l), g_q = df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, cache, torch.tensor(g_sp), torch.tensor(g_corr))
+    ii, jj = np.triu_indices(NS)
+    errs = []
+    for k, (i_p, j_p) in enumerate(zip(ii, jj)):
+        qh_j, ql_j = ([jnp.float32(v) for v in t[k].numpy().reshape(-1)] for t in (Qh, Ql))
+
+        def pair(*rows):
+            return jpdm._pair_part(list(rows[:D]), list(rows[D:D + NS * NS]), list(rows[D + NS * NS:]), c["x_hi"],
+                                   c["x_lo"], c["ils_hi"], c["ils_lo"], c["ils2_hi"], c["ils2_lo"], c["log_outs_hi"],
+                                   c["log_outs_lo"], c["beta_hi"], c["beta_lo"], c["iK_hi"], c["iK_lo"],
+                                   i_p=int(i_p), j_p=int(j_p), ns=NS, d=D)
+
+        _, pull = jax.vjp(pair, *(mu_j + qh_j + ql_j))
+        ct_co = jnp.float32(g_corr[i_p] if i_p == j_p else 0.0)
+        grads = [np.asarray(g) for g in pull((jnp.float32(g_sp[k]), jnp.float32(0.5), ct_co, jnp.float32(0.0)))]
+        errs.append(_rel(-(p_h[k].double() + p_l[k].double()), np.array(grads[:D])))
+        errs += [_rel(g_q[k].reshape(-1), np.array(half)) for half in (grads[D:D + NS * NS], grads[D + NS * NS:])]
+    print("each pair's g_mu and g_Q, port vs JAX:", errs)
+    assert max(errs) <= PAIR_JAX_RTOL, errs
+
+    def value(m, qh):  # the pairs' cotangent-weighted raw outputs, f64 from the df forward
+        out = df_mm.stage23_plain(m, Bh, Bl, qh, Ql, cache)
+        return float(torch.tensor(g_sp, dtype=torch.float64) @ (out[4].double() + out[5].double())
+                     + torch.tensor(g_corr, dtype=torch.float64) @ (out[6].double() + out[7].double()))
+
+    # central differences along one random direction in mu and one in Q: the
+    # step actually taken (in f32) against the port's gradient, in f64
+    g_mu_pairs = -(p_h.double() + p_l.double()).sum(0)
+    for base, grad, call in ((mu, g_mu_pairs, lambda x: value(x, Qh)), (Qh, g_q.double(), lambda x: value(mu, x))):
+        step = torch.tensor(rng.normal(size=tuple(base.shape)), dtype=torch.float32) * 2.0 ** -16
+        up, dn = base + step, base - step
+        fd = call(up) - call(dn)
+        dot = float((grad * (up.double() - dn.double())).sum())
+        scale = float((grad.abs() * (up.double() - dn.double()).abs()).sum())
+        print("directional derivative, port vs f64 central differences:", abs(fd - dot) / scale)
+        assert abs(fd - dot) <= FD_RTOL * scale, (fd, dot)
+
+
+def test_split_route_matches_stage23_vjp_plain_past_128():
+    """Past N = 128 ``stage23_bwd`` takes the split (on the CPU, the twins of
+    #10 and #11, combined in df by ``combine_split``), which agrees with #9's
+    twin at N = 160 on the trained-GP problem's df32 cache (cond(K) ~ 1e6,
+    150 points, refreshed by the port)."""
+    prob = trained_gp_problem(CPU, n_points=150, nh=1, iters=1, bucket=160)
+    master = tplanner.Planner(prob.spec, dtype=torch.float32, device=CPU, master_dtype=torch.float64).refresh_cache(
+        prob.x, prob.y, prob.mask, prob.params, prob.bounds)
+    cache = tplanner._cast_cache(master, torch.float32)
+    mu, var = _inputs()
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, var[:NS, :NS])
+    rng = np.random.default_rng(11)
+    g = [torch.tensor(rng.normal(size=s), dtype=torch.float32) for s in ((NS,), (NS, D), (6,), (NS,))]
+    assert cache.x_hi.shape[0] > df_mm.SINGLE_BWD_MAX_N
+    split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    whole = df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)
+    errs = [_rel(o, r) for o, r in zip(split, whole)]
+    assert max(errs) <= SPLIT_RTOL, errs

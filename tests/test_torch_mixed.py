@@ -43,9 +43,10 @@ from gpmpc_tpu.mappers import reward as jreward
 from gpmpc_tpu.models import gp as jgp
 from gpmpc_tpu_torch import convert
 from gpmpc_tpu_torch.controllers import planner as tplanner
-from gpmpc_tpu_torch.flagship import start_steps, trained_gp_problem
+from gpmpc_tpu_torch import ops as tops
+from gpmpc_tpu_torch.flagship import run_steps, start_steps, trained_gp_problem
 from gpmpc_tpu_torch.models import gp as tgp
-from gpmpc_tpu_torch.ops import df_mm
+from gpmpc_tpu_torch.ops import df_cov, df_mm
 
 CPU = torch.device("cpu")
 NS, NA = 3, 1
@@ -243,6 +244,38 @@ def test_mixed_planner_extends_the_f64_master_and_plans_on_df32():
     assert torch.equal(a_opt, a_ref)
     for o, r in zip(info, info_ref):
         assert torch.equal(o, r)
+
+
+def test_stacked_vjp_plan_matches_residual_plan():
+    """A short mixed CPU plan (the trained-GP problem at 40 points in the 64
+    bucket, horizon 5) under ``df_cov.VJP_MODE = "stacked"`` (the lean
+    forward's and the stacked backward's twins) against the same plan under
+    the default residual scheme. The two VJPs sum the same df terms in
+    another order, so the plans agree to PLAN_ATOL on a_opt and PLAN_RTOL on
+    the objective's gradient and TrajectoryInfo (L-BFGS-B carries last-bit
+    gradient differences into its iterates); no kernel is launched."""
+    prob = trained_gp_problem(CPU, n_points=40, nh=5, iters=2, bucket=64)
+
+    def plan(mode):
+        saved = df_cov.VJP_MODE
+        df_cov.VJP_MODE = mode
+        try:
+            planner, plans, _ = run_steps(prob, CPU, torch.float32, 1)
+            a = prob.inits[0].clone().requires_grad_(True)
+            cost, _ = tplanner._objective_and_info(prob.spec, tplanner._cast_cache(planner._cache, torch.float32), a,
+                                                   prob.state_mu, prob.state_var, prob.action_prev, 0)
+            return plans[0], torch.autograd.grad(cost, a)[0]
+        finally:
+            df_cov.VJP_MODE = saved
+
+    tops.reset_launch_counts()
+    (a_res, info_res), g_res = plan("residual")
+    (a_st, info_st), g_st = plan("stacked")
+    assert all(v == 0 for v in tops.launch_counts().values())
+    assert float((a_st - a_res).abs().max()) <= PLAN_ATOL
+    _close(g_st, g_res, PLAN_RTOL, "objective gradient")
+    for name, o, r in zip(info_res._fields, info_st, info_res):
+        _close(o, r, PLAN_RTOL, name)
 
 
 def test_planner_refuses_a_state_of_another_dtype():

@@ -140,13 +140,38 @@ def test_cov_bwd_row_plain_matches_autograd():
     torch.testing.assert_close(gbi, gbi_ref, rtol=1e-12, atol=1e-12)
 
 
-def test_covcore_refuses_ik_grad():
-    args = [torch.tensor(v) for v in _cov_problem(4, np.float64, n=16)]
-    args[0].requires_grad_(True)
-    args[6].requires_grad_(True)
-    s, co = moment_cov.CovCore.apply(*args, DIAG)
-    with pytest.raises(NotImplementedError, match="_gik_kernel"):
-        torch.autograd.grad(s.sum() + co.sum(), [args[0], args[6]])
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-10), (np.float32, 2e-5)])
+def test_covcore_ik_grad_matches_xla(dtype, rtol):
+    """CovCore's gradient with respect to iK (the cov_gik wrapper, on its
+    plain twin here) against jax.grad of cov_core_xla with respect to ik,
+    and in f32 also against the Pallas composite with _gik_kernel run in
+    interpret mode. Each entry is g_corr E > 0 with no cancellation, so it
+    is held elementwise: 1e-10 in f64, and in f32 2e-5, as the cov core."""
+    args = _cov_problem(4, dtype)
+    jargs = tuple(jnp.asarray(v) for v in args)
+
+    def jax_ik_grad(core):
+        def loss(ik):
+            s, co = core(*jargs[:6], ik, DIAG)
+            return jnp.sum(s * W_S.astype(s.dtype)) + jnp.sum(co * W_C.astype(s.dtype))
+
+        return np.asarray(jax.grad(loss)(jargs[6]))
+
+    refs = [jax_ik_grad(cov_core_xla)]
+    if dtype == np.float32:
+        pmc._make_cov_core.cache_clear()
+        with _interpret():
+            refs.append(jax_ik_grad(pmc.cov_core_pallas))
+        pmc._make_cov_core.cache_clear()
+    leaves = [torch.tensor(v, requires_grad=True) for v in args]
+    s, co = moment_cov.CovCore.apply(*leaves, DIAG)
+    loss = (s * torch.tensor(W_S, dtype=s.dtype)).sum() + (co * torch.tensor(W_C, dtype=s.dtype)).sum()
+    g_ik, g_a = torch.autograd.grad(loss, [leaves[6], leaves[0]])
+    assert g_ik.shape == (len(DIAG),) + args[6].shape[1:]
+    for ref in refs:
+        np.testing.assert_allclose(g_ik.numpy(), ref, rtol=rtol, atol=0)
+    g_a_ref = _jax_loss_grads(cov_core_xla, jargs)[0]  # the other gradients are unchanged by asking for iK's
+    np.testing.assert_allclose(g_a.numpy(), np.asarray(g_a_ref), rtol=0, atol=rtol * np.abs(g_a_ref).max())
 
 
 def _gram_inputs(seed, n=100, ns=3, d=4):
@@ -193,6 +218,11 @@ def test_wrappers_raise_off_cpu_without_cuda():
         df_cov.df_cov_fwd(*df_args, DIAG)
     with pytest.raises(ValueError, match="CUDA"):
         df_cov.df_cov_fwdres(*df_args, DIAG)
+    g6 = torch.empty(6, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        df_cov.df_cov_bwd(*df_args, g6, g6, DIAG)
+    with pytest.raises(ValueError, match="CUDA"):
+        moment_cov.cov_gik(torch.empty(3, device="meta"), *args[:4], DIAG)
     with pytest.raises(ValueError, match="CUDA"):
         ops.df_cov_core(*df_args, DIAG)
     from types import SimpleNamespace
@@ -211,6 +241,10 @@ def test_wrappers_raise_off_cpu_without_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         df_mm.stage23_bwd(mu, b, b, q, q, cache, torch.empty(3, device="meta"), torch.empty(3, 4, device="meta"),
                           torch.empty(6, device="meta"), torch.empty(3, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        df_mm.stage23_bwd_mean(mu, b, b, cache, torch.empty(3, device="meta"), torch.empty(3, 4, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        df_mm.stage23_bwd_pairs(mu, q, q, cache, torch.empty(6, device="meta"), torch.empty(3, device="meta"))
 
 
 def test_launch_counts_untouched_on_cpu():
@@ -222,6 +256,10 @@ def test_launch_counts_untouched_on_cpu():
     df_args = [t for a in args for t in (a, torch.zeros_like(a))]  # (hi, lo) halves
     ops.df_cov_core(*df_args, DIAG)
     df_cov.DfCovCore.apply(*df_args, DIAG)
+    leaves = [t.clone().requires_grad_(True) for t in df_args]
+    torch.autograd.grad(df_cov.DfCovCoreStacked.apply(*leaves, DIAG)[0].sum(), leaves[0])  # #5, then #7
+    ik = args[6].clone().requires_grad_(True)
+    torch.autograd.grad(moment_cov.CovCore.apply(*args[:6], ik, DIAG)[1].sum(), ik)  # the iK gradient (#4)
     from types import SimpleNamespace
 
     from gpmpc_tpu_torch.ops import df_mm
@@ -235,5 +273,12 @@ def test_launch_counts_untouched_on_cpu():
     sv = (torch.eye(3) * 1e-2).requires_grad_(True)
     M, V, Sp = df_mm.full_step(mu, sv, cache)  # #12 forward, #8 and #9 in the backward
     torch.autograd.grad(M.sum() + V.sum() + Sp.sum(), (mu, sv))
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "df_fwd": 0, "df_fwdres": 0,
-                                   "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0}
+    g = [torch.ones(s) for s in ((3,), (3, 4), (6,), (3,))]
+    cache_160 = SimpleNamespace(outs=torch.ones(3), **{k: torch.cat([v] * 10, dim=-1) if k.startswith("beta") else (
+        v.repeat(1, 10, 10) if k.startswith("iK") else (v.repeat(10, 1) if k.startswith("x") else v))
+        for k, v in f.items()})
+    b3 = torch.eye(3).expand(3, 3, 3).contiguous()
+    df_mm.stage23_bwd(mu.detach(), b3, b3 * 0, torch.zeros(6, 3, 3), torch.zeros(6, 3, 3), cache_160, *g)  # #10, #11
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 0, "cov_bwd_row": 0, "cov_gik": 0, "df_fwd": 0,
+                                   "df_fwdres": 0, "df_bwd": 0, "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0,
+                                   "df_mm_bwd_mean": 0, "df_mm_bwd_pair": 0}
