@@ -39,10 +39,12 @@ the df cov kernels (lean forward, forward with residuals, stacked backward)
 on the trained-GP flagship's operands and random ones, the whole-step
 kernels at N = 32, 96, 128 and 384 and the split backward (the mean path's
 and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
-and random ones. Phase 5 times the blocked planning step of the paths and
-15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the whole-step
-route's value-and-grad rollout runs the split backward, and its gradient is
-held to the df cov route's and to the f64 rollout's.
+and random ones; it also reports the launch shape, time and bound of the two
+kernels redesigned for the H100 (#9 df_mm_bwd, #6 df_fwdres) beside unchanged
+kernels timed in the same run. Phase 5 times the blocked planning step of the
+paths and 15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the
+whole-step route's value-and-grad rollout runs the split backward, and its
+gradient is held to the df cov route's and to the f64 rollout's.
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -87,6 +89,12 @@ H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # f32 add or multiply instructions per second that cannot fuse into an FMA:
 # 16,896 FP32 lanes x 1.98 GHz boost, half the 67 TFLOP/s FMA figure
 H100_F32_INSTR_PER_S = 33.5e12
+
+# The two kernels redesigned for the H100 after their first port, and their
+# device times before (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at
+# 700 W, four runs): phase 3 prints each beside its new time, its launch
+# shape and its bound, with #8, #11 and #12 from the same call as controls.
+REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.0696"}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -299,6 +307,16 @@ def bound_ms(nbytes: float, flops: float, ops_per_s: float = H100_F32_FLOPS) -> 
     over the card's peak rate for them, whichever is larger."""
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def launch_report(name, info, ms, bound) -> str:
+    """One line on a redesigned kernel: its launch shape on this card (ptxas
+    registers and spills, threads, resident blocks per SM, grid, waves), its
+    device time against its bound, and its time before the redesign."""
+    return (f"redesigned {name}: {info['registers']} registers, {info['spill_bytes']} spill bytes, "
+            f"{info['threads']} threads, {info['blocks_per_sm']} blocks per SM, grid {info['grid']} on "
+            f"{info['sms']} SMs = {info['waves']:.2f} waves; {ms:.4f} ms against its bound {bound:.5f} ms = "
+            f"{bound / ms:.1%} of the bound (before: {REDESIGNED_BEFORE_MS[name]} ms)")
 
 
 def df_op_instructions() -> SimpleNamespace:
@@ -661,6 +679,9 @@ def check_df_kernels(dev):
             f"plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 "
             f"instructions per element over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
         results[name] = dict(err=max(e[i] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+    results["df_fwdres"]["report"] = launch_report("df_fwdres", df_cov.fwdres_launch_info(p, n, nd, ns),
+                                                   results["df_fwdres"]["ms"], results["df_fwdres"]["bound_ms"])
+    log("kernel " + results["df_fwdres"]["report"])
 
     # the stacked backward on the flagship's operands and random ones at 384,
     # and random ones at 96 (tests/test_torch_cuda.py adds ragged N)
@@ -807,6 +828,8 @@ def check_df_mm_operands(label, cache, mu, sv) -> tuple[float, float, float]:
     out = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)  # #9, at every N
     ref = df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)
     err_bwd = max(hold_grad(f"df_mm_bwd {nm} (N={n})", label, o, r) for nm, o, r in zip(("g_mu", "g_B", "g_Q"), out, ref))
+    log(f"kernel df_mm_bwd (N={n}) [{label}]: bit for bit with its plain twin: "
+        f"{all(torch.equal(o, r) for o, r in zip(out, ref))}")
     return err_full, err_fwd, err_bwd
 
 
@@ -841,9 +864,12 @@ def check_df_mm_split(label, cache, mu, sv) -> tuple[float, float]:
     err_pair = max(hold_grad(f"df_mm_bwd_pair g_inp (N={n})", label, v(p_inp), v(p_ref)),
                    hold_grad(f"df_mm_bwd_pair g_Q (N={n})", label, g_q, g_q_ref))
     if n == 384:
-        for nm, o, r in zip(("g_mu", "g_B", "g_Q"), df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g),
-                            df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)):
+        split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+        whole = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)
+        for nm, o, r in zip(("g_mu", "g_B", "g_Q"), split, whole):
             hold_grad(f"split route (df_mm_bwd_mean + df_mm_bwd_pair) {nm}, against df_mm_bwd (N={n})", label, o, r)
+        log(f"split route against df_mm_bwd (N={n}) [{label}]: bit for bit: "
+            f"{all(torch.equal(o, r) for o, r in zip(split, whole))}")
     return err_mean, err_pair
 
 
@@ -914,6 +940,9 @@ def check_df_mm_kernels(dev):
             ms_split, _ = cuda_ms(lambda: df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g), reps=4)
             log(f"kernel df_mm_bwd at N={n} (trained-GP operands): {ms_all:.4f} ms against the split route "
                 f"(df_mm_bwd_mean + df_mm_bwd_pair + the df combination) {ms_split:.4f} ms, device, per call")
+    bwd = results["df_mm_bwd"]
+    bwd["report"] = launch_report("df_mm_bwd", df_mm.bwd_launch_info(128, 3), bwd["ms"], bwd["bound_ms"])
+    log("kernel " + results["df_mm_bwd"]["report"])
     return results
 
 
@@ -1175,6 +1204,10 @@ def _run() -> int:
     kern.update(check_df_kernels(dev))
     kern.update(check_df_mm_kernels(dev))
     log("phase 3 kernels: all twelve match their plain versions on the card")
+    for name in ("df_mm_bwd", "df_fwdres"):
+        log(f"phase 3 {kern[name]['report']}")
+    log("phase 3 controls, unchanged, in this call: " + ", ".join(
+        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_mm_bwd_pair", "df_mm_full")))
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec

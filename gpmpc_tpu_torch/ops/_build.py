@@ -40,12 +40,15 @@ _SIGNATURES = {
     "gpmpc_df_tile_rows": (),
     "gpmpc_df_tile_cols": (),
     "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
-    "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 4 + (_I,) * 4 + (_P,),
+    "gpmpc_df_fwdres_max_bands": (_I,) * 4,
+    "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
+    "gpmpc_df_fwdres_info": (_I,) * 4 + (_P,),
     "gpmpc_df_bwd_f32": (_P,) * 17 + (_I,) + (_P,) * 2 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_tile": (),
     "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 3 + (_P,),
-    "gpmpc_df_mm_bwd_f32": (_P,) * 23 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_f32": (_P,) * 24 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_info": (_I,) * 2 + (_P,),
     "gpmpc_df_mm_bwd_mean_f32": (_P,) * 18 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_bwd_pair_f32": (_P,) * 20 + (_I,) * 3 + (_P,),
 }
@@ -147,6 +150,23 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+_LAUNCH_KEYS = ("registers", "spill_bytes", "threads", "blocks_per_sm", "grid", "sms", "dyn_smem")
+
+
+def launch_info(name: str, *args: int, extra: tuple = ()) -> dict:
+    """A kernel's launch on the current card from its ``<name>`` report
+    function: registers and spill (local) bytes per thread, threads per
+    block, resident blocks per SM (the occupancy calculator), grid blocks,
+    SMs, dynamic shared memory bytes, the ``extra`` values the function
+    appends, and waves (grid over SMs times blocks per SM)."""
+    keys = _LAUNCH_KEYS + tuple(extra)
+    info = (ctypes.c_int * len(keys))()
+    check(getattr(load(), name)(*args, ctypes.addressof(info)), name)
+    out = dict(zip(keys, list(info)))
+    out["waves"] = out["grid"] / (out["sms"] * max(out["blocks_per_sm"], 1))
+    return out
 
 
 def check(rc: int, name: str) -> None:

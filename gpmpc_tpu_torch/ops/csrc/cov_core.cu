@@ -21,7 +21,8 @@
 // neighbouring columns of one row. Every kernel computes E by cov_e, the
 // same f32 operations in the same order. The ns-contraction is ns scalar f32
 // FMAs: no tensor cores, whose TF32 inputs would put a ~1e-3 error inside the
-// exp. No atomics: each block writes its own partial, so runs repeat bitwise.
+// exp. Each block writes its own partial, summed in a fixed order, so runs
+// repeat bitwise.
 
 #include <cuda_runtime.h>
 

@@ -20,16 +20,31 @@
 // _bwd_kernel (stacked backward, body _bwd_cell, launched by _build_bwd with
 // sides=2; the reference's GPMPC_DF_COV_VJP=stacked scheme).
 // The TPU kernels walk (pair, 128-row tile) grid steps over whole-N rows in
-// VMEM; here a block owns a 32 x 64 tile of one pair's slab (8 warps, each
-// warp one row at a time, each lane two columns), so a flagship call
-// (P=6, N=384) runs 432 blocks. E never leaves registers.
+// VMEM. Here the lean forward's block owns a 32 x 64 tile of one pair's slab
+// (8 warps, each warp one row at a time, each lane two columns), so a
+// flagship call (P=6, N=384) runs 432 blocks; E never leaves registers.
+// Reductions, all in df and in a fixed order (runs repeat bitwise): within
+// a lane sequentially, across a warp by a shuffle tree, across the 8 warps of
+// a block by a tree in shared memory, and across blocks by a second launch
+// (df_sum_parts_kernel) that sums partials sequentially.
 //
-// Reductions, all in df and in a fixed order (no atomics; runs repeat
-// bitwise): within a lane sequentially, across a warp by a shuffle tree,
-// across the 8 warps of a block by a tree in shared memory. Each block writes
-// its partials (lean forward: one per block; row side: one per row and block
-// column; column side: one per column and block row) and a second launch
-// (df_sum_parts_kernel) sums them per output, sequentially in df.
+// The forward with residuals runs on row bands. A 32 x 64 tile design (as
+// the lean forward's) ran at 46 % of its bound at the flagship: its 432
+// blocks of 8 warps made 1.64 waves at 2 blocks per SM, each warp ran a df
+// shuffle tree over 8 values for every row after only 2 columns per lane,
+// and both sides needed a summing launch. Here a block owns a band of rows
+// of one pair against all Nc columns, a warp one row, its lanes two columns
+// at a time (two E chains in flight). Band sizes are chosen at launch from
+// the card's SM count so that all blocks fit one wave of one block per SM
+// and carry about the same work (a diagonal pair's element, with its iK
+// terms, costs ~1.3 times another's): at the flagship 72 bands of 16 rows
+// (diagonal pairs) and 60 of 20 rows, 132 blocks. A row's sums run within
+// each lane over its Nc / 32 columns and end in one warp tree per row (no
+// row partials, no row launch); a column's sums are added over the band's
+// warps through shared memory (double-buffered, one barrier per 64 columns)
+// and a second launch, a programmatic dependent, adds the bands in order.
+// Off the diagonal pairs the iK-weighted values are zero and are neither
+// computed nor reduced.
 //
 // The stacked backward gives each warp one whole stacked row: its lanes
 // stride the N columns, each lane sums its columns sequentially in df, and a
@@ -39,14 +54,16 @@
 // does: that is iK's column slab because iK is symmetric (square slabs only).
 //
 // Bound: arithmetic. One E element is ~700 f32 add/multiply instructions, a
-// row-side and column-side residual element another ~350, and none may fuse
-// into an FMA; the operands are ~4 MB (the df iK slab) at the flagship.
+// row-side and column-side residual element another ~500 on a diagonal pair,
+// and none may fuse into an FMA; the operands are ~4 MB (the df iK slab) at
+// the flagship.
 // The ns-contraction inside the exponent is elementwise df math, never a
 // tensor-core product.
 
 #include <cuda_runtime.h>
 
 #include "df32.cuh"
+#include "pdl.cuh"
 
 namespace {
 
@@ -65,8 +82,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerWarp = kTileRows / kWarps;
 constexpr int kColsPerLane = kTileCols / 32;
-constexpr int kMaxNs = 3;
-constexpr int kMaxValues = 2 + 2 * kMaxNs;  // df residuals per side
 
 // the 14 operands, each an f32 half of a df pair; layouts (row major):
 // a, bi (P, Nr); c, bj (P, Nc); U (P, Nr, ns); Xj (P, Nc, ns); iK (n_diag, Nr, Nc)
@@ -189,96 +204,203 @@ df_fwd_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag,
   }
 }
 
-// grid and block as df_fwd_kernel. Values per side, in order: A1, A2, B1_0..,
-// B2_0.. (row) and C1, C2, D1_0.., D2_0.. (column).
-// row_part: planes [2][P][NV][Nr][n_ct]; col_part: planes [2][P][n_rt][NV][Nc]
-template <int NS>
-__global__ void __launch_bounds__(kThreads)
-df_fwdres_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag,
-                 float* __restrict__ row_part, float* __restrict__ col_part, int nr, int nc) {
+// The forward with residuals on row bands. A block owns a band of rows of
+// one pair against all Nc columns, warp w the band's row w, its lanes the
+// columns (lane + 32 j, kLaneCols per chunk of kChunkCols). Each E is
+// computed once and feeds both sides. Values per side, in order: A1, A2,
+// B1_0.., B2_0.. (row) and C1, C2, D1_0.., D2_0.. (column); IK: the pair is
+// a diagonal one (the iK-weighted values; zero elsewhere).
+// Row side: each lane sums its columns in order, then warp_df_sum; written
+// to row_out [2][P][NV][Nr]. Column side, per chunk: the band's warps' values
+// are staged in shared memory (double-buffered, one barrier per chunk) and
+// added by a fixed pairwise tree over kMaxBandWarps slots (rows past the
+// band's end are zero), written to col_part [2][P][max_bands][NV][Nc];
+// df_fwdres_col_sum_kernel adds each pair's bands in order.
+// Band sizes (fwdres_bands): an element of a diagonal pair costs about 1.3
+// times an off-diagonal one's (the iK terms), so diagonal pairs get shorter
+// bands, sized so that every block carries about the same work and all
+// blocks fit one wave of one block per SM.
+constexpr int kMaxBandWarps = 20;
+constexpr int kLaneCols = 2;  // columns per lane per chunk
+constexpr int kChunkCols = 32 * kLaneCols;
+
+// f32 instructions per element (the counts of df32.cuh's operations that
+// chip_smoke.df_instructions_per_element makes): off a diagonal pair, and
+// the extra of the iK terms on one
+constexpr int kDfAdd = 11, kDfMul = 32, kDfExp = 566;
+constexpr int fwdres_elem_cost(int ns, bool ik) {
+  return 12 + ns * (kDfMul + kDfAdd) + kDfExp + 2 * kDfMul + 2 * kDfAdd + 2 * ns * (kDfMul + kDfAdd) +
+         (ik ? kDfMul + 2 * kDfAdd + 2 * ns * (kDfMul + kDfAdd) : 0);
+}
+
+// rows per band of a diagonal and of an off-diagonal pair, the grid and the
+// most bands of a pair
+struct Bands {
+  int rows_d, rows_o, blocks, max_bands;
+};
+
+// the pairwise tree of df_sum over W values in x (pairs (0, 1), (2, 3), ...;
+// an odd tail is carried, where df_sum adds an exact 0); the sum in x[0]
+template <int W>
+__device__ __forceinline__ void pairwise_tree(df* x) {
+#pragma unroll
+  for (int w = 0; w < W / 2; ++w) x[w] = df_add(x[2 * w], x[2 * w + 1]);
+  if (W % 2) x[W / 2] = x[W - 1];
+  if constexpr ((W + 1) / 2 > 1) pairwise_tree<(W + 1) / 2>(x);
+}
+
+template <int NS, bool IK>
+__device__ void fwdres_band(const Operands& o, int slot, float* __restrict__ row_out,
+                            float* __restrict__ col_part, df* stage, int nr, int nc, int band, int rows, int p,
+                            int np, int n_bands) {
   constexpr int NV = 2 + 2 * NS;
-  const int ct = blockIdx.x, rt = blockIdx.y, p = blockIdx.z;
-  const int n_ct = gridDim.x, n_rt = gridDim.y, np = gridDim.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = ik_slot(p, diag_pos, n_diag);
+  const int n = band * rows + warp;
+  const bool live = warp < rows && n < nr;  // warp-uniform
+  Row<NS> row;
+  row.load(o, p, nr, live ? n : 0);
+  df racc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) racc[v] = {0.f, 0.f};
 
-  Cols<NS> cols;
-  cols.load(o, p, nc, ct * kTileCols, lane);
-  df cacc[kColsPerLane][NV];
+  const size_t col_plane = (size_t)np * n_bands * NV * nc;
+  const int n_chunks = (nc + kChunkCols - 1) / kChunkCols;
+  for (int cc = 0; cc < n_chunks; ++cc) {
+    // a lane's columns k = cc kChunkCols + 32 j + lane, in order of j; both
+    // elements without a branch, so that the compiler interleaves their E
+    df col[kLaneCols][NV];
 #pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j)
+    for (int j = 0; j < kLaneCols; ++j)
 #pragma unroll
-    for (int v = 0; v < NV; ++v) cacc[j][v] = {0.f, 0.f};
-
-  const size_t row_plane = (size_t)np * NV * nr * n_ct;
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int n = rt * kTileRows + warp + kWarps * i;
-    if (n >= nr) break;  // warp-uniform
-    Row<NS> row;
-    row.load(o, p, nr, n);
-    const size_t ik_row = ((size_t)(slot < 0 ? 0 : slot) * nr + n) * nc;
-    df racc[NV];
+      for (int v = 0; v < NV; ++v) col[j][v] = {0.f, 0.f};
+    if (live) {  // warp-uniform
 #pragma unroll
-    for (int v = 0; v < NV; ++v) racc[v] = {0.f, 0.f};
+      for (int j = 0; j < kLaneCols; ++j) {
+        const int k = cc * kChunkCols + 32 * j + lane;
+        const bool kv = k < nc;
+        const size_t ci = (size_t)p * nc + (kv ? k : 0);
+        const df c = {o.ch[ci], o.cl[ci]}, bj = {o.bjh[ci], o.bjl[ci]};
+        df xj[NS];
 #pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      if (!cols.valid[j]) continue;
-      const df e = e_elem<NS>(row.a, row.u, cols.c[j], cols.xj[j]);
-      const df wb = df_mul(e, cols.bj[j]);
-      const df vb = df_mul(e, row.bi);
-      racc[0] = df_add(racc[0], wb);
-      cacc[j][0] = df_add(cacc[j][0], vb);
-#pragma unroll
-      for (int q = 0; q < NS; ++q) {
-        racc[2 + q] = df_add(racc[2 + q], df_mul(wb, cols.xj[j][q]));
-        cacc[j][2 + q] = df_add(cacc[j][2 + q], df_mul(vb, row.u[q]));
-      }
-      if (slot >= 0) {
-        const size_t i_k = ik_row + cols.k[j];
-        const df qv = df_mul(e, {o.ikh[i_k], o.ikl[i_k]});
-        racc[1] = df_add(racc[1], qv);
-        cacc[j][1] = df_add(cacc[j][1], qv);
+        for (int e = 0; e < NS; ++e) xj[e] = {o.xjh[ci * NS + e], o.xjl[ci * NS + e]};
+        // past the last column E is 0, so every sum adds an exact 0
+        const df e_k = e_elem<NS>(row.a, row.u, c, xj);
+        const df e = kv ? e_k : df{0.f, 0.f};
+        const df wb = df_mul(e, bj);
+        const df vb = df_mul(e, row.bi);
+        racc[0] = df_add(racc[0], wb);
+        col[j][0] = vb;
 #pragma unroll
         for (int q = 0; q < NS; ++q) {
-          racc[2 + NS + q] = df_add(racc[2 + NS + q], df_mul(qv, cols.xj[j][q]));
-          cacc[j][2 + NS + q] = df_add(cacc[j][2 + NS + q], df_mul(qv, row.u[q]));
+          racc[2 + q] = df_add(racc[2 + q], df_mul(wb, xj[q]));
+          col[j][2 + q] = df_mul(vb, row.u[q]);
+        }
+        if (IK) {
+          const size_t i_k = ((size_t)slot * nr + n) * nc + (kv ? k : 0);
+          const df qv = df_mul(e, {o.ikh[i_k], o.ikl[i_k]});
+          racc[1] = df_add(racc[1], qv);
+          col[j][1] = qv;
+#pragma unroll
+          for (int q = 0; q < NS; ++q) {
+            racc[2 + NS + q] = df_add(racc[2 + NS + q], df_mul(qv, xj[q]));
+            col[j][2 + NS + q] = df_mul(qv, row.u[q]);
+          }
         }
       }
     }
+    // the band's column sums of this chunk: warp w's values in stage[buf][w],
+    // added once every warp has written
+    df* buf = stage + (size_t)(cc & 1) * kMaxBandWarps * NV * kChunkCols;
 #pragma unroll
-    for (int v = 0; v < NV; ++v) racc[v] = warp_df_sum(racc[v]);
-    if (lane == 0) {
+    for (int j = 0; j < kLaneCols; ++j)
 #pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const size_t idx = (((size_t)p * NV + v) * nr + n) * n_ct + ct;
-        row_part[idx] = racc[v].h;
-        row_part[row_plane + idx] = racc[v].l;
+      for (int v = 0; v < NV; ++v)
+        if (IK || v == 0 || (v >= 2 && v < 2 + NS))
+          buf[((size_t)warp * NV + v) * kChunkCols + 32 * j + lane] = col[j][v];
+    __syncthreads();
+    for (int t = threadIdx.x; t < NV * kChunkCols; t += blockDim.x) {
+      const int v = t / kChunkCols, cl = t % kChunkCols;
+      const int kk = cc * kChunkCols + cl;
+      if (kk >= nc) continue;
+      df tot = {0.f, 0.f};
+      if (IK || v == 0 || (v >= 2 && v < 2 + NS)) {
+        df x[kMaxBandWarps];
+#pragma unroll
+        for (int w = 0; w < kMaxBandWarps; ++w)
+          x[w] = w < rows ? buf[((size_t)w * NV + v) * kChunkCols + cl] : df{0.f, 0.f};
+        pairwise_tree<kMaxBandWarps>(x);
+        tot = x[0];
       }
+      const size_t idx = (((size_t)p * n_bands + band) * NV + v) * nc + kk;
+      col_part[idx] = tot.h;
+      col_part[col_plane + idx] = tot.l;
     }
   }
 
-  // column side: the 8 warps' sums of each column, then a tree across them
-  __shared__ float sh[2][kWarps][kMaxValues][kTileCols];
+  // the row: one warp tree per value
+  const size_t row_plane = (size_t)np * NV * nr;
 #pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j)
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      sh[0][warp][v][lane + 32 * j] = cacc[j][v].h;
-      sh[1][warp][v][lane + 32 * j] = cacc[j][v].l;
+  for (int v = 0; v < NV; ++v) {
+    const df tot = IK || v == 0 || (v >= 2 && v < 2 + NS) ? warp_df_sum(racc[v]) : df{0.f, 0.f};
+    if (lane == 0 && live) {
+      const size_t idx = ((size_t)p * NV + v) * nr + n;
+      row_out[idx] = tot.h;
+      row_out[row_plane + idx] = tot.l;
     }
-  __syncthreads();
-  const size_t col_plane = (size_t)np * n_rt * NV * nc;
-  for (int t = threadIdx.x; t < NV * kTileCols; t += kThreads) {
-    const int v = t / kTileCols, c = t % kTileCols;
-    const int k = ct * kTileCols + c;
-    if (k >= nc) continue;
-    df w[kWarps];
+  }
+}
+
+// grid: the bands of pair 0, then of pair 1, ...; block 32 max(rows_d,
+// rows_o) threads; dynamic shared memory: the double-buffered column staging,
+// 2 kMaxBandWarps NV kChunkCols df. The summing launch that follows is a
+// programmatic dependent; it is not released early, since its blocks would
+// wait on SMs that this launch fills.
+template <int NS>
+__global__ void __launch_bounds__(32 * kMaxBandWarps, 1)
+df_fwdres_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag, float* __restrict__ row_out,
+                 float* __restrict__ col_part, int np, int nr, int nc, Bands bands) {
+  extern __shared__ df stage[];
+  int band = blockIdx.x, p = 0, slot = ik_slot(0, diag_pos, n_diag);
+  int rows = slot >= 0 ? bands.rows_d : bands.rows_o;
+  while (band >= (nr + rows - 1) / rows) {
+    band -= (nr + rows - 1) / rows;
+    slot = ik_slot(++p, diag_pos, n_diag);
+    rows = slot >= 0 ? bands.rows_d : bands.rows_o;
+  }
+  if (slot >= 0)
+    fwdres_band<NS, true>(o, slot, row_out, col_part, stage, nr, nc, band, rows, p, np, bands.max_bands);
+  else
+    fwdres_band<NS, false>(o, slot, row_out, col_part, stage, nr, nc, band, rows, p, np, bands.max_bands);
+}
+
+// col_out[p, i] = df sum over the bands t of pair p of col_part[p, t, i], in
+// order of t. col_part: planes [2][P][max_bands][inner]; col_out: [2][P][inner]
+__global__ void df_fwdres_col_sum_kernel(const float* __restrict__ col_part, float* __restrict__ col_out, int np,
+                                         int inner, int nr, Bands bands, const int* __restrict__ diag_pos,
+                                         int n_diag) {
+  constexpr int kBatch = 8;  // the loads of a batch ahead of its adds
+  gpmpc_pdl::wait_for_prerequisite();
+  const size_t total = (size_t)np * inner;
+  const size_t plane = total * bands.max_bands;
+  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total; o += (size_t)gridDim.x * blockDim.x) {
+    const int p = (int)(o / inner);
+    const size_t ii = o % inner;
+    const int rows = ik_slot(p, diag_pos, n_diag) >= 0 ? bands.rows_d : bands.rows_o;
+    const int n_bands = (nr + rows - 1) / rows;
+    df acc = {0.f, 0.f};
+    for (int t0 = 0; t0 < n_bands; t0 += kBatch) {
+      df v[kBatch];
 #pragma unroll
-    for (int m = 0; m < kWarps; ++m) w[m] = {sh[0][m][v][c], sh[1][m][v][c]};
-    const df tot = tree8(w);
-    const size_t idx = (((size_t)p * n_rt + rt) * NV + v) * nc + k;
-    col_part[idx] = tot.h;
-    col_part[col_plane + idx] = tot.l;
+      for (int b = 0; b < kBatch; ++b) {
+        const size_t idx = ((size_t)p * bands.max_bands + (t0 + b < n_bands ? t0 + b : t0)) * inner + ii;
+        v[b] = {col_part[idx], col_part[plane + idx]};
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (t0 + b < n_bands) acc = df_add(acc, v[b]);
+    }
+    col_out[o] = acc.h;
+    col_out[total + o] = acc.l;
   }
 }
 
@@ -372,18 +494,68 @@ int launch_fwd(const Operands& o, const int* diag_pos, int n_diag, float* part, 
   return launch_sum_parts(part, out, p, grid.x * grid.y, 2, stream);
 }
 
+Bands fwdres_bands(int p, int nr, int n_diag, int ns) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const double cd = fwdres_elem_cost(ns, true), co = fwdres_elem_cost(ns, false);
+  const double per_sm = (double)nr * (n_diag * cd + (p - n_diag) * co) / (sms > 0 ? sms : 1);
+  auto clamp_rows = [](double r) { return r < 1 ? 1 : r > kMaxBandWarps ? kMaxBandWarps : (int)r; };
+  Bands b{};
+  for (double work = per_sm;; work *= 1.01) {  // the least work per block that fits one wave
+    b.rows_d = clamp_rows(work / cd);
+    b.rows_o = clamp_rows(work / co);
+    const int nb_d = (nr + b.rows_d - 1) / b.rows_d, nb_o = (nr + b.rows_o - 1) / b.rows_o;
+    b.blocks = n_diag * nb_d + (p - n_diag) * nb_o;
+    b.max_bands = n_diag > 0 && nb_d > nb_o ? nb_d : p > n_diag ? nb_o : nb_d;
+    if (b.blocks <= sms || (b.rows_d == kMaxBandWarps && b.rows_o == kMaxBandWarps)) return b;
+  }
+}
+
 template <int NS>
-int launch_fwdres(const Operands& o, const int* diag_pos, int n_diag, float* row_part,
-                  float* col_part, float* row_out, float* col_out, int p, int nr, int nc,
-                  cudaStream_t stream) {
+size_t fwdres_smem() {
+  return (size_t)2 * kMaxBandWarps * (2 + 2 * NS) * kChunkCols * sizeof(df);
+}
+
+template <int NS>
+int launch_fwdres(const Operands& o, const int* diag_pos, int n_diag, float* col_part, float* row_out,
+                  float* col_out, int p, int nr, int nc, cudaStream_t stream) {
   constexpr int NV = 2 + 2 * NS;
-  const dim3 grid((nc + kTileCols - 1) / kTileCols, (nr + kTileRows - 1) / kTileRows, p);
-  df_fwdres_kernel<NS><<<grid, kThreads, 0, stream>>>(o, diag_pos, n_diag, row_part, col_part, nr, nc);
-  int rc = (int)cudaGetLastError();
+  const Bands b = fwdres_bands(p, nr, n_diag, NS);
+  const int threads = 32 * (b.rows_d > b.rows_o ? b.rows_d : b.rows_o);
+  const size_t smem = fwdres_smem<NS>();
+  int rc = (int)cudaFuncSetAttribute(df_fwdres_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != 0) return rc;
-  rc = launch_sum_parts(row_part, row_out, p * NV * nr, grid.x, 1, stream);
+  df_fwdres_kernel<NS><<<b.blocks, threads, smem, stream>>>(o, diag_pos, n_diag, row_out, col_part, p, nr, nc, b);
+  rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  return launch_sum_parts(col_part, col_out, p, grid.y, NV * nc, stream);
+  const long long total = (long long)p * NV * nc;
+  const int blocks = (int)(total < 256LL * 1024 ? (total + 255) / 256 : 1024);
+  return gpmpc_pdl::launch_dependent(df_fwdres_col_sum_kernel, blocks, 256, 0, stream, (const float*)col_part,
+                                     col_out, p, NV * nc, nr, b, diag_pos, n_diag);
+}
+
+// #6's registers, spill bytes, threads, resident blocks per SM, grid, SMs
+// and dynamic shared memory at (p, nr, n_diag), for the smoke's report
+template <int NS>
+int fwdres_info(int p, int nr, int n_diag, int* info) {
+  cudaFuncAttributes a;
+  int rc = (int)cudaFuncGetAttributes(&a, df_fwdres_kernel<NS>);
+  if (rc != 0) return rc;
+  const Bands b = fwdres_bands(p, nr, n_diag, NS);
+  const int threads = 32 * (b.rows_d > b.rows_o ? b.rows_d : b.rows_o);
+  rc = (int)cudaFuncSetAttribute(df_fwdres_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)fwdres_smem<NS>());
+  if (rc != 0) return rc;
+  int per_sm = 0, dev = 0, sms = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_fwdres_kernel<NS>, threads, fwdres_smem<NS>());
+  if (rc != 0) return rc;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int vals[9] = {a.numRegs, (int)a.localSizeBytes, threads, per_sm, b.blocks, sms, (int)fwdres_smem<NS>(),
+                       b.rows_d, b.rows_o};
+  for (int k = 0; k < 9; ++k) info[k] = vals[k];
+  return 0;
 }
 
 template <int NS>
@@ -418,19 +590,33 @@ int gpmpc_df_fwd_f32(const float* ah, const float* al, const float* ch, const fl
   }
 }
 
+// the most bands of a pair of df_fwdres on this card: the wrapper sizes
+// col_part with it
+int gpmpc_df_fwdres_max_bands(int p, int nr, int n_diag, int ns) { return fwdres_bands(p, nr, n_diag, ns).max_bands; }
+
 int gpmpc_df_fwdres_f32(const float* ah, const float* al, const float* ch, const float* cl,
                         const float* uh, const float* ul, const float* xjh, const float* xjl,
                         const float* bih, const float* bil, const float* bjh, const float* bjl,
                         const float* ikh, const float* ikl, const int* diag_pos, int n_diag,
-                        float* row_part, float* col_part, float* row_out, float* col_out,
-                        int p, int nr, int nc, int ns, void* stream) {
-  if (p < 1 || nr < 1 || nc < 1) return (int)cudaErrorInvalidValue;
+                        float* col_part, float* row_out, float* col_out, int p, int nr, int nc, int ns,
+                        void* stream) {
+  if (p < 1 || nr < 1 || nc < 1 || p > 65535) return (int)cudaErrorInvalidValue;
   const Operands o{ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ns) {
-    case 1: return launch_fwdres<1>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
-    case 2: return launch_fwdres<2>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
-    case 3: return launch_fwdres<3>(o, diag_pos, n_diag, row_part, col_part, row_out, col_out, p, nr, nc, s);
+    case 1: return launch_fwdres<1>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, s);
+    case 2: return launch_fwdres<2>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, s);
+    case 3: return launch_fwdres<3>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// #6's launch report (fwdres_info): info[9]
+int gpmpc_df_fwdres_info(int p, int nr, int n_diag, int ns, int* info) {
+  switch (ns) {
+    case 1: return fwdres_info<1>(p, nr, n_diag, info);
+    case 2: return fwdres_info<2>(p, nr, n_diag, info);
+    case 3: return fwdres_info<3>(p, nr, n_diag, info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -22,8 +22,8 @@
 // and 32 columns' (c, Xj, bj) into shared memory (in #12 after its pair's
 // stage 1, computed by one thread from sv), then 8 warps walk 4 rows each,
 // a lane per column; E never leaves registers. Per-block df partials go to
-// scratch and the second launch sums them sequentially in df: no atomics,
-// runs repeat bitwise. The ragged edge (N not a multiple of 32) is masked,
+// scratch and the second launch sums them sequentially in df, so runs repeat
+// bitwise. The ragged edge (N not a multiple of 32) is masked,
 // so no padding is needed.
 //
 // #9 writes out the VJP (the TPU kernel runs jax.vjp in its body). A pair

@@ -51,15 +51,21 @@ The iK-weighted residuals (A2, B2, C2, D2) exist only on the diagonal pairs
 and are zero on the others (the TPU kernel reads an unused model's slab
 there, whose values nothing consumes).
 
-Both kernels tile the (N, N) slab of a pair into 32 x 64 blocks of 256
-threads (8 warps, one row each at a time; a lane owns two columns) and never
-store E. What bounds them on an H100 is arithmetic: each E element costs
-about 700 f32 add/multiply instructions (12 df Horner steps in the exp
-alone), none of which may fuse into an FMA, so the bound is instructions
-over the FP32 lanes' issue rate, far above the bytes of the df iK slab. Each
-block writes df partials (row side per block column, column side per block
-row); a second launch sums them in df32 in a fixed order, so no atomics and
-runs repeat bitwise.
+None of the kernels stores E. What bounds them on an H100 is arithmetic:
+each E element costs about 700 f32 add/multiply instructions (12 df Horner
+steps in the exp alone), none of which may fuse into an FMA, so the bound is
+instructions over the FP32 lanes' issue rate, far above the bytes of the df
+iK slab. The lean forward tiles a pair's (N, N) slab into 32 x 64 blocks of
+256 threads (8 warps, one row each at a time; a lane owns two columns). The
+forward with residuals runs on row bands: a block owns a band of rows of one
+pair against all columns, a warp one row, and the bands' sizes are chosen
+from the card's SM count so that all blocks fit one wave and carry about the
+same work, a diagonal pair's (with its iK terms) in shorter bands
+(``fwdres_launch_info`` reports the launch). Its row sums end inside their
+warp; its column sums are added over the band's warps in shared memory and
+written per band. Cross-block partials are summed by a second launch in df32
+in a fixed order (for df_fwdres a programmatic dependent launch), so no
+atomics and runs repeat bitwise.
 """
 
 from __future__ import annotations
@@ -289,22 +295,27 @@ def df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl
         return df_cov_fwdres_plain(*args, diag_pos)
     p, nr, nc, ns = _check("df_cov_fwdres", args, diag_pos)
     lib = _build.load()
-    tr, tc = lib.gpmpc_df_tile_rows(), lib.gpmpc_df_tile_cols()
     nv = 2 + 2 * ns
-    n_rt, n_ct = -(-nr // tr), -(-nc // tc)
+    max_bands = lib.gpmpc_df_fwdres_max_bands(p, nr, len(diag_pos), ns)
     dev = ah.device
-    row_part = torch.empty((2, p, nv, nr, n_ct), dtype=torch.float32, device=dev)
-    col_part = torch.empty((2, p, n_rt, nv, nc), dtype=torch.float32, device=dev)
+    col_part = torch.empty((2, p, max_bands, nv, nc), dtype=torch.float32, device=dev)
     row_out = torch.empty((2, p, nv, nr), dtype=torch.float32, device=dev)
     col_out = torch.empty((2, p, nv, nc), dtype=torch.float32, device=dev)
     rc = lib.gpmpc_df_fwdres_f32(*_ptrs(args), _index(diag_pos, dev, torch.int32).data_ptr(), len(diag_pos),
-                                 row_part.data_ptr(), col_part.data_ptr(), row_out.data_ptr(),
-                                 col_out.data_ptr(), p, nr, nc, ns, torch.cuda.current_stream(dev).cuda_stream)
+                                 col_part.data_ptr(), row_out.data_ptr(), col_out.data_ptr(), p, nr, nc, ns,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "df_cov_fwdres")
     LAUNCHES["df_fwdres"] += 1
     rows = [row_out[h, :, v] for v in range(nv) for h in range(2)]
     cols = [col_out[h, :, v] for v in range(nv) for h in range(2)]
     return rows, cols
+
+
+def fwdres_launch_info(p: int, nr: int, n_diag: int, ns: int) -> dict:
+    """``df_fwdres``'s launch at (P, Nr, n_diag) on the current card
+    (``_build.launch_info``), with the rows per band of a diagonal pair and
+    of another pair."""
+    return _build.launch_info("gpmpc_df_fwdres_info", p, nr, n_diag, ns, extra=("rows_diag", "rows_off"))
 
 
 def df_cov_bwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, gs, gco, diag_pos):

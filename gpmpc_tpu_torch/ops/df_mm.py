@@ -38,6 +38,11 @@ kernel of ``gpmpc_tpu/ops/pallas_df_mm.py``:
   chain rule through a, c, U and Xj to inp = x - mu and Q, the mean path's
   VJP and the sums over N. Only the outputs are collapsed to f32. The sums
   that cancel at cond(K) ~ 1e6 (fault C1 in ROADMAP) therefore cancel in df.
+  The kernel runs on stacked rows: a cluster of two blocks owns 32 points of
+  one side of one pair, a warp one point against all N, and the chain rule
+  and the unit's sums run in the cluster's shared memory, so its second
+  launch only adds the units' sums (``bwd_launch_info`` reports the launch).
+  Its sums follow #11's order, so #9 and the split route agree bit for bit.
 * ``df_mm_bwd_mean`` replaces ``_build.bwd_mean_kernel`` (#10) and
   ``df_mm_bwd_pair`` replaces ``_build.make_bwd_pair_kernel`` (#11): #9
   split into the mean path's VJP (to mu and B^-1) and every pair's (to mu
@@ -53,7 +58,8 @@ forward #8, backward #9, then the finish), differentiated with respect to
 ``_reference_path``. The cache slabs get no gradient (``core_bwd`` returns
 zeros for them): they are constants while planning.
 
-Every kernel takes any N (the ragged edge is masked) with 1 <= ns <= 3 and
+Every kernel takes any N (the ragged edge is masked; #9 up to N = 5,000 at
+ns = 3, the other side's operands in shared memory) with 1 <= ns <= 3 and
 ns <= d <= 8. The reference pads N to a power of two for Mosaic
 (``_pad_cache_pow2``, exact); the port needs no padding, so the 96 bucket
 runs at N = 96. Dispatch (``ops.use_df_fused``) keeps the reference's range,
@@ -644,19 +650,21 @@ def stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
     lib = _build.load()
     nt, nblk, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
     dev = mu.device
-    ct = torch.cat([g_m, g_v.reshape(-1), g_sp, g_corr])
-    row_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
-    col_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
     mean_part = torch.empty((2, ns, nt, d + ns * ns), dtype=torch.float32, device=dev)
     unit_part = torch.empty((2, 2 * p * nt, d + ns * ns), dtype=torch.float32, device=dev)
     out = torch.empty(d + ns ** 3 + p * ns * ns, dtype=torch.float32, device=dev)
     rc = lib.gpmpc_df_mm_bwd_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), qh.data_ptr(), ql.data_ptr(),
-                                 *_cache_ptrs(cache), ct.data_ptr(), row_part.data_ptr(), col_part.data_ptr(),
-                                 mean_part.data_ptr(), unit_part.data_ptr(), out.data_ptr(), n, ns, d,
-                                 _stream(mu))
+                                 *_cache_ptrs(cache), g_m.data_ptr(), g_v.data_ptr(), g_sp.data_ptr(),
+                                 g_corr.data_ptr(), mean_part.data_ptr(), unit_part.data_ptr(), out.data_ptr(), n, ns,
+                                 d, _stream(mu))
     _build.check(rc, "df_mm_bwd")
     LAUNCHES["df_mm_bwd"] += 1
     return out[:d], out[d:d + ns ** 3].view(ns, ns, ns), out[d + ns ** 3:].view(p, ns, ns)
+
+
+def bwd_launch_info(n: int, ns: int) -> dict:
+    """#9's launch at N on the current card (``_build.launch_info``)."""
+    return _build.launch_info("gpmpc_df_mm_bwd_info", n, ns)
 
 
 def _full_ct(cache, g_m=None, g_v=None, g_sp=None, g_corr=None):

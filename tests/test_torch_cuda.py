@@ -502,3 +502,56 @@ def test_backward_kernels_refuse_non_f32(dev):
         df_mm.stage23_bwd_mean(mu, Bh.double(), Bl, cache, torch.ones(3, device=dev), torch.ones(3, 4, device=dev))
     with pytest.raises(TypeError):
         df_mm.stage23_bwd_pairs(mu, Qh, Ql.double(), cache, torch.ones(6, device=dev), torch.ones(3, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels: #9 on stacked rows (a cluster of blocks per unit of
+# 32 points, a warp per point against all N), #6 on row bands sized to the
+# card's SMs
+# ---------------------------------------------------------------------------
+
+STACKED_SIZES = [32, 37, 96, 128, 384]
+
+
+@pytest.mark.parametrize("n", STACKED_SIZES)
+@pytest.mark.parametrize("ns,d", [(1, 2), (2, 3), (3, 4), (1, 8), (2, 8), (3, 8)])
+def test_df_mm_bwd_stacked_rows_match_plain(dev, n, ns, d):
+    """#9 against its twin at every width it takes (d = ns + 1 and 8),
+    bitwise repeatable; at 384 also against the split route (#10 + #11),
+    whose df cotangents it sums in the same order."""
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(n + 10 * ns + d, n, dev, ns=ns, d=d)
+    Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
+    p = Qh.shape[0]
+    rng = np.random.default_rng(n + ns)
+    g = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in ((ns,), (ns, d), (p,), (ns,))]
+    out = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)
+    ref = df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)
+    for o, r in zip(out, ref):
+        _within_largest(o, r)
+    assert all(torch.equal(a, b) for a, b in zip(df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g), out))
+    if n > df_mm.SINGLE_BWD_MAX_N:
+        for o, r in zip(df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g), out):
+            _within_largest(o, r)
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("ns", [1, 2, 3])
+def test_df_fwdres_bands_match_plain(dev, n, ns):
+    """#6 against its twin for every state width, on a diagonal and an
+    off-diagonal pair at least (ns = 1 gets a second, off-diagonal pair),
+    bitwise repeatable."""
+    p = max(2, ns * (ns + 1) // 2)
+    ii, jj = np.triu_indices(ns)
+    diag = tuple(int(k) for k in np.where(ii == jj)[0])
+    args = _df_problem(n + 7 * ns, n, dev, p=p, ns=ns, m=len(diag))
+    rows, cols = df_cov.df_cov_fwdres(*args, diag)
+    rows_r, cols_r = df_cov.df_cov_fwdres_plain(*args, diag)
+    _, (row_abs, col_abs) = df_cov.df_cov_abs_terms(*args, diag)
+    for out, ref, scale in ((rows, rows_r, row_abs), (cols, cols_r, col_abs)):
+        assert len(out) == len(ref) == 4 + 4 * ns
+        for k in range(0, len(out), 2):
+            _df_within(out[k], out[k + 1], ref[k], ref[k + 1], scale[k] + 1e-300)
+    again = df_cov.df_cov_fwdres(*args, diag)
+    assert all(torch.equal(a, b) for a, b in zip(again[0] + again[1], rows + cols))
