@@ -39,9 +39,11 @@ the df cov kernels (lean forward, forward with residuals, stacked backward)
 on the trained-GP flagship's operands and random ones, the whole-step
 kernels at N = 32, 96, 128 and 384 and the split backward (the mean path's
 and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
-and random ones; it also reports the launch shape, time and bound of the two
-kernels redesigned for the H100 (#9 df_mm_bwd, #6 df_fwdres) beside unchanged
-kernels timed in the same run. Phase 5 times the blocked planning step of the
+and random ones, each redesigned kernel also for bitwise repeats; it also
+reports the launch shape, time and bound of the four kernels redesigned for
+the H100 (#9 df_mm_bwd, #6 df_fwdres, #12 df_mm_full, #2 cov_fwd) beside
+unchanged kernels timed in the same run, and the times of #12 at N = 32 and
+96 and of #2 at N = 32. Phase 5 times the blocked planning step of the
 paths and 15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the
 whole-step route's value-and-grad rollout runs the split backward, and its
 gradient is held to the df cov route's and to the f64 rollout's.
@@ -90,11 +92,14 @@ H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # 16,896 FP32 lanes x 1.98 GHz boost, half the 67 TFLOP/s FMA figure
 H100_F32_INSTR_PER_S = 33.5e12
 
-# The two kernels redesigned for the H100 after their first port, and their
+# The kernels redesigned for the H100 after their first port, and their
 # device times before (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at
-# 700 W, four runs): phase 3 prints each beside its new time, its launch
-# shape and its bound, with #8, #11 and #12 from the same call as controls.
-REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.0696"}
+# 700 W: #9 and #6 from their first design's runs, #12 and #2 from the runs
+# of the design before this one): phase 3 prints each beside its new time,
+# its launch shape and its bound, with #8, #11, #5 and #3 from the same call
+# as controls.
+REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.0696", "df_mm_full": "0.0271-0.0274",
+                        "cov_fwd": "0.0214-0.0223"}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -179,6 +184,7 @@ DF_GRAD_TOL = 3e-6
 # held to FULL_EPS of itself plus DF_TOL of its sum of |terms| scaled as the
 # output is (by c, or by 1 / sqrt det R).
 DF_MM_SIZES = (32, 96, 128, 384)
+RAGGED_N = 100  # and on random operands at an N with a ragged last tile
 # the split backward (#10 mean path, #11 pairs) that serves N > 128, each
 # output against its plain twin to DF_GRAD_TOL of its largest entry, and the
 # combined split route against #9 at 384 (#9 is right at any N)
@@ -435,11 +441,17 @@ def check_kernels(dev):
     nd = len(diag_pos)
     ms, host = cuda_ms(lambda: moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, diag_pos))
     plain, _ = cuda_ms(lambda: moment_cov.cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos))
-    b, by = bound_ms(4 * (4 * p * n + 2 * p * n * ns_ + nd * n * n + nd + p + nd),
-                     p * n * n * (2 * ns_ + 5) + nd * n * n * 2)
-    log(f"kernel cov_fwd (P={p}, N={n}, ns={ns_}): kernel {ms:.4f} ms plain {plain:.4f} ms "
+    b, by = cov_fwd_bound(p, n, ns_, nd)
+    log(f"kernel cov_fwd (P={p}, N={n}, ns={ns_}): wrapper {ms:.4f} ms (device, 2 launches) plain {plain:.4f} ms "
         f"bound {b:.5f} ms ({by}); host {host:.4f} ms per call")
     results["cov_fwd"] = dict(err=err_fwd, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    results["cov_fwd"]["report"] = launch_report("cov_fwd", moment_cov.fwd_launch_info(p, n, ns_), ms, b)
+    log("kernel " + results["cov_fwd"]["report"])
+    n32 = random_cov_operands(dev, p, ACC_BUCKET, ns_, diag_pos, seed=ACC_BUCKET)
+    check_cov_fwd("random N=32", n32, diag_pos)
+    ms32, _ = cuda_ms(lambda: moment_cov.cov_fwd(*n32, diag_pos))
+    log(f"kernel cov_fwd (P={p}, N={ACC_BUCKET}, ns={ns_}, random operands): wrapper {ms32:.4f} ms (device) "
+        f"bound {cov_fwd_bound(p, ACC_BUCKET, ns_, nd)[0]:.5f} ms")
 
     g = torch.linspace(1.0, 2.0, p, device=dev)
     gco = _scatter_diag(torch.linspace(1.0, 3.0, nd, device=dev), p, diag_pos)
@@ -460,6 +472,13 @@ def check_kernels(dev):
         f"bound {b:.5f} ms ({by}); host {host:.4f} ms per call")
     results["cov_gik"] = dict(err=err_gik, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
     return results
+
+
+def cov_fwd_bound(p, n, ns, nd) -> tuple[float, str]:
+    """cov_fwd's bound: its operands and outputs once, 2 ns + 5 f32
+    operations per element and 2 more on the diagonal pairs."""
+    return bound_ms(4 * (4 * p * n + 2 * p * n * ns + nd * n * n + nd + p + nd),
+                    p * n * n * (2 * ns + 5) + nd * n * n * 2)
 
 
 def hold_gik(what, label, out, ref, g_corr, expo_abs) -> float:
@@ -535,8 +554,15 @@ def check_cov_fwd(label, operands, diag_pos) -> float:
     s_k, co_k = moment_cov.cov_fwd(*operands, diag_pos)
     s_r, co_r = moment_cov.cov_core_ref(*operands, diag_pos)
     s_abs, co_abs = moment_cov.cov_fwd_abs_terms(*operands, diag_pos)
-    return max(hold_cov("cov_fwd S_p", label, s_k, s_r, s_abs),
-               hold_cov("cov_fwd corr", label, co_k, co_r, co_abs))
+    err = max(hold_cov("cov_fwd S_p", label, s_k, s_r, s_abs), hold_cov("cov_fwd corr", label, co_k, co_r, co_abs))
+    hold_repeat("cov_fwd", label, (s_k, co_k), moment_cov.cov_fwd(*operands, diag_pos))
+    return err
+
+
+def hold_repeat(what, label, first, again) -> None:
+    """A kernel whose cross-block sums run in a fixed order repeats bitwise."""
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"{what} [{label}]: two calls differ (its sums are not in a fixed order)")
 
 
 def check_cov_bwd(label, operands, diag_pos) -> float:
@@ -805,8 +831,10 @@ def check_df_mm_operands(label, cache, mu, sv) -> tuple[float, float, float]:
     err_fwd = max(hold_df(f"df_mm_fwd {nm} (N={n})", label, raw[2 * k], raw[2 * k + 1], ref[2 * k], ref[2 * k + 1],
                           scale)
                   for k, (nm, scale) in enumerate(zip(("M", "V", "S_p", "corr"), (m_abs, v_abs, sp_abs, co_abs))))
+    hold_repeat(f"df_mm_fwd (N={n})", label, raw, df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache))
 
     out = df_mm.full_step_fwd(mu, sv, cache)
+    hold_repeat(f"df_mm_full (N={n})", label, out, df_mm.full_step_fwd(mu, sv, cache))
     ref = df_mm.full_step_plain(mu, sv, cache)
     sp_scale = (sp_abs + torch.zeros_like(sp_abs).index_add(0, diag, co_abs)) / sdr.double()
     err_full, worst = 0.0, 0.0
@@ -875,7 +903,8 @@ def check_df_mm_split(label, cache, mu, sv) -> tuple[float, float]:
 
 def check_df_mm_kernels(dev):
     """#12, #8 and #9 against their plain twins on the card at N = 32, 96
-    (the bucket that is not a power of two), 128 and 384, and #10 and #11
+    (the bucket that is not a power of two), 128 and 384 (and on random
+    operands at RAGGED_N), and #10 and #11
     at N = 192 and 384, on the trained-GP problem's operands and on random
     ones; then their times at the trained-GP operands of the paths' shapes:
     N = 128 for #12, #8 and #9 (the whole-step planning step), N = 384 for
@@ -890,6 +919,8 @@ def check_df_mm_kernels(dev):
         if n in SPLIT_SIZES:
             split_errs.append(check_df_mm_split("trained-GP", *steps[n]))
             split_errs.append(check_df_mm_split("random", *rand))
+    # a ragged N (not a multiple of the 32-column tiles) on random operands
+    errs.append(check_df_mm_operands("random", *random_df_mm_problem(dev, RAGGED_N, seed=RAGGED_N)))
     results = {}
     for n, names in ((128, ("df_mm_full", "df_mm_fwd", "df_mm_bwd")), (384, ("df_mm_bwd_mean", "df_mm_bwd_pair"))):
         cache, mu, sv = steps[n]
@@ -943,6 +974,13 @@ def check_df_mm_kernels(dev):
     bwd = results["df_mm_bwd"]
     bwd["report"] = launch_report("df_mm_bwd", df_mm.bwd_launch_info(128, 3), bwd["ms"], bwd["bound_ms"])
     log("kernel " + results["df_mm_bwd"]["report"])
+    full = results["df_mm_full"]
+    full["report"] = launch_report("df_mm_full", df_mm.full_launch_info(128, 3), full["ms"], full["bound_ms"])
+    log("kernel " + full["report"])
+    for n in (32, 96):  # the other buckets of the whole-step path
+        cache, mu, sv = steps[n]
+        ms, _ = cuda_ms(lambda: df_mm.full_step_fwd(mu, sv, cache))
+        log(f"kernel df_mm_full (N={n}, trained-GP operands): wrapper {ms:.4f} ms (device, 2 launches)")
     return results
 
 
@@ -1204,10 +1242,10 @@ def _run() -> int:
     kern.update(check_df_kernels(dev))
     kern.update(check_df_mm_kernels(dev))
     log("phase 3 kernels: all twelve match their plain versions on the card")
-    for name in ("df_mm_bwd", "df_fwdres"):
+    for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres"):
         log(f"phase 3 {kern[name]['report']}")
-    log("phase 3 controls, unchanged, in this call: " + ", ".join(
-        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_mm_bwd_pair", "df_mm_full")))
+    log("phase 3 controls in this call: " + ", ".join(
+        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_mm_bwd_pair", "df_fwd", "cov_bwd_row")))
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec

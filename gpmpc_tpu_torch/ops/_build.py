@@ -13,12 +13,15 @@ and is built at first use (``load()``), never at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpmpc_tpu_torch"
@@ -32,8 +35,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every function returns the cudaError_t of its launch.
 _SIGNATURES = {
-    "gpmpc_cov_fwd_rows": (),
-    "gpmpc_cov_fwd_f32": (_P,) * 8 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
+    "gpmpc_cov_fwd_f32": (_P,) * 8 + (_I,) + (_P,) * 2 + (_I,) * 6 + (_P,),
+    "gpmpc_cov_fwd_info": (_I,) * 5 + (_P,),
     "gpmpc_cov_bwd_row_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
     "gpmpc_cov_gik_f32": (_P,) * 6 + (_I,) + (_P,) + (_I,) * 3 + (_P,),
     "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
@@ -45,8 +48,9 @@ _SIGNATURES = {
     "gpmpc_df_fwdres_info": (_I,) * 4 + (_P,),
     "gpmpc_df_bwd_f32": (_P,) * 17 + (_I,) + (_P,) * 2 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_tile": (),
-    "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 3 + (_P,),
-    "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 4 + (_P,),
+    "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 4 + (_P,),
+    "gpmpc_df_mm_full_info": (_I,) * 3 + (_P,),
     "gpmpc_df_mm_bwd_f32": (_P,) * 24 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_bwd_info": (_I,) * 2 + (_P,),
     "gpmpc_df_mm_bwd_mean_f32": (_P,) * 18 + (_I,) * 3 + (_P,),
@@ -167,6 +171,13 @@ def launch_info(name: str, *args: int, extra: tuple = ()) -> dict:
     out = dict(zip(keys, list(info)))
     out["waves"] = out["grid"] / (out["sms"] * max(out["blocks_per_sm"], 1))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: the kernels' launch plans
+    size their grids with it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, name: str) -> None:

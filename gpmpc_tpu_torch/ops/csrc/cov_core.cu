@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include "pdl.cuh"
+
 // Largest state dimension Ns (the cov core's inner contraction length) the
 // kernels keep in registers. The wrappers refuse larger Ns.
 #define GPMPC_MAX_NS 8
@@ -38,21 +40,6 @@ __device__ __forceinline__ float gpmpc_warp_sum(float v) {
   return v;
 }
 
-// Sum of v over the block; the result is valid in thread 0 only. `red`
-// holds one float per warp. The caller separates two calls with
-// __syncthreads() so the second does not overwrite what the first reads.
-__device__ __forceinline__ float gpmpc_block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  v = gpmpc_warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = (threadIdx.x < nwarps) ? red[threadIdx.x] : 0.f;
-  if (warp == 0) v = gpmpc_warp_sum(v);
-  return v;
-}
-
 // one element of E: exp(min(a + c + sum_e u_e x_e, 60)), the FMAs in e order
 __device__ __forceinline__ float cov_e(float an, float ck, const float* un, const float* xk, int ns) {
   float expo = an + ck;
@@ -62,9 +49,11 @@ __device__ __forceinline__ float cov_e(float an, float ck, const float* un, cons
   return expf(fminf(expo, 60.f));
 }
 
-constexpr int kFwdRows = 16;      // rows of E per forward block
-constexpr int kFwdThreads = 256;  // threads stride the Nc columns
-constexpr int kBwdWarps = 8;      // backward: one warp per row, 8 rows a block
+constexpr int kFwdThreads = 1024;  // forward: most threads of a band block
+constexpr int kFwdBatch = 16;      // forward: a thread's elements whose iK loads are in flight together
+constexpr int kFwdMaxRows = 1024;  // forward: rows of a band (its row operands live in shared memory)
+constexpr int kFwdSumThreads = 256;
+constexpr int kBwdWarps = 8;       // backward: one warp per row, 8 rows a block
 
 __device__ __forceinline__ int ik_slot(int p, const int* diag_pos, int n_diag) {
   for (int m = 0; m < n_diag; ++m)
@@ -72,59 +61,141 @@ __device__ __forceinline__ int ik_slot(int p, const int* diag_pos, int n_diag) {
   return -1;
 }
 
-// grid (P, ceil(Nr / kFwdRows)), block kFwdThreads. Writes one partial of
-// S_p and of corr per block into (P, gridDim.y) scratch; the caller sums them.
+// the forward's working threads at Nc columns: m = max(1, kFwdThreads / Nc)
+// row groups of Nc threads, at most kFwdThreads; the block is that rounded
+// up to whole warps
+__host__ __device__ __forceinline__ int fwd_row_groups(int nc) { return nc < kFwdThreads ? kFwdThreads / nc : 1; }
+__host__ __device__ __forceinline__ int fwd_threads(int nc) {
+  return nc < kFwdThreads ? fwd_row_groups(nc) * nc : kFwdThreads;
+}
+__host__ __device__ __forceinline__ int fwd_block(int nc) { return (fwd_threads(nc) + 31) / 32 * 32; }
+
+// The forward on row bands. Block b owns band t = b % bands of pair
+// b / bands (rows t rows .. (t + 1) rows, the last band shorter) against
+// all Nc columns, with fwd_threads(Nc) working threads: thread t the column
+// t % Nc (and t + kFwdThreads, ... past kFwdThreads columns), its operands (c, bj,
+// Xj) in registers, against the band's rows t / Nc, t / Nc + m, ... (m row
+// groups). So every thread has the same number of elements to within one at
+// Nc <= kFwdThreads, a warp reads 32 neighbouring iK entries of one row, and
+// the band's row operands (a, bi, U), staged in dynamic shared memory, are
+// read by a warp at one address (Nc >= 32). A thread's iK loads go out kFwdBatch at a
+// time ahead of its exps. rows and bands come with the launch
+// (moment_cov.fwd_launch_plan: the bands of all pairs in one wave of one
+// block per SM where they fit). Writes one partial of S_p and, on a diagonal
+// pair, of corr per block into part [2][P bands] (S_p, then corr); the
+// summing launch, a programmatic dependent released when this one starts,
+// adds them in a fixed order.
 __global__ void __launch_bounds__(kFwdThreads)
 cov_fwd_kernel(const float* __restrict__ a, const float* __restrict__ c,
                const float* __restrict__ u, const float* __restrict__ xj,
                const float* __restrict__ bi, const float* __restrict__ bj,
                const float* __restrict__ ik, const int* __restrict__ diag_pos,
-               int n_diag, float* __restrict__ sp_part,
-               float* __restrict__ co_part, int nr, int nc, int ns) {
-  const int p = blockIdx.x;
-  const int tile = blockIdx.y;
-  const int n0 = tile * kFwdRows;
-  const int rows = min(kFwdRows, nr - n0);
+               int n_diag, float* __restrict__ part, int nr, int nc, int ns,
+               int rows) {
+  gpmpc_pdl::release_dependents();  // the summing launch waits for this one to end
+  gpmpc_pdl::wait_for_prerequisite();  // this launch is a programmatic dependent of the kernel before it
+  extern __shared__ float s_rows[];  // a [rows], bi [rows], U [rows][ns]
+  __shared__ float red[2][32];
+  const int bands = (nr + rows - 1) / rows;
+  const int p = blockIdx.x / bands;
+  const int n0 = (blockIdx.x % bands) * rows;
+  const int nrow = min(rows, nr - n0);
+  const int slot = ik_slot(p, diag_pos, n_diag);
+  const float* ik_band = slot >= 0 ? ik + ((size_t)slot * nr + n0) * nc : nullptr;
+  const int m = fwd_row_groups(nc), work = fwd_threads(nc);
+  const bool active = threadIdx.x < work;
+  const int r_first = threadIdx.x / nc;
+  int k = threadIdx.x % nc;
 
-  __shared__ float s_a[kFwdRows];
-  __shared__ float s_bi[kFwdRows];
-  __shared__ float s_u[kFwdRows * GPMPC_MAX_NS];
-  __shared__ float red[32];
-
-  for (int t = threadIdx.x; t < rows; t += blockDim.x) {
+  // this thread's column operands and first iK batch, in flight while the
+  // band's row operands are staged
+  float ck = 0.f, bjk = 0.f, xk[GPMPC_MAX_NS], ikv[kFwdBatch];
+  auto load_column = [&]() {
+    const size_t ci = (size_t)p * nc + k;
+    ck = c[ci];
+    bjk = bj[ci];
+#pragma unroll
+    for (int f = 0; f < GPMPC_MAX_NS; ++f) xk[f] = f < ns ? xj[ci * ns + f] : 0.f;
+  };
+  auto load_ik = [&](int r0) {
+#pragma unroll
+    for (int q = 0; q < kFwdBatch; ++q) {
+      const int r = r0 + q * m;
+      ikv[q] = ik_band && r < nrow ? ik_band[(size_t)r * nc + k] : 0.f;
+    }
+  };
+  if (active) {
+    load_column();
+    load_ik(r_first);
+  }
+  float* s_a = s_rows;
+  float* s_bi = s_a + rows;
+  float* s_u = s_bi + rows;
+  for (int t = threadIdx.x; t < nrow; t += blockDim.x) {
     s_a[t] = a[(size_t)p * nr + n0 + t];
     s_bi[t] = bi[(size_t)p * nr + n0 + t];
   }
-  for (int t = threadIdx.x; t < rows * ns; t += blockDim.x)
+  for (int t = threadIdx.x; t < nrow * ns; t += blockDim.x)
     s_u[t] = u[((size_t)p * nr + n0) * ns + t];
   __syncthreads();
 
-  const int slot = ik_slot(p, diag_pos, n_diag);
-  const float* ik_rows = slot >= 0 ? ik + ((size_t)slot * nr + n0) * nc : nullptr;
-
   float acc_s = 0.f;
   float acc_c = 0.f;
-  for (int k = threadIdx.x; k < nc; k += blockDim.x) {
-    const float ck = c[(size_t)p * nc + k];
-    float xk[GPMPC_MAX_NS];
+  while (active) {
+    for (int r0 = r_first; r0 < nrow; r0 += kFwdBatch * m) {
+      if (r0 != r_first) load_ik(r0);
 #pragma unroll
-    for (int e = 0; e < GPMPC_MAX_NS; ++e)
-      xk[e] = e < ns ? xj[((size_t)p * nc + k) * ns + e] : 0.f;
-    float col = 0.f;  // sum_n bi[n] E[n, k] over this block's rows
-    for (int r = 0; r < rows; ++r) {
-      const float ev = cov_e(s_a[r], ck, s_u + r * ns, xk, ns);
-      col = fmaf(s_bi[r], ev, col);
-      if (ik_rows) acc_c = fmaf(ik_rows[(size_t)r * nc + k], ev, acc_c);
+      for (int q = 0; q < kFwdBatch; ++q) {
+        const int r = r0 + q * m;
+        if (r < nrow) {
+          const float ev = cov_e(s_a[r], ck, s_u + r * ns, xk, ns);
+          acc_s = fmaf(s_bi[r] * ev, bjk, acc_s);
+          acc_c = fmaf(ikv[q], ev, acc_c);
+        }
+      }
     }
-    acc_s = fmaf(col, bj[(size_t)p * nc + k], acc_s);
+    k += work;  // past kFwdThreads columns: the thread's next column
+    if (k >= nc) break;
+    load_column();
+    load_ik(r_first);
   }
 
-  const float tot_s = gpmpc_block_sum(acc_s, red);
+  // both sums over the block at once: warps by shuffles, then warp 0
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  acc_s = gpmpc_warp_sum(acc_s);
+  acc_c = gpmpc_warp_sum(acc_c);
+  if (lane == 0) {
+    red[0][warp] = acc_s;
+    red[1][warp] = acc_c;
+  }
   __syncthreads();
-  const float tot_c = gpmpc_block_sum(acc_c, red);
-  if (threadIdx.x == 0) {
-    sp_part[(size_t)p * gridDim.y + tile] = tot_s;
-    co_part[(size_t)p * gridDim.y + tile] = slot >= 0 ? tot_c : 0.f;
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    acc_s = gpmpc_warp_sum(lane < nwarps ? red[0][lane] : 0.f);
+    acc_c = gpmpc_warp_sum(lane < nwarps ? red[1][lane] : 0.f);
+    if (lane == 0) {
+      part[blockIdx.x] = acc_s;
+      part[gridDim.x + blockIdx.x] = acc_c;
+    }
+  }
+}
+
+// One block of kFwdSumThreads, a programmatic dependent of the forward:
+// S_p[p] (p < P) and corr[m] (the partials of pair diag_pos[m]) from part,
+// one warp per output in a loop, each a warp's sum of its bands' partials (a
+// lane its partials in order, then a shuffle tree): a fixed order.
+__global__ void __launch_bounds__(kFwdSumThreads)
+cov_fwd_sum_kernel(const float* __restrict__ part, const int* __restrict__ diag_pos, int n_diag,
+                   float* __restrict__ out, int np, int bands) {
+  gpmpc_pdl::release_dependents();  // a programmatic dependent launch after this one may start
+  gpmpc_pdl::wait_for_prerequisite();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = warp; o < np + n_diag; o += kFwdSumThreads / 32) {
+    const float* src = o < np ? part + (size_t)o * bands : part + (size_t)(np + diag_pos[o - np]) * bands;
+    float v = 0.f;
+    for (int b = lane; b < bands; b += 32) v += src[b];
+    v = gpmpc_warp_sum(v);
+    if (lane == 0) out[o] = v;
   }
 }
 
@@ -216,24 +287,47 @@ cov_gik_kernel(const float* __restrict__ g_corr, const float* __restrict__ a,
   }
 }
 
+// the forward's dynamic shared memory: a band's row operands
+size_t fwd_smem(int rows, int ns) { return (size_t)rows * (2 + ns) * sizeof(float); }
+
 }  // namespace
 
 extern "C" {
 
-// Rows of E per forward block: the wrapper sizes the partials with it.
-int gpmpc_cov_fwd_rows() { return kFwdRows; }
-
 int gpmpc_cov_fwd_f32(const float* a, const float* c, const float* u,
                       const float* xj, const float* bi, const float* bj,
                       const float* ik, const int* diag_pos, int n_diag,
-                      float* sp_part, float* co_part, int p, int nr, int nc,
-                      int ns, void* stream) {
-  if (p < 1 || nr < 1 || nc < 1 || ns < 1 || ns > GPMPC_MAX_NS)
+                      float* part, float* out, int p, int nr, int nc,
+                      int ns, int rows, int bands, void* stream) {
+  if (p < 1 || nr < 1 || nc < 1 || ns < 1 || ns > GPMPC_MAX_NS || rows < 1 || rows > kFwdMaxRows ||
+      bands != (nr + rows - 1) / rows)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(p, (nr + kFwdRows - 1) / kFwdRows);
-  cov_fwd_kernel<<<grid, kFwdThreads, 0, (cudaStream_t)stream>>>(
-      a, c, u, xj, bi, bj, ik, diag_pos, n_diag, sp_part, co_part, nr, nc, ns);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = gpmpc_pdl::launch_dependent(cov_fwd_kernel, p * bands, fwd_block(nc), fwd_smem(rows, ns), s, a, c, u,
+                                             xj, bi, bj, ik, diag_pos, n_diag, part, nr, nc, ns, rows);
+  if (rc != 0) return rc;
+  return gpmpc_pdl::launch_dependent(cov_fwd_sum_kernel, 1, kFwdSumThreads, 0, s, (const float*)part,
+                                     diag_pos, n_diag, out, p, bands);
+}
+
+// #2's registers, spill bytes, threads, resident blocks per SM, grid, SMs
+// and dynamic shared memory at (p, nr, ns, rows, bands), then rows, for the
+// smoke's report: info[8]
+int gpmpc_cov_fwd_info(int p, int nr, int ns, int rows, int bands, int* info) {
+  if (rows < 1 || rows > kFwdMaxRows || ns < 1 || ns > GPMPC_MAX_NS) return (int)cudaErrorInvalidValue;
+  const int threads = fwd_block(nr);  // square slabs: Nc = Nr
+  cudaFuncAttributes fa;
+  int rc = (int)cudaFuncGetAttributes(&fa, cov_fwd_kernel);
+  if (rc != 0) return rc;
+  int per_sm = 0, dev = 0, sms = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cov_fwd_kernel, threads, fwd_smem(rows, ns));
+  if (rc != 0) return rc;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int vals[8] = {fa.numRegs, (int)fa.localSizeBytes, threads, per_sm, p * bands, sms,
+                       (int)fwd_smem(rows, ns), rows};
+  for (int k = 0; k < 8; ++k) info[k] = vals[k];
+  return 0;
 }
 
 int gpmpc_cov_bwd_row_f32(const float* g, const float* a, const float* c,

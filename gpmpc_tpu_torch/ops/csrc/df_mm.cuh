@@ -47,12 +47,6 @@ __device__ __forceinline__ void pair_ij(int p, int ns, int& i, int& j) {
   j = i + p;
 }
 
-__device__ __forceinline__ int diag_pair(int m, int ns) {
-  int p = 0;
-  for (int i = 0; i < m; ++i) p += ns - i;
-  return p;
-}
-
 __device__ __forceinline__ df shfl_down(df v, int off) {
   return {__shfl_down_sync(0xffffffffu, v.h, off), __shfl_down_sync(0xffffffffu, v.l, off)};
 }
@@ -70,102 +64,125 @@ __device__ __forceinline__ df tree8(const df* w) {
 }
 
 // ---------------------------------------------------------------------------
-// stage 1 (ops/df_mm.py: spd_inv_det_df, df_stage1)
+// stage 1 (ops/df_mm.py: spd_inv_det_df, df_stage1), by one warp
 // ---------------------------------------------------------------------------
+// Each entry's df operations run in the order of the twin's serial loops;
+// the entries that do not depend on each other run on separate lanes, one
+// phase after another, so the warp's instruction stream is a few entries
+// long, not the whole unrolled solve (stage 1 is a dependent chain of IEEE
+// divisions and square roots, executed once per launch). Every lane of the
+// warp calls these; the matrices are row-major K x K df arrays in shared
+// memory.
 
+// scratch of one warp's stage 1
 template <int K>
-__device__ void spd_inv_det(const df (&M)[K][K], df (&Minv)[K][K], df& det) {
-  df L[K][K], Li[K][K];
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      df s = M[i][j];
-#pragma unroll
-      for (int p = 0; p < j; ++p) s = df_add(s, df_neg(df_mul(L[i][p], L[j][p])));
-      if (i == j) {
-        const float floor = __fadd_rn(__fmul_rn(1e-10f, fabsf(M[i][i].h)), 1e-30f);
-        if (s.h < floor) s = {floor, 0.f};
-        L[i][i] = df_sqrt(s);
-      } else {
-        L[i][j] = df_div(s, L[j][j]);
-      }
-    }
-  det = df_mul(L[0][0], L[0][0]);
-#pragma unroll
-  for (int i = 1; i < K; ++i) det = df_mul(det, df_mul(L[i][i], L[i][i]));
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int j = 0; j <= i; ++j) {
-      if (i == j) {
-        Li[i][i] = df_div({1.f, 0.f}, L[i][i]);
-      } else {
-        df s = df_mul(L[i][j], Li[j][j]);
-#pragma unroll
-        for (int p = j + 1; p < i; ++p) s = df_add(s, df_mul(L[i][p], Li[p][j]));
-        Li[i][j] = df_div(df_neg(s), L[i][i]);
-      }
-    }
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int lo = i > j ? i : j;
-      df s = df_mul(Li[lo][i], Li[lo][j]);
-#pragma unroll
-      for (int p = lo + 1; p < K; ++p) s = df_add(s, df_mul(Li[p][i], Li[p][j]));
-      Minv[i][j] = s;
-    }
-}
+struct Stage1Scratch {
+  df m[K * K], l[K * K], li[K * K], inv[K * K];
+  df ss[K], dinv[K];
+  df det;
+};
 
-// B^-1 of model m (row major [k][j]) and c_m = outs_m / sqrt det B
-template <int NS>
-__device__ void stage1_model(const Cache& c, const float* sv, const float* outs, int m, df* binv, float& cm) {
-  df B[NS][NS], Bi[NS][NS], det;
+// Minv = M^-1 and det M of an SPD M by an unrolled Cholesky, with the twin's
+// pivot guard (inactive on healthy inputs). Step j: L[j][j], then at once
+// the rest of L's column j (lanes j + 1..K - 1) and row j of L^-1 (lanes
+// 0..j; it needs L's row j and L^-1's rows above it), so the chain is two
+// divisions or roots per step; then M^-1 = L^-T L^-1, an entry per lane,
+// beside det M.
+template <int K>
+__device__ void spd_inv_det_warp(Stage1Scratch<K>& w) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < NS; ++i)
+  for (int j = 0; j < K; ++j) {
+    if (lane == 0) {
+      df s = w.m[j * K + j];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const df outer = df_mul(ld(c.ilsh, c.ilsl, (size_t)m * c.d + i), ld(c.ilsh, c.ilsl, (size_t)m * c.d + j));
-      B[i][j] = df_add_f32(df_mul_f32(outer, sv[i * NS + j]), i == j ? 1.f : 0.f);
+      for (int p = 0; p < j; ++p) s = df_add(s, df_neg(df_mul(w.l[j * K + p], w.l[j * K + p])));
+      const float floor = __fadd_rn(__fmul_rn(1e-10f, fabsf(w.m[j * K + j].h)), 1e-30f);
+      if (s.h < floor) s = {floor, 0.f};
+      w.l[j * K + j] = df_sqrt(s);
     }
-  spd_inv_det<NS>(B, Bi, det);
+    __syncwarp();
+    // each lane its numerator, then one division by L[j][j] on all of them
+    df num = {1.f, 0.f};  // L^-1[j][j] (lane j)
+    df* dst = &w.li[j * K + j];
+    if (lane > j && lane < K) {  // L[lane][j]
+      num = w.m[lane * K + j];
 #pragma unroll
-  for (int i = 0; i < NS; ++i)
-#pragma unroll
-    for (int j = 0; j < NS; ++j) binv[i * NS + j] = Bi[i][j];
-  cm = __fdiv_rn(outs[m], __fsqrt_rn(df_collapse(det)));
-}
-
-// Q of pair (i, j) (row major [k][e]) and sqrt det R
-template <int NS>
-__device__ void stage1_pair(const Cache& c, const float* sv, int i, int j, df* q, float& sdr) {
-  df ss[NS], dinv[NS], A[NS][NS], Ai[NS][NS], det;
-#pragma unroll
-  for (int e = 0; e < NS; ++e) {
-    ss[e] = df_add(ld(c.ils2h, c.ils2l, (size_t)i * c.d + e), ld(c.ils2h, c.ils2l, (size_t)j * c.d + e));
-    dinv[e] = df_div({1.f, 0.f}, ss[e]);
+      for (int p = 0; p < j; ++p) num = df_add(num, df_neg(df_mul(w.l[lane * K + p], w.l[j * K + p])));
+      dst = &w.l[lane * K + j];
+    } else if (lane < j) {  // L^-1[j][lane]
+      const int q = lane;
+      num = df_mul(w.l[j * K + q], w.li[q * K + q]);
+      for (int p = q + 1; p < j; ++p) num = df_add(num, df_mul(w.l[j * K + p], w.li[p * K + q]));
+      num = df_neg(num);
+      dst = &w.li[j * K + q];
+    }
+    if (lane < K) *dst = df_div(num, w.l[j * K + j]);
+    __syncwarp();
   }
+  if (lane < K * K) {
+    const int i = lane / K, j = lane % K;
+    const int lo = i > j ? i : j;
+    df s = df_mul(w.li[lo * K + i], w.li[lo * K + j]);
+    for (int p = lo + 1; p < K; ++p) s = df_add(s, df_mul(w.li[p * K + i], w.li[p * K + j]));
+    w.inv[lane] = s;
+  } else if (lane == K * K) {
+    df det = df_mul(w.l[0], w.l[0]);
 #pragma unroll
-  for (int a = 0; a < NS; ++a)
+    for (int i = 1; i < K; ++i) det = df_mul(det, df_mul(w.l[i * K + i], w.l[i * K + i]));
+    w.det = det;
+  }
+  __syncwarp();
+}
+
+// B^-1 of model m (w.inv, row major [k][j]) and c_m = outs_m / sqrt det B
+// (returned in lane 0)
+template <int NS>
+__device__ float stage1_model_warp(const Cache& c, const float* sv, const float* outs, int m, Stage1Scratch<NS>& w) {
+  const int lane = threadIdx.x & 31;
+  if (lane < NS * NS) {
+    const int i = lane / NS, j = lane % NS;
+    const df outer = df_mul(ld(c.ilsh, c.ilsl, (size_t)m * c.d + i), ld(c.ilsh, c.ilsl, (size_t)m * c.d + j));
+    w.m[lane] = df_add_f32(df_mul_f32(outer, sv[i * NS + j]), i == j ? 1.f : 0.f);
+  }
+  __syncwarp();
+  spd_inv_det_warp<NS>(w);
+  return lane == 0 ? __fdiv_rn(outs[m], __fsqrt_rn(df_collapse(w.det))) : 0.f;
+}
+
+// Q of pair (i, j) (q, row major [k][e]) and sqrt det R (returned in lane 0)
+template <int NS>
+__device__ float stage1_pair_warp(const Cache& c, const float* sv, int i, int j, df* q, Stage1Scratch<NS>& w) {
+  const int lane = threadIdx.x & 31;
+  // every global read of the step at once: lane (a, b) < NS NS its sv entry
+  // and sv's column b (for Q's entry (a, b)), lane e < NS ils2 of both models
+  float sv_ab = 0.f, sv_col[NS];
 #pragma unroll
-    for (int b = 0; b < NS; ++b)
-      A[a][b] = a == b ? df_add_f32(dinv[a], sv[a * NS + a]) : df{sv[a * NS + b], 0.f};
-  spd_inv_det<NS>(A, Ai, det);
+  for (int l = 0; l < NS; ++l) sv_col[l] = lane < NS * NS ? sv[l * NS + lane % NS] : 0.f;
+  if (lane < NS * NS) sv_ab = sv[lane];
+  if (lane < NS) {
+    w.ss[lane] = df_add(ld(c.ils2h, c.ils2l, (size_t)i * c.d + lane), ld(c.ils2h, c.ils2l, (size_t)j * c.d + lane));
+    w.dinv[lane] = df_div({1.f, 0.f}, w.ss[lane]);
+  }
+  __syncwarp();
+  if (lane < NS * NS) {
+    const int a = lane / NS, b = lane % NS;
+    w.m[lane] = a == b ? df_add_f32(w.dinv[a], sv_ab) : df{sv_ab, 0.f};
+  }
+  __syncwarp();
+  spd_inv_det_warp<NS>(w);
+  if (lane < NS * NS) {
+    const int k = lane / NS;
+    df acc = df_mul_f32(w.inv[k * NS], sv_col[0]);
 #pragma unroll
-  for (int k = 0; k < NS; ++k)
+    for (int l = 1; l < NS; ++l) acc = df_add(acc, df_mul_f32(w.inv[k * NS + l], sv_col[l]));
+    q[lane] = df_scale(df_mul(w.dinv[k], acc), 0.5f);
+  }
+  if (lane != 0) return 0.f;
+  float prod = df_collapse(w.ss[0]);
 #pragma unroll
-    for (int m = 0; m < NS; ++m) {
-      df acc = df_mul_f32(Ai[k][0], sv[m]);
-#pragma unroll
-      for (int l = 1; l < NS; ++l) acc = df_add(acc, df_mul_f32(Ai[k][l], sv[l * NS + m]));
-      q[k * NS + m] = df_scale(df_mul(dinv[k], acc), 0.5f);
-    }
-  float prod = df_collapse(ss[0]);
-#pragma unroll
-  for (int e = 1; e < NS; ++e) prod = __fmul_rn(prod, df_collapse(ss[e]));
-  sdr = __fsqrt_rn(__fmul_rn(df_collapse(det), prod));
+  for (int e = 1; e < NS; ++e) prod = __fmul_rn(prod, df_collapse(w.ss[e]));
+  return __fsqrt_rn(__fmul_rn(df_collapse(w.det), prod));
 }
 
 // ---------------------------------------------------------------------------

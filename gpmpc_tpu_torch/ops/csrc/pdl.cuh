@@ -1,7 +1,10 @@
-// Programmatic dependent launch (Hopper): a launch that sums another's
-// partials is queued while that launch runs and waits for its writes in its
-// first instruction, so the launch gap between the two leaves the device
-// timeline. The order of every sum is unchanged.
+// Programmatic dependent launch (Hopper): a launch is queued while the
+// kernel before it on the stream runs and waits for that kernel's writes
+// (griddepcontrol.wait) before it reads anything, so the launch gap between
+// the two leaves the device timeline. A launch that sums another's partials
+// waits in its first instruction; the forwards of #12, #8 and #2 follow
+// whatever kernel precedes them the same way, and their summing launches
+// release the next launch at once. The order of every sum is unchanged.
 
 #pragma once
 

@@ -24,9 +24,16 @@ kernel of ``gpmpc_tpu/ops/pallas_df_mm.py``:
 
 * ``df_mm_full`` replaces ``_build_full.fwd_kernel`` (#12): stage 1, the
   mean path, every pair and the finish; final f32 M (ns), V (ns, d), S_p (P).
-  It serves every forward-only evaluation.
+  It serves every forward-only evaluation. A pair block owns a tile of
+  8 rpw rows by 32 columns of one pair's slab, a lane one column against
+  the tile's rows (``fwd_launch_plan`` picks rpw from the SM count: one E
+  per lane at the planning step's N), and one warp runs the pair's stage 1
+  (its independent entries on separate lanes) while the tile's operands
+  are computed; a programmatic dependent launch sums the blocks' partials
+  in a fixed order and finishes (``full_launch_info`` reports the launch).
+  The forward itself is a programmatic dependent of the kernel before it.
 * ``df_mm_fwd`` replaces ``_build.fwd_kernel`` (#8): stages 2-3 from a given
-  B^-1 and Q, the eight raw df partials.
+  B^-1 and Q, the eight raw df partials; #12's launch with B^-1 and Q read.
 * ``df_mm_bwd`` replaces ``_build.bwd_all_kernel`` (#9): the VJP of #8 with
   respect to mu, B^-1 and Q. The TPU kernel runs ``jax.vjp`` in its body;
   here the VJP is written out. Its derivative is the reference's (each df
@@ -579,6 +586,51 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the grid of the whole-step forward (csrc/df_mm_fwd.cu): warps of a pair
+# block (kWarps), the tile's columns (kTile), resident blocks per SM it is
+# built for (kBlocksPerSm, its launch bounds) and the most rows per warp
+FWD_WARPS, FWD_COLS, FWD_BLOCKS_PER_SM, FWD_MAX_ROWS_PER_WARP = 8, 32, 3, 4
+
+
+def fwd_launch_plan(n: int, ns: int, sms: int) -> dict:
+    """The grid of #12 and #8 at N on a card with ``sms`` SMs. A pair block
+    owns a tile of FWD_WARPS rpw rows by FWD_COLS columns of one pair's (N, N)
+    slab (block b: pair b // (row_tiles col_tiles), row tile
+    (b // col_tiles) % row_tiles, column tile b % col_tiles; warp w the
+    tile's rows w + FWD_WARPS s, s < rpw, a lane a column); then a mean block
+    per FWD_COLS stored points (warp m model m, a lane a point). rpw is the
+    one of 1..FWD_MAX_ROWS_PER_WARP with the least waves (of
+    FWD_BLOCKS_PER_SM blocks per SM) times rpw, the larger on a tie (fewer
+    partials to sum)."""
+    p = ns * (ns + 1) // 2
+    col_tiles = -(-n // FWD_COLS)
+    best = None
+    for rpw in range(1, FWD_MAX_ROWS_PER_WARP + 1):
+        row_tiles = -(-n // (FWD_WARPS * rpw))
+        pair_blocks = p * row_tiles * col_tiles
+        cost = -(-(pair_blocks + col_tiles) // (sms * FWD_BLOCKS_PER_SM)) * rpw
+        if best is None or cost <= best[0]:
+            best = (cost, dict(rows_per_warp=rpw, row_tiles=row_tiles, col_tiles=col_tiles,
+                               pair_blocks=pair_blocks, mean_blocks=col_tiles))
+    return best[1]
+
+
+def _fwd_scratch(n, ns, d, device):
+    """#12's and #8's launch plan and the blocks' partial buffers: pair
+    [2][P tiles][2] (S_p, corr) and mean [2][ns][1 + d][mean blocks]."""
+    plan = fwd_launch_plan(n, ns, _build.sm_count(device))
+    pair_part = torch.empty((2, plan["pair_blocks"], 2), dtype=torch.float32, device=device)
+    mean_part = torch.empty((2, ns, 1 + d, plan["mean_blocks"]), dtype=torch.float32, device=device)
+    return plan["rows_per_warp"], pair_part, mean_part
+
+
+def full_launch_info(n: int, ns: int) -> dict:
+    """#12's launch at N on the current card (``_build.launch_info``), with
+    the rows per warp of its tiles."""
+    rpw = fwd_launch_plan(n, ns, _build.sm_count(torch.device("cuda")))["rows_per_warp"]
+    return _build.launch_info("gpmpc_df_mm_full_info", n, ns, rpw, extra=("rows_per_warp",))
+
+
 def full_step_fwd(mu, sv, cache):
     """M (ns,), V (ns, d), S_p (P,) of one moment-matching step (#12). A CPU
     tensor takes the plain twin; a CUDA tensor launches the kernel or raises."""
@@ -587,15 +639,13 @@ def full_step_fwd(mu, sv, cache):
     mu, sv = mu.contiguous(), sv.contiguous()
     n, ns, d = _check("df_mm_full", cache, mu=mu, sv=sv)
     lib = _build.load()
-    nt, nblk, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
-    dev = mu.device
-    pair_part = torch.empty((2, nblk, 2), dtype=torch.float32, device=dev)
-    mean_part = torch.empty((2, ns, 1 + d, nt), dtype=torch.float32, device=dev)
-    scale = torch.empty(ns + p, dtype=torch.float32, device=dev)
-    out = torch.empty(ns + ns * d + p, dtype=torch.float32, device=dev)
+    p = ns * (ns + 1) // 2
+    rpw, pair_part, mean_part = _fwd_scratch(n, ns, d, mu.device)
+    scale = torch.empty(ns + p, dtype=torch.float32, device=mu.device)
+    out = torch.empty(ns + ns * d + p, dtype=torch.float32, device=mu.device)
     rc = lib.gpmpc_df_mm_full_f32(mu.data_ptr(), sv.data_ptr(), *_cache_ptrs(cache), cache.outs.data_ptr(),
                                   pair_part.data_ptr(), mean_part.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                  n, ns, d, _stream(mu))
+                                  n, ns, d, rpw, _stream(mu))
     _build.check(rc, "df_mm_full")
     LAUNCHES["df_mm_full"] += 1
     return out[:ns], out[ns:ns + ns * d].view(ns, d), out[ns + ns * d:]
@@ -609,14 +659,12 @@ def stage23_fwd(mu, bh, bl, qh, ql, cache):
     mu, bh, bl, qh, ql = (t.contiguous() for t in (mu, bh, bl, qh, ql))
     n, ns, d = _check("df_mm_fwd", cache, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql)
     lib = _build.load()
-    nt, nblk, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
-    dev = mu.device
-    pair_part = torch.empty((2, nblk, 2), dtype=torch.float32, device=dev)
-    mean_part = torch.empty((2, ns, 1 + d, nt), dtype=torch.float32, device=dev)
-    out = torch.empty((2, ns + ns * d + p + ns), dtype=torch.float32, device=dev)
+    p = ns * (ns + 1) // 2
+    rpw, pair_part, mean_part = _fwd_scratch(n, ns, d, mu.device)
+    out = torch.empty((2, ns + ns * d + p + ns), dtype=torch.float32, device=mu.device)
     rc = lib.gpmpc_df_mm_fwd_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), qh.data_ptr(), ql.data_ptr(),
                                  *_cache_ptrs(cache), pair_part.data_ptr(), mean_part.data_ptr(), out.data_ptr(),
-                                 n, ns, d, _stream(mu))
+                                 n, ns, d, rpw, _stream(mu))
     _build.check(rc, "df_mm_fwd")
     LAUNCHES["df_mm_fwd"] += 1
     o = [0, ns, ns + ns * d, ns + ns * d + p, ns + ns * d + p + ns]

@@ -13,11 +13,17 @@ is consumed only through two contractions:
 Kernels (``csrc/cov_core.cu``), each replacing a Pallas TPU kernel of
 ``gpmpc_tpu/ops/pallas_moment_cov.py``:
 
-* ``cov_fwd`` replaces ``_cov_fwd_kernel`` (via ``_cov_fwd_call``). Grid
-  (P, ceil(N/16)), 256 threads: a block owns 16 rows of one pair, threads
-  stride the N columns, each thread keeps its sum of bi E bj (and of iK E on
-  diagonal pairs), and a warp-shuffle plus shared-memory reduction writes
-  one partial per block into (P, tiles) scratch that the wrapper sums.
+* ``cov_fwd`` replaces ``_cov_fwd_kernel`` (via ``_cov_fwd_call``). Row
+  bands: a block owns a band of rows of one pair against all N columns, a
+  thread one column (its operands in registers) against every m-th row of
+  the band, m = 1024 // N row groups (the same work per thread to within
+  one element, a warp's iK reads contiguous), and the bands of all pairs
+  fit one wave of one block per SM where they can (``fwd_launch_plan``).
+  Each block writes one partial of bi E bj (and of iK E on diagonal
+  pairs); a second launch, a programmatic dependent, adds each output's
+  partials in a fixed order and writes S_p and corr, so no PyTorch
+  reduction follows the kernel. The forward itself is a programmatic
+  dependent of the kernel before it on the stream.
 * ``cov_bwd_row`` replaces ``_bwd_row_kernel`` (via ``_bwd_row_call``).
   Grid (P, ceil(N/8)), 8 warps, one warp per row n reducing over k:
   with W = g wr wc^T E + g_corr iK E it writes ga = rowsum W, gU = W Xj and
@@ -34,8 +40,10 @@ Kernels (``csrc/cov_core.cu``), each replacing a Pallas TPU kernel of
 
 What bounds them on an H100: at the flagship shape (P=6, N=384, ns=3) each
 call reads the 1.77 MB iK slab once and evaluates 0.9 M exps, about half a
-microsecond of memory traffic at 3.35 TB/s, so the launch latency (several
-microseconds) dominates. The design keeps E out of device memory entirely
+microsecond of memory traffic at 3.35 TB/s, so launch latency (~2 us per
+launch) and dependent memory latency dominate: the forward issues a
+thread's column operands and iK loads together, before the band's rows
+are staged, and hides both launches' start behind the kernel before it. The design keeps E out of device memory entirely
 (recomputed in the backward, never stored) and uses no atomics, so results
 repeat bitwise. ``cov_gik`` writes its 1.77 MB output once: bytes bound it.
 """
@@ -101,6 +109,21 @@ def cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos):
 
 
 MAX_NS = 8  # GPMPC_MAX_NS of csrc/cov_core.cu: a row's ns values live in fixed arrays
+FWD_MAX_ROWS = 1024  # kFwdMaxRows of csrc/cov_core.cu: a band's row operands fill shared memory
+
+
+def fwd_launch_plan(p: int, n: int, sms: int) -> Tuple[int, int]:
+    """(rows per band, bands per pair) of ``cov_fwd`` for P pairs of N rows
+    on a card with ``sms`` SMs. Block b takes band t = b % bands of pair
+    b // bands, rows t rows to (t + 1) rows (the last band of a pair
+    shorter), against all N columns. rows is the least whose P bands fit one
+    block per SM, so the grid is one wave; with more pairs than SMs, or past
+    FWD_MAX_ROWS rows, more waves."""
+    rows = max(1, -(-p * n // sms))
+    while rows < n and p * -(-n // rows) > sms:
+        rows += 1
+    rows = min(rows, n, FWD_MAX_ROWS)
+    return rows, -(-n // rows)
 
 
 def _check_ns(name: str, ns: int) -> None:
@@ -122,22 +145,28 @@ def cov_fwd(a, c, u, xj, bi, bj, ik, diag_pos):
             or bj.shape != (p, nc) or ik.shape != (len(diag_pos), nr, nc):
         raise ValueError("cov_fwd: inconsistent shapes")
     _check_ns("cov_fwd", ns)
+    if not all(0 <= q < p for q in diag_pos):  # the summing launch reads pair diag_pos[m]'s partials
+        raise ValueError(f"cov_fwd: diag_pos {tuple(diag_pos)} outside the {p} pairs")
     lib = _build.load()
-    tiles = -(-nr // lib.gpmpc_cov_fwd_rows())
-    sp_part = torch.empty((p, tiles), dtype=torch.float32, device=a.device)
-    co_part = torch.empty((p, tiles), dtype=torch.float32, device=a.device)
-    dpos = _index(diag_pos, a.device, torch.int32)
+    rows, bands = fwd_launch_plan(p, nr, _build.sm_count(a.device))
+    part = torch.empty((2, p * bands), dtype=torch.float32, device=a.device)
+    out = torch.empty(p + len(diag_pos), dtype=torch.float32, device=a.device)
     rc = lib.gpmpc_cov_fwd_f32(
         a.data_ptr(), c.data_ptr(), u.data_ptr(), xj.data_ptr(), bi.data_ptr(),
-        bj.data_ptr(), ik.data_ptr(), dpos.data_ptr(), len(diag_pos),
-        sp_part.data_ptr(), co_part.data_ptr(), p, nr, nc, ns,
+        bj.data_ptr(), ik.data_ptr(), _index(diag_pos, a.device, torch.int32).data_ptr(), len(diag_pos),
+        part.data_ptr(), out.data_ptr(), p, nr, nc, ns, rows, bands,
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     _build.check(rc, "cov_fwd")
     LAUNCHES["cov_fwd"] += 1
-    s_p = sp_part.sum(dim=1)
-    corr = co_part.index_select(0, _index(diag_pos, a.device, torch.long)).sum(dim=1)
-    return s_p, corr
+    return out[:p], out[p:]
+
+
+def fwd_launch_info(p: int, n: int, ns: int) -> dict:
+    """``cov_fwd``'s launch at (P, N, ns) on the current card
+    (``_build.launch_info``), with the rows of a band."""
+    rows, bands = fwd_launch_plan(p, n, _build.sm_count(torch.device("cuda")))
+    return _build.launch_info("gpmpc_cov_fwd_info", p, n, ns, rows, bands, extra=("rows",))
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,11 @@ the card and nvcc (no JAX needed, hence no repo conftest):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Sizes cover a single row, ragged edges (N not a multiple of the 16-row
-forward tile or the 8-row backward block, nor of the df kernels' 32 x 64
-tiles) and the flagship N=384.
+Sizes cover a single row, ragged edges (N not a multiple of the 8-row
+backward block, nor of the df kernels' 32 x 64 tiles, nor a whole number of
+the cov forward's row bands) and the flagship N=384. The kernels whose
+cross-block sums run in a fixed order are also called twice and must agree
+bit for bit.
 Tolerances: Gram entries rtol 2e-5 + atol 2e-6; each cov output within
 COV_RTOL of the sum of the absolute values of its terms (f32 sums in
 another order than the plain einsum, E rounded differently through its
@@ -20,7 +22,8 @@ error is a small multiple of eps32^2 (3.6e-15) of the same scale:
 DF_COV_RTOL. The DfCovCore gradients, collapsed to f32 after the df
 combination, are held to DF_GRAD_RTOL of their largest entry, as
 tests/test_torch_df32.py holds them on the CPU. The whole-step kernels
-(ops/df_mm.py) run at N = 32, 96, 128 and 384: their raw df partials within
+(ops/df_mm.py) run at N = 32, 96, 128 and 384 (#12 and #8 also at the
+ragged 37 and 100, at every width they take): their raw df partials within
 DF_COV_RTOL of each output's sum of |terms|, the whole step's f32 outputs
 within FULL_EPS of themselves plus DF_COV_RTOL of their scaled sum of
 |terms|, the VJP (df cotangents, collapsed at the end) within DF_GRAD_RTOL
@@ -74,15 +77,27 @@ def test_gram_kernel_matches_plain(dev, n):
     torch.testing.assert_close(out, gram_rbf.gram_ref(ls, outs, x), rtol=2e-5, atol=2e-6)
 
 
-@pytest.mark.parametrize("n", SIZES)
-def test_cov_fwd_kernel_matches_plain(dev, n):
-    a, c, u, xj, bi, bj, ik = _cov_problem(n, n, dev)
-    s, co = moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, DIAG)
-    s_r, co_r = moment_cov.cov_core_ref(a, c, u, xj, bi, bj, ik, DIAG)
-    s_abs, co_abs = moment_cov.cov_fwd_abs_terms(a, c, u, xj, bi, bj, ik, DIAG)
+def _pairs(ns):
+    """(P, the diagonal pairs' positions) of ns state dims."""
+    ii, jj = np.triu_indices(ns)
+    return len(ii), tuple(int(k) for k in np.where(ii == jj)[0])
+
+
+@pytest.mark.parametrize("n", [1, 24, 32, 37, 100, 384, 385])
+@pytest.mark.parametrize("ns", [1, 3, 8])
+def test_cov_fwd_kernel_matches_plain(dev, n, ns):
+    """#2 on row bands at ragged N and every state width class, bitwise
+    repeatable (its cross-block sums run in a fixed order)."""
+    p, diag = _pairs(ns)
+    a, c, u, xj, bi, bj, ik = _cov_problem(n + ns, n, dev, p=p, ns=ns, m=len(diag))
+    s, co = moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, diag)
+    s_r, co_r = moment_cov.cov_core_ref(a, c, u, xj, bi, bj, ik, diag)
+    s_abs, co_abs = moment_cov.cov_fwd_abs_terms(a, c, u, xj, bi, bj, ik, diag)
+    assert s.shape == s_r.shape and co.shape == co_r.shape
     assert torch.all((s - s_r).abs() <= COV_RTOL * s_abs)
     assert torch.all((co - co_r).abs() <= COV_RTOL * co_abs)
-    assert torch.equal(moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, DIAG)[0], s)  # bitwise repeatable
+    again = moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, diag)
+    assert torch.equal(again[0], s) and torch.equal(again[1], co)  # bitwise repeatable
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -246,22 +261,31 @@ def _stage1(cache, sv):
     return df_mm.df_stage1(cache, sv, ii, jj)
 
 
-@pytest.mark.parametrize("n", DF_MM_SIZES)
-def test_df_mm_full_kernel_matches_plain(dev, n):
+@pytest.mark.parametrize("n", [32, 37, 96, 100, 128, 384])
+@pytest.mark.parametrize("ns,d", [(1, 2), (2, 3), (3, 4), (1, 8), (2, 8), (3, 8)])
+def test_df_mm_full_kernel_matches_plain(dev, n, ns, d):
+    """#12 at every width it takes (d = ns + 1 and 8) and ragged N, and #8,
+    which shares its launch, on the same operands: each bitwise repeatable."""
     from gpmpc_tpu_torch.ops import df_mm
 
-    cache, mu, sv = _df_mm_problem(n, n, dev)
+    cache, mu, sv = _df_mm_problem(n + 10 * ns + d, n, dev, ns=ns, d=d)
     out = df_mm.full_step_fwd(mu, sv, cache)
     ref = df_mm.full_step_plain(mu, sv, cache)
     Bh, Bl, c32, Qh, Ql, sdr = _stage1(cache, sv)
     m_abs, v_abs, sp_abs, co_abs = df_mm.abs_terms(mu, Bh, Bl, Qh, Ql, cache)
-    diag = df_mm.pair_indices(3, dev)[2]
+    diag = df_mm.pair_indices(ns, dev)[2]
     sp_scale = (sp_abs + torch.zeros_like(sp_abs).index_add(0, diag, co_abs)) / sdr.double()
     scales = (m_abs * c32.double(), v_abs * c32.double()[:, None], sp_scale)
     for o, r, s in zip(out, ref, scales):
+        assert o.shape == r.shape
         err = (o.double() - r.double()).abs()
         assert torch.all(err <= FULL_EPS * r.double().abs() + DF_COV_RTOL * s), float(err.max())
     assert all(torch.equal(a, b) for a, b in zip(df_mm.full_step_fwd(mu, sv, cache), out))  # bitwise repeatable
+    raw = df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache)
+    raw_ref = df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, cache)
+    for k, scale in enumerate((m_abs, v_abs, sp_abs, co_abs)):
+        _df_within(raw[2 * k], raw[2 * k + 1], raw_ref[2 * k], raw_ref[2 * k + 1], scale + 1e-300)
+    assert all(torch.equal(a, b) for a, b in zip(df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache), raw))
 
 
 @pytest.mark.parametrize("n", DF_MM_SIZES)
