@@ -40,10 +40,12 @@ on the trained-GP flagship's operands and random ones, the whole-step
 kernels at N = 32, 96, 128 and 384 and the split backward (the mean path's
 and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
 and random ones, each redesigned kernel also for bitwise repeats; it also
-reports the launch shape, time and bound of the four kernels redesigned for
-the H100 (#9 df_mm_bwd, #6 df_fwdres, #12 df_mm_full, #2 cov_fwd) beside
-unchanged kernels timed in the same run, and the times of #12 at N = 32 and
-96 and of #2 at N = 32. Phase 5 times the blocked planning step of the
+reports the launch shape, time and bound of the six kernels redesigned for
+the H100 (#9 df_mm_bwd, #6 df_fwdres, #12 df_mm_full, #2 cov_fwd, #5 df_fwd,
+#3 cov_bwd_row, both sides in one launch) beside unchanged kernels timed in
+the same run, and the times of #12 at N = 32 and 96 and of #2 at N = 32.
+Phase 4 also holds the launch counts of #5 and #3 on their paths
+(EXPECTED_LAUNCHES). Phase 5 times the blocked planning step of the
 paths and 15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the
 whole-step route's value-and-grad rollout runs the split backward, and its
 gradient is held to the df cov route's and to the f64 rollout's.
@@ -94,12 +96,20 @@ H100_F32_INSTR_PER_S = 33.5e12
 
 # The kernels redesigned for the H100 after their first port, and their
 # device times before (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at
-# 700 W: #9 and #6 from their first design's runs, #12 and #2 from the runs
-# of the design before this one): phase 3 prints each beside its new time,
-# its launch shape and its bound, with #8, #11, #5 and #3 from the same call
-# as controls.
+# 700 W: #9 and #6 from their first design's runs, the others from the runs
+# of the design before this one; #3's is two one-side launches, 2 x
+# 0.0081-0.0083): phase 3 prints each beside its new time, its launch shape
+# and its bound, with #8, #11 and #7 from the same call as controls.
 REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.0696", "df_mm_full": "0.0271-0.0274",
-                        "cov_fwd": "0.0214-0.0223"}
+                        "cov_fwd": "0.0214-0.0223", "df_fwd": "0.0461-0.0462", "cov_bwd_row": "0.0162-0.0166"}
+# Launches of #5 and #3 on their driven paths (phase 4), held exactly: the
+# f32 refresh + PLAN_STEPS plans run 30 backwards per plan (two
+# value-and-grad objective evaluations of 15 rollout steps), one cov_bwd_row
+# launch each; a mixed plan runs 5 forward-only evaluations of 15 steps
+# through df_fwd, and the stacked VJP 5 more for its value-and-grad ones.
+# The plans have run these evaluations in every run on the card.
+EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 75,
+                     "df_fwd per stacked mixed plan": 150}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -454,14 +464,17 @@ def check_kernels(dev):
         f"bound {cov_fwd_bound(p, ACC_BUCKET, ns_, nd)[0]:.5f} ms")
 
     g = torch.linspace(1.0, 2.0, p, device=dev)
-    gco = _scatter_diag(torch.linspace(1.0, 3.0, nd, device=dev), p, diag_pos)
-    ms, host = cuda_ms(lambda: moment_cov.cov_bwd_row(g, a, c, u, xj, bi, bj, ik, gco, diag_pos))
-    plain, _ = cuda_ms(lambda: moment_cov.cov_bwd_row_plain(g, a, c, u, xj, bi, bj, ik, gco, diag_pos))
-    b, by = bound_ms(4 * (2 * p + 4 * p * n + 2 * p * n * ns_ + nd * n * n + 2 * p * n + p * n * ns_),
-                     p * n * n * (4 * ns_ + 8) + nd * n * n * 3)
-    log(f"kernel cov_bwd_row (one side): kernel {ms:.4f} ms plain {plain:.4f} ms "
+    g_corr = torch.linspace(1.0, 3.0, nd, device=dev)
+    ms, host = cuda_ms(lambda: moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos))
+    plain, _ = cuda_ms(lambda: moment_cov.cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos))
+    # both sides: the operands and iK read once, the six gradients written once
+    b, by = bound_ms(4 * (p + nd + 4 * p * n + 2 * p * n * ns_ + nd * n * n + 4 * p * n + 2 * p * n * ns_),
+                     2 * (p * n * n * (4 * ns_ + 8) + nd * n * n * 3))
+    log(f"kernel cov_bwd_row (both sides, one launch): kernel {ms:.4f} ms plain {plain:.4f} ms "
         f"bound {b:.5f} ms ({by}); host {host:.4f} ms per call")
     results["cov_bwd_row"] = dict(err=err_bwd, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    results["cov_bwd_row"]["report"] = launch_report("cov_bwd_row", moment_cov.bwd_launch_info(p, n, ns_), ms, b)
+    log("kernel " + results["cov_bwd_row"]["report"])
 
     err_gik = max(check_cov_gik("flagship", cov_flag, diag_pos), check_cov_gik("random", cov_rand, diag_pos))
     g_corr = torch.linspace(1.0, 3.0, nd, device=dev)
@@ -566,12 +579,24 @@ def hold_repeat(what, label, first, again) -> None:
 
 
 def check_cov_bwd(label, operands, diag_pos) -> float:
-    """Row and column sides through autograd of CovCore, against autograd
-    of the plain core; the leaves are a, c, U, Xj, bi and bj."""
+    """The two-side backward kernel against its plain twin (the two one-side
+    calls), called twice for bitwise repeats; then the row and column sides
+    through autograd of CovCore, against autograd of the plain core; the
+    leaves are a, c, U, Xj, bi and bj."""
     a, c, u, xj, bi, bj, ik = operands
     p, nd = a.shape[0], len(diag_pos)
     w_s = torch.linspace(1.0, 2.0, p, device=a.device)
     w_c = torch.linspace(1.0, 3.0, nd, device=a.device)
+    gco = _scatter_diag(w_c, p, diag_pos)
+    row = moment_cov.cov_bwd_row_abs_terms(w_s, a, c, u, xj, bi, bj, ik, gco, diag_pos)
+    col = moment_cov.cov_bwd_row_abs_terms(w_s, c, a, xj, u, bj, bi, ik.transpose(1, 2), gco, diag_pos)
+    scales = (row[0], col[0], row[1], col[1], row[2], col[2])
+    names = ("ga", "gc", "gU", "gXj", "gbi", "gbj")
+    out = moment_cov.cov_bwd(w_s, a, c, u, xj, bi, bj, ik, w_c, diag_pos)
+    ref = moment_cov.cov_bwd_plain(w_s, a, c, u, xj, bi, bj, ik, w_c, diag_pos)
+    err = max(hold_cov(f"cov_bwd_row kernel {name}", label, o, r, scale)
+              for name, o, r, scale in zip(names, out, ref, scales))
+    hold_repeat("cov_bwd_row", label, out, moment_cov.cov_bwd(w_s, a, c, u, xj, bi, bj, ik, w_c, diag_pos))
 
     def grads(core):
         leaves = [t.clone().requires_grad_(True) for t in (a, c, u, xj, bi, bj)]
@@ -580,12 +605,8 @@ def check_cov_bwd(label, operands, diag_pos) -> float:
 
     g_k = grads(moment_cov.CovCore.apply)
     g_r = grads(moment_cov.cov_core_ref)
-    gco = _scatter_diag(w_c, p, diag_pos)
-    row = moment_cov.cov_bwd_row_abs_terms(w_s, a, c, u, xj, bi, bj, ik, gco, diag_pos)
-    col = moment_cov.cov_bwd_row_abs_terms(w_s, c, a, xj, u, bj, bi, ik.transpose(1, 2), gco, diag_pos)
-    scales = (row[0], col[0], row[1], col[1], row[2], col[2])
-    return max(hold_cov(f"cov_bwd_row {name}", label, out, ref, scale)
-               for name, out, ref, scale in zip(("ga", "gc", "gU", "gXj", "gbi", "gbj"), g_k, g_r, scales))
+    return max(err, max(hold_cov(f"cov_bwd_row via CovCore {name}", label, o, r, scale)
+                        for name, o, r, scale in zip(names, g_k, g_r, scales)))
 
 
 def trained_gp_df_operands(dev):
@@ -656,6 +677,7 @@ def check_df_operands(label, args, diag_pos) -> tuple[float, float]:
     ref = df_cov.df_cov_fwd_plain(*args, diag_pos)
     err_fwd = max(hold_df("df_fwd S_p", label, out[0], out[1], ref[0], ref[1], s_abs),
                   hold_df("df_fwd corr", label, out[2], out[3], ref[2], ref[3], co_abs))
+    hold_repeat("df_fwd", label, out, df_cov.df_cov_fwd(*args, diag_pos))
     rows, cols = df_cov.df_cov_fwdres(*args, diag_pos)
     rows_r, cols_r = df_cov.df_cov_fwdres_plain(*args, diag_pos)
     names = ["A1", "A2"] + [f"B1_{e}" for e in range(3)] + [f"B2_{e}" for e in range(3)]
@@ -701,13 +723,16 @@ def check_df_kernels(dev):
         per, per_diag = counts[name]
         out_bytes = 4 * 2 * (2 * p + nd) if name == "df_fwd" else 4 * 2 * 2 * (2 + 2 * ns) * p * n
         b, by = bound_ms(in_bytes + out_bytes, (p * per + nd * per_diag) * n * n, H100_F32_INSTR_PER_S)
-        log(f"kernel {name} (P={p}, N={n}, ns={ns}): wrapper {ms:.4f} ms (device, kernel + df finish) "
+        log(f"kernel {name} (P={p}, N={n}, ns={ns}): wrapper {ms:.4f} ms (device, kernel + summing launch) "
             f"plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 "
             f"instructions per element over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
         results[name] = dict(err=max(e[i] for e in errs), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
     results["df_fwdres"]["report"] = launch_report("df_fwdres", df_cov.fwdres_launch_info(p, n, nd, ns),
                                                    results["df_fwdres"]["ms"], results["df_fwdres"]["bound_ms"])
     log("kernel " + results["df_fwdres"]["report"])
+    results["df_fwd"]["report"] = launch_report("df_fwd", df_cov.fwd_launch_info(p, n, diag_pos, ns),
+                                                results["df_fwd"]["ms"], results["df_fwd"]["bound_ms"])
+    log("kernel " + results["df_fwd"]["report"])
 
     # the stacked backward on the flagship's operands and random ones at 384,
     # and random ones at 96 (tests/test_torch_cuda.py adds ragged N)
@@ -984,6 +1009,12 @@ def check_df_mm_kernels(dev):
     return results
 
 
+def check_launches(name, counts, expected) -> None:
+    """A redesigned kernel's launches on its driven path (EXPECTED_LAUNCHES)."""
+    if counts[name] != expected:
+        raise AssertionError(f"kernel {name} launched {counts[name]} times on its path, expected {expected}")
+
+
 def check_plans(plans, spec, finite_info):
     for a_opt, info in plans:
         a = a_opt.double().cpu()
@@ -1242,10 +1273,10 @@ def _run() -> int:
     kern.update(check_df_kernels(dev))
     kern.update(check_df_mm_kernels(dev))
     log("phase 3 kernels: all twelve match their plain versions on the card")
-    for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres"):
+    for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres", "df_fwd", "cov_bwd_row"):
         log(f"phase 3 {kern[name]['report']}")
     log("phase 3 controls in this call: " + ", ".join(
-        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_mm_bwd_pair", "df_fwd", "cov_bwd_row")))
+        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_mm_bwd_pair", "df_bwd")))
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec
@@ -1259,6 +1290,7 @@ def _run() -> int:
             raise AssertionError(f"kernel {name} was not launched on the f32 main path")
     if launches["cov_gik"] != 0:
         raise AssertionError("kernel cov_gik was launched by a planning step (iK is constant while planning)")
+    check_launches("cov_bwd_row", launches, EXPECTED_LAUNCHES["cov_bwd_row per f32 plan"] * PLAN_STEPS)
     check_plans(plans, spec, finite_info=False)
     f_card, _ = objective_and_grad(prob, planner._cache, prob.inits[0])
     log(f"  flagship f32 objective at the initial actions: {f_card:.9g} (f32 breaks down at "
@@ -1305,6 +1337,7 @@ def _run() -> int:
     for name in ("df_bwd", "df_mm_full", "df_mm_fwd", "df_mm_bwd"):  # residual scheme; 384 is outside 32..128
         if mixed_launches[name] != 0:
             raise AssertionError(f"kernel {name} was launched on the mixed main path")
+    check_launches("df_fwd", mixed_launches, EXPECTED_LAUNCHES["df_fwd per residual mixed plan"] * MIXED_STEPS)
     log(f"phase 4 mixed accuracy: within {MIXED_TOL} of the card's f64 plan")
 
     df_cov.VJP_MODE = "stacked"
@@ -1333,6 +1366,7 @@ def _run() -> int:
             raise AssertionError(f"kernel {name} was not launched on the stacked mixed path")
     if stacked_launches["df_fwdres"] != 0:
         raise AssertionError("kernel df_fwdres was launched under the stacked VJP")
+    check_launches("df_fwd", stacked_launches, EXPECTED_LAUNCHES["df_fwd per stacked mixed plan"] * MIXED_STEPS)
     log(f"phase 4 stacked accuracy: within {MIXED_TOL} of the card's f64 plan")
 
     sizes = dict(n_points=FUSED_POINTS, bucket=FUSED_BUCKET)

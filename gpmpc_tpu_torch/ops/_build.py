@@ -37,12 +37,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gpmpc_cov_fwd_f32": (_P,) * 8 + (_I,) + (_P,) * 2 + (_I,) * 6 + (_P,),
     "gpmpc_cov_fwd_info": (_I,) * 5 + (_P,),
-    "gpmpc_cov_bwd_row_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
+    "gpmpc_cov_bwd_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
+    "gpmpc_cov_bwd_info": (_I,) * 3 + (_P,),
     "gpmpc_cov_gik_f32": (_P,) * 6 + (_I,) + (_P,) + (_I,) * 3 + (_P,),
     "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
-    "gpmpc_df_tile_rows": (),
-    "gpmpc_df_tile_cols": (),
-    "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
+    "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 8 + (_P,),
+    "gpmpc_df_fwd_info": (_I,) * 5 + (_P,),
     "gpmpc_df_fwdres_max_bands": (_I,) * 4,
     "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
     "gpmpc_df_fwdres_info": (_I,) * 4 + (_P,),

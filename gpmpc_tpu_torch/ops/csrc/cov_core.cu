@@ -1,12 +1,14 @@
-// Moment-matching covariance core, f32, forward and row-side backward.
+// Moment-matching covariance core, f32: forward, backward of both sides and
+// the iK gradient.
 //
 // E[p, n, k] = exp(min(a[p, n] + c[p, k] + U[p, n, :] . Xj[p, k, :], 60))
 // S_p[p]     = sum_{n,k} bi[p, n] E[p, n, k] bj[p, k]
 // corr[m]    = sum_{n,k} iK[m, n, k] E[diag_pos[m], n, k]
 //
 // Replaces gpmpc_tpu/ops/pallas_moment_cov.py: _cov_fwd_kernel (forward),
-// _bwd_row_kernel (row-side backward; the col side is the same kernel with the
-// roles of (a, c), (U, Xj) and (bi, bj) swapped by the caller) and
+// _bwd_row_kernel (row-side backward, which the reference launches once per
+// side with the roles of (a, c), (U, Xj) and (bi, bj) swapped; here one
+// launch runs both sides on stacked rows) and
 // _gik_kernel (the gradient with respect to iK: gK[m] = g_corr[m] E of the
 // diagonal pair diag_pos[m]). The iK model slab of a pair is found from
 // diag_pos inside the kernel, as _ik_slot does.
@@ -14,7 +16,7 @@
 // Layouts (all contiguous, row major): a, bi (P, Nr); c, bj (P, Nc);
 // U (P, Nr, ns); Xj (P, Nc, ns); iK and gK (n_diag, Nr, Nc).
 //
-// The forward and the row backward read iK once (the only O(N^2) input) and
+// The forward and the backward read iK once (the only O(N^2) input) and
 // compute E on the fly, never writing it. The iK gradient is the one kernel
 // with an O(N^2) output: it is bound by writing gK (1.77 MB at the flagship),
 // so each thread computes and stores one element at a time, a warp 32
@@ -53,7 +55,9 @@ constexpr int kFwdThreads = 1024;  // forward: most threads of a band block
 constexpr int kFwdBatch = 16;      // forward: a thread's elements whose iK loads are in flight together
 constexpr int kFwdMaxRows = 1024;  // forward: rows of a band (its row operands live in shared memory)
 constexpr int kFwdSumThreads = 256;
-constexpr int kBwdWarps = 8;       // backward: one warp per row, 8 rows a block
+constexpr int kBwdWarps = 8;       // backward: one warp per stacked row, 8 rows a block
+constexpr int kBwdCols = 12;       // backward: a lane's columns per batch, unrolled
+constexpr int kBwdBatch = 32 * kBwdCols;  // backward: columns staged in shared memory at a time
 
 __device__ __forceinline__ int ik_slot(int p, const int* diag_pos, int n_diag) {
   for (int m = 0; m < n_diag; ++m)
@@ -199,67 +203,123 @@ cov_fwd_sum_kernel(const float* __restrict__ part, const int* __restrict__ diag_
   }
 }
 
-// grid (P, ceil(Nr / kBwdWarps)), block 32 * kBwdWarps. With
-// W[n, k] = g[p] wr[n] wc[k] E[n, k] + gco[p] iK_slot[n, k] E[n, k]
-// (gco is read only on diagonal pairs), writes for each row n:
-// ga[n] = sum_k W, gU[n, :] = sum_k W Xj[k, :], gwr[n] = g[p] sum_k E wc[k].
+// The backward of both sides in one launch, on 2P stacked rows: stacked
+// pair s < P is the row side of pair s (its rows n against the columns k),
+// s >= P the column side of pair s - P, with (a, U, wr) and (c, Xj, wc)
+// swapped (its rows k against the columns n). With
+// W = g[p] wr wc E + g_corr[slot] iK_slot E (g_corr, the corr cotangent in
+// diag_pos order, read through the pair's slot on diagonal pairs only), each
+// stacked row writes gA = sum W, gU = sum W Xj (the column operand's) and
+// gw = g[p] sum E wc into planes [2 sides][P][N](...). The column side reads
+// iK's row slab at its own row index: iK is symmetric and the slabs square.
+// grid (ceil(N / kBwdWarps), 2P), block 32 kBwdWarps: warp w of block
+// (x, s) owns the stacked row x kBwdWarps + w, its lanes the columns
+// lane + 32 j, summed in that order. Per batch of kBwdBatch columns a lane's
+// iK entries go out first, then the block stages the batch's column
+// operands in shared memory, so no load waits on an E; the lane's columns
+// are unrolled. The same f32 operations per element and the same order of
+// sums as one launch per side.
+template <int NS>
 __global__ void __launch_bounds__(32 * kBwdWarps)
-cov_bwd_row_kernel(const float* __restrict__ g, const float* __restrict__ a,
-                   const float* __restrict__ c, const float* __restrict__ u,
-                   const float* __restrict__ xj, const float* __restrict__ wr,
-                   const float* __restrict__ wc, const float* __restrict__ ik,
-                   const float* __restrict__ gco, const int* __restrict__ diag_pos,
-                   int n_diag, float* __restrict__ ga, float* __restrict__ gu,
-                   float* __restrict__ gwr, int nr, int nc, int ns) {
-  const int p = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.y * kBwdWarps + warp;
-  if (n >= nr) return;  // the whole warp leaves; no block-wide sync follows
+cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const float* __restrict__ c,
+               const float* __restrict__ u, const float* __restrict__ xj, const float* __restrict__ wr,
+               const float* __restrict__ wc, const float* __restrict__ ik, const float* __restrict__ g_corr,
+               const int* __restrict__ diag_pos, int n_diag, float* __restrict__ ga, float* __restrict__ gu,
+               float* __restrict__ gw, int np, int n) {
+  gpmpc_pdl::release_dependents();
+  gpmpc_pdl::wait_for_prerequisite();  // this launch is a programmatic dependent of the kernel before it
+  extern __shared__ float s_cols[];    // the batch's c [kBwdBatch], wc [kBwdBatch], Xj [NS][kBwdBatch]
+  float* s_c = s_cols;
+  float* s_wc = s_c + kBwdBatch;
+  float* s_x = s_wc + kBwdBatch;
+  const int s = blockIdx.y;
+  const bool col_side = s >= np;
+  const int p = col_side ? s - np : s;
+  const float* r_a = col_side ? c : a;
+  const float* r_u = col_side ? xj : u;
+  const float* r_w = col_side ? wc : wr;
+  const float* c_a = col_side ? a : c;
+  const float* c_u = col_side ? u : xj;
+  const float* c_w = col_side ? wr : wc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * kBwdWarps + warp;
+  const bool live = row < n;  // warp-uniform; every warp stays for the barriers
 
   const int slot = ik_slot(p, diag_pos, n_diag);
   const float gp = g[p];
-  const float gcp = slot >= 0 ? gco[p] : 0.f;
-  const float* ik_row = slot >= 0 ? ik + ((size_t)slot * nr + n) * nc : nullptr;
-  const float an = a[(size_t)p * nr + n];
-  const float g_wr = gp * wr[(size_t)p * nr + n];
-  float un[GPMPC_MAX_NS];
-  float s_gu[GPMPC_MAX_NS];
+  const float gcp = slot >= 0 ? g_corr[slot] : 0.f;
+  const float* ik_row = slot >= 0 && live ? ik + ((size_t)slot * n + row) * n : nullptr;
+  const size_t ri = (size_t)p * n + (live ? row : 0);
+  const float an = r_a[ri];
+  const float g_wr = gp * r_w[ri];
+  float un[NS], s_gu[NS];
 #pragma unroll
-  for (int e = 0; e < GPMPC_MAX_NS; ++e) {
-    un[e] = e < ns ? u[((size_t)p * nr + n) * ns + e] : 0.f;
+  for (int e = 0; e < NS; ++e) {
+    un[e] = r_u[ri * NS + e];
     s_gu[e] = 0.f;
   }
 
   float s_w = 0.f;
   float s_ewc = 0.f;
-  for (int k = lane; k < nc; k += 32) {
-    float xk[GPMPC_MAX_NS];
+  for (int k0 = 0; k0 < n; k0 += kBwdBatch) {
+    float ikv[kBwdCols];
 #pragma unroll
-    for (int e = 0; e < GPMPC_MAX_NS; ++e) xk[e] = e < ns ? xj[((size_t)p * nc + k) * ns + e] : 0.f;
-    const float ev = cov_e(an, c[(size_t)p * nc + k], un, xk, ns);
-    const float ewc = ev * wc[(size_t)p * nc + k];
-    float w = g_wr * ewc;
-    if (ik_row) w = fmaf(gcp * ik_row[k], ev, w);
-    s_w += w;
-    s_ewc += ewc;
+    for (int j = 0; j < kBwdCols; ++j) {
+      const int k = k0 + lane + 32 * j;
+      ikv[j] = ik_row && k < n ? ik_row[k] : 0.f;
+    }
+    if (k0 > 0) __syncthreads();  // every warp is done with the batch before
+    for (int t = threadIdx.x; t < kBwdBatch && k0 + t < n; t += blockDim.x) {
+      const size_t ci = (size_t)p * n + k0 + t;
+      s_c[t] = c_a[ci];
+      s_wc[t] = c_w[ci];
 #pragma unroll
-    for (int e = 0; e < GPMPC_MAX_NS; ++e)
-      if (e < ns) s_gu[e] = fmaf(w, xk[e], s_gu[e]);
+      for (int e = 0; e < NS; ++e) s_x[e * kBwdBatch + t] = c_u[ci * NS + e];
+    }
+    __syncthreads();
+    if (!live) continue;
+    // every column without a branch, so that the compiler interleaves them;
+    // past the last column the terms are an exact 0
+#pragma unroll
+    for (int j = 0; j < kBwdCols; ++j) {
+      const bool kv = k0 + lane + 32 * j < n;
+      const int t = kv ? lane + 32 * j : 0;
+      float xk[NS];
+#pragma unroll
+      for (int e = 0; e < NS; ++e) xk[e] = s_x[e * kBwdBatch + t];
+      const float ev = cov_e(an, s_c[t], un, xk, NS);
+      const float ewc = kv ? ev * s_wc[t] : 0.f;
+      float w = g_wr * ewc;
+      if (ik_row && kv) w = fmaf(gcp * ikv[j], ev, w);
+      s_w += w;
+      s_ewc += ewc;
+#pragma unroll
+      for (int e = 0; e < NS; ++e) s_gu[e] = fmaf(w, xk[e], s_gu[e]);
+    }
   }
 
   s_w = gpmpc_warp_sum(s_w);
   s_ewc = gpmpc_warp_sum(s_ewc);
 #pragma unroll
-  for (int e = 0; e < GPMPC_MAX_NS; ++e) s_gu[e] = gpmpc_warp_sum(s_gu[e]);
-  if (lane == 0) {
-    ga[(size_t)p * nr + n] = s_w;
-    gwr[(size_t)p * nr + n] = gp * s_ewc;
+  for (int e = 0; e < NS; ++e) s_gu[e] = gpmpc_warp_sum(s_gu[e]);
+  if (live && lane == 0) {
+    const size_t r = (size_t)s * n + row;
+    ga[r] = s_w;
+    gw[r] = gp * s_ewc;
 #pragma unroll
-    for (int e = 0; e < GPMPC_MAX_NS; ++e)
-      if (e < ns) gu[((size_t)p * nr + n) * ns + e] = s_gu[e];
+    for (int e = 0; e < NS; ++e) gu[r * NS + e] = s_gu[e];
   }
 }
+
+// cov_bwd_kernel at each state width 1..GPMPC_MAX_NS
+using BwdKernel = decltype(&cov_bwd_kernel<1>);
+const BwdKernel kBwdKernels[GPMPC_MAX_NS] = {cov_bwd_kernel<1>, cov_bwd_kernel<2>, cov_bwd_kernel<3>,
+                                             cov_bwd_kernel<4>, cov_bwd_kernel<5>, cov_bwd_kernel<6>,
+                                             cov_bwd_kernel<7>, cov_bwd_kernel<8>};
+static_assert(GPMPC_MAX_NS == 8, "one backward instantiation per state width");
+
+// the backward's dynamic shared memory: a batch's column operands
+size_t bwd_smem(int ns) { return (size_t)kBwdBatch * (2 + ns) * sizeof(float); }
 
 constexpr int kGikThreads = 128;  // iK gradient: threads stride the Nc columns of one row
 
@@ -330,18 +390,36 @@ int gpmpc_cov_fwd_info(int p, int nr, int ns, int rows, int bands, int* info) {
   return 0;
 }
 
-int gpmpc_cov_bwd_row_f32(const float* g, const float* a, const float* c,
-                          const float* u, const float* xj, const float* wr,
-                          const float* wc, const float* ik, const float* gco,
-                          const int* diag_pos, int n_diag, float* ga, float* gu,
-                          float* gwr, int p, int nr, int nc, int ns,
-                          void* stream) {
-  if (p < 1 || nr < 1 || nc < 1 || ns < 1 || ns > GPMPC_MAX_NS)
+// both sides' backward on the grid the wrapper planned
+// (moment_cov.bwd_launch_plan: row_blocks = ceil(N / kBwdWarps) blocks of
+// stacked rows per stacked pair); ga, gw [2][P][N], gu [2][P][N][ns]
+int gpmpc_cov_bwd_f32(const float* g, const float* a, const float* c, const float* u, const float* xj,
+                      const float* wr, const float* wc, const float* ik, const float* g_corr,
+                      const int* diag_pos, int n_diag, float* ga, float* gu, float* gw, int p, int n,
+                      int ns, int row_blocks, void* stream) {
+  if (p < 1 || n < 1 || 2 * p > 65535 || ns < 1 || ns > GPMPC_MAX_NS || row_blocks != (n + kBwdWarps - 1) / kBwdWarps)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(p, (nr + kBwdWarps - 1) / kBwdWarps);
-  cov_bwd_row_kernel<<<grid, 32 * kBwdWarps, 0, (cudaStream_t)stream>>>(
-      g, a, c, u, xj, wr, wc, ik, gco, diag_pos, n_diag, ga, gu, gwr, nr, nc, ns);
-  return (int)cudaGetLastError();
+  return gpmpc_pdl::launch_dependent(kBwdKernels[ns - 1], dim3(row_blocks, 2 * p), 32 * kBwdWarps, bwd_smem(ns),
+                                     (cudaStream_t)stream, g, a, c, u, xj, wr, wc, ik, g_corr, diag_pos, n_diag, ga,
+                                     gu, gw, p, n);
+}
+
+// #3's registers, spill bytes, threads, resident blocks per SM, grid, SMs
+// and dynamic shared memory at (p, n, ns), for the smoke's report: info[7]
+int gpmpc_cov_bwd_info(int p, int n, int ns, int* info) {
+  if (p < 1 || n < 1 || ns < 1 || ns > GPMPC_MAX_NS) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  int rc = (int)cudaFuncGetAttributes(&fa, kBwdKernels[ns - 1]);
+  if (rc != 0) return rc;
+  int per_sm = 0, dev = 0, sms = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kBwdKernels[ns - 1], 32 * kBwdWarps, bwd_smem(ns));
+  if (rc != 0) return rc;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int vals[7] = {fa.numRegs, (int)fa.localSizeBytes, 32 * kBwdWarps, per_sm,
+                       2 * p * ((n + kBwdWarps - 1) / kBwdWarps), sms, (int)bwd_smem(ns)};
+  for (int k = 0; k < 7; ++k) info[k] = vals[k];
+  return 0;
 }
 
 int gpmpc_cov_gik_f32(const float* g_corr, const float* a, const float* c,

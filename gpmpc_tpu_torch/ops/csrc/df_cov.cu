@@ -20,19 +20,34 @@
 // _bwd_kernel (stacked backward, body _bwd_cell, launched by _build_bwd with
 // sides=2; the reference's GPMPC_DF_COV_VJP=stacked scheme).
 // The TPU kernels walk (pair, 128-row tile) grid steps over whole-N rows in
-// VMEM. Here the lean forward's block owns a 32 x 64 tile of one pair's slab
-// (8 warps, each warp one row at a time, each lane two columns), so a
-// flagship call (P=6, N=384) runs 432 blocks; E never leaves registers.
-// Reductions, all in df and in a fixed order (runs repeat bitwise): within
-// a lane sequentially, across a warp by a shuffle tree, across the 8 warps of
-// a block by a tree in shared memory, and across blocks by a second launch
-// (df_sum_parts_kernel) that sums partials sequentially.
+// VMEM; E never leaves registers here either.
 //
-// The forward with residuals runs on row bands. A 32 x 64 tile design (as
-// the lean forward's) ran at 46 % of its bound at the flagship: its 432
-// blocks of 8 warps made 1.64 waves at 2 blocks per SM, each warp ran a df
-// shuffle tree over 8 values for every row after only 2 columns per lane,
-// and both sides needed a summing launch. Here a block owns a band of rows
+// Both forwards run on row bands. A 32 x 64 tile design held each of them at
+// 46 % of its bound at the flagship (P=6, N=384): its 432 blocks of 8 warps
+// made 1.64 waves at 2 blocks per SM, each warp ran a df shuffle tree over 8
+// values for every row after only 2 columns per lane, and an ordinary
+// summing launch (and, for the lean forward, two index_selects in the
+// wrapper) followed.
+//
+// The lean forward: a block owns a band of rows of one pair against all Nc
+// columns, warp w the band's row w, its lanes the columns lane + 32 j, two
+// at a time (two E chains in flight). Each lane sums S_p's and, on a
+// diagonal pair, corr's terms in df over its columns in order; one warp tree
+// per value and a fixed pairwise tree over the band's warps (shared memory)
+// give one partial per band. The bands are planned by the wrapper from the
+// card's SM count (df_cov.fwd_launch_plan) so that all blocks fit one wave
+// of one block per SM and the busiest of a block's four warp schedulers
+// (warp w runs on scheduler w % 4) has the least work, a diagonal pair's
+// element costing more by its iK term: at the flagship 72 bands of 16 rows
+// (diagonal pairs, 4 rows a scheduler) and 60 of 20 (5 a scheduler), 132
+// blocks (18 and 19 rows, balanced by work alone, leave 5 rows of the
+// costlier element on a scheduler, and ran slower). The forward
+// is a programmatic dependent of the kernel before it (it waits before its
+// first read); its summing launch, a programmatic dependent of the forward,
+// adds each pair's bands in order and writes S_p (P,) and corr (n_diag,) in
+// diag_pos order, so no PyTorch operation follows the kernels.
+//
+// The forward with residuals: a block owns a band of rows
 // of one pair against all Nc columns, a warp one row, its lanes two columns
 // at a time (two E chains in flight). Band sizes are chosen at launch from
 // the card's SM count so that all blocks fit one wave of one block per SM
@@ -76,12 +91,8 @@ using gpmpc_df::df_mul_f32;
 using gpmpc_df::fast_two_sum;
 using gpmpc_df::two_sum;
 
-constexpr int kTileRows = 32;
-constexpr int kTileCols = 64;
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;  // the stacked backward: rows of a block, a warp each
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = kTileRows / kWarps;
-constexpr int kColsPerLane = kTileCols / 32;
 
 // the 14 operands, each an f32 half of a df pair; layouts (row major):
 // a, bi (P, Nr); c, bj (P, Nc); U (P, Nr, ns); Xj (P, Nc, ns); iK (n_diag, Nr, Nc)
@@ -112,35 +123,6 @@ __device__ __forceinline__ df warp_df_sum(df v) {
   return v;
 }
 
-// df sum of w[0..7] as the tree ((0+1)+(2+3))+((4+5)+(6+7))
-__device__ __forceinline__ df tree8(const df* w) {
-  return df_add(df_add(df_add(w[0], w[1]), df_add(w[2], w[3])),
-                df_add(df_add(w[4], w[5]), df_add(w[6], w[7])));
-}
-
-static_assert(kWarps == 8, "tree8 sums one value per warp");
-
-// the columns of this lane in the tile: c, bj and Xj of each, zero off the edge
-template <int NS>
-struct Cols {
-  df c[kColsPerLane], bj[kColsPerLane], xj[kColsPerLane][NS];
-  int k[kColsPerLane];
-  bool valid[kColsPerLane];
-
-  __device__ __forceinline__ void load(const Operands& o, int p, int nc, int k0, int lane) {
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      k[j] = k0 + lane + 32 * j;
-      valid[j] = k[j] < nc;
-      const size_t i = (size_t)p * nc + (valid[j] ? k[j] : 0);
-      c[j] = {o.ch[i], o.cl[i]};
-      bj[j] = {o.bjh[i], o.bjl[i]};
-#pragma unroll
-      for (int e = 0; e < NS; ++e) xj[j][e] = {o.xjh[i * NS + e], o.xjl[i * NS + e]};
-    }
-  }
-};
-
 // one row n: a, bi and U
 template <int NS>
 struct Row {
@@ -154,55 +136,6 @@ struct Row {
     for (int e = 0; e < NS; ++e) u[e] = {o.uh[i * NS + e], o.ul[i * NS + e]};
   }
 };
-
-// grid (ceil(Nc / kTileCols), ceil(Nr / kTileRows), P), block kThreads.
-// part: planes [2 (hi, lo)][P][blocks of the pair][2 (S_p, corr)]
-template <int NS>
-__global__ void __launch_bounds__(kThreads)
-df_fwd_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag,
-              float* __restrict__ part, int nr, int nc) {
-  const int ct = blockIdx.x, rt = blockIdx.y, p = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = ik_slot(p, diag_pos, n_diag);
-
-  Cols<NS> cols;
-  cols.load(o, p, nc, ct * kTileCols, lane);
-  df s = {0.f, 0.f}, q = {0.f, 0.f};
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int n = rt * kTileRows + warp + kWarps * i;
-    if (n >= nr) break;  // warp-uniform
-    Row<NS> row;
-    row.load(o, p, nr, n);
-    const size_t ik_row = ((size_t)(slot < 0 ? 0 : slot) * nr + n) * nc;
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      if (!cols.valid[j]) continue;
-      const df e = e_elem<NS>(row.a, row.u, cols.c[j], cols.xj[j]);
-      s = df_add(s, df_mul(df_mul(e, row.bi), cols.bj[j]));
-      if (slot >= 0) {
-        const size_t i_k = ik_row + cols.k[j];
-        q = df_add(q, df_mul(e, {o.ikh[i_k], o.ikl[i_k]}));
-      }
-    }
-  }
-
-  __shared__ df red[2][kWarps];
-  s = warp_df_sum(s);
-  q = warp_df_sum(q);
-  if (lane == 0) {
-    red[0][warp] = s;
-    red[1][warp] = q;
-  }
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    const df tot = tree8(red[threadIdx.x]);
-    const size_t nblk = (size_t)gridDim.x * gridDim.y;
-    const size_t plane = (size_t)gridDim.z * nblk * 2;
-    const size_t idx = ((size_t)p * nblk + (size_t)rt * gridDim.x + ct) * 2 + threadIdx.x;
-    part[idx] = tot.h;
-    part[plane + idx] = tot.l;
-  }
-}
 
 // The forward with residuals on row bands. A block owns a band of rows of
 // one pair against all Nc columns, warp w the band's row w, its lanes the
@@ -404,6 +337,125 @@ __global__ void df_fwdres_col_sum_kernel(const float* __restrict__ col_part, flo
   }
 }
 
+// The lean forward on row bands (df_cov.fwd_launch_plan plans them): the
+// rows of a band of a diagonal and of an off-diagonal pair, and the most
+// bands of a pair (the partial buffer's stride).
+constexpr int kFwdMaxWarps = 20;  // rows of a band, a warp each
+constexpr int kFwdLaneCols = 2;   // a lane's columns per chunk: E chains in flight
+constexpr int kFwdChunkCols = 32 * kFwdLaneCols;
+constexpr int kFwdSumThreads = 256;
+
+struct FwdPlan {
+  int rows_d, rows_o, max_bands;
+};
+
+// band `band` (rows band rows ..) of pair p: warp w the row band rows + w,
+// its lanes the columns k0 + 32 j + lane of each chunk of kFwdChunkCols, in
+// order. One partial of S_p and one of corr (zero off the diagonal pairs)
+// per band into part [2 (hi, lo)][P][max_bands][2 (S_p, corr)].
+template <int NS, bool IK>
+__device__ __forceinline__ void fwd_band(const Operands& o, int slot, float* __restrict__ part, df (*red)[kFwdMaxWarps],
+                                         int np, int nr, int nc, int band, int rows, int p, int max_bands) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = band * rows + warp;
+  df s = {0.f, 0.f}, q = {0.f, 0.f};
+  if (warp < rows && n < nr) {  // warp-uniform
+    Row<NS> row;
+    row.load(o, p, nr, n);
+    const size_t ik_row = IK ? ((size_t)slot * nr + n) * nc : 0;
+    for (int k0 = 0; k0 < nc; k0 += kFwdChunkCols) {
+      // the chunk's elements without a branch, so that the compiler interleaves their E
+#pragma unroll
+      for (int j = 0; j < kFwdLaneCols; ++j) {
+        const int k = k0 + 32 * j + lane;
+        const bool kv = k < nc;
+        const size_t ci = (size_t)p * nc + (kv ? k : 0);
+        const df c = {o.ch[ci], o.cl[ci]}, bj = {o.bjh[ci], o.bjl[ci]};
+        df xj[NS];
+#pragma unroll
+        for (int e = 0; e < NS; ++e) xj[e] = {o.xjh[ci * NS + e], o.xjl[ci * NS + e]};
+        // past the last column E is 0, so every sum adds an exact 0
+        const df e_k = e_elem<NS>(row.a, row.u, c, xj);
+        const df e = kv ? e_k : df{0.f, 0.f};
+        s = df_add(s, df_mul(df_mul(e, row.bi), bj));
+        if (IK) {
+          const size_t i_k = ik_row + (kv ? k : 0);
+          q = df_add(q, df_mul(e, {o.ikh[i_k], o.ikl[i_k]}));
+        }
+      }
+    }
+  }
+  s = warp_df_sum(s);
+  if (IK) q = warp_df_sum(q);
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = q;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {  // the band's warps (zero past its rows) by a fixed pairwise tree
+    const int nw = blockDim.x >> 5;
+    df x[kFwdMaxWarps];
+#pragma unroll
+    for (int w = 0; w < kFwdMaxWarps; ++w) x[w] = w < nw ? red[threadIdx.x][w] : df{0.f, 0.f};
+    pairwise_tree<kFwdMaxWarps>(x);
+    const size_t idx = ((size_t)p * max_bands + band) * 2 + threadIdx.x;
+    part[idx] = x[0].h;
+    part[(size_t)np * max_bands * 2 + idx] = x[0].l;
+  }
+}
+
+// grid: the bands of pair 0, then of pair 1, ...; block 32 max(rows_d,
+// rows_o) threads.
+template <int NS>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps, 1)
+df_fwd_kernel(Operands o, const int* __restrict__ diag_pos, int n_diag, float* __restrict__ part, int np, int nr,
+              int nc, FwdPlan plan) {
+  gpmpc_pdl::release_dependents();     // the summing launch waits for this one to end
+  gpmpc_pdl::wait_for_prerequisite();  // this launch is a programmatic dependent of the kernel before it
+  __shared__ df red[2][kFwdMaxWarps];
+  int band = blockIdx.x, p = 0, slot = ik_slot(0, diag_pos, n_diag);
+  int rows = slot >= 0 ? plan.rows_d : plan.rows_o;
+  while (band >= (nr + rows - 1) / rows) {
+    band -= (nr + rows - 1) / rows;
+    slot = ik_slot(++p, diag_pos, n_diag);
+    rows = slot >= 0 ? plan.rows_d : plan.rows_o;
+  }
+  if (slot >= 0)
+    fwd_band<NS, true>(o, slot, part, red, np, nr, nc, band, rows, p, plan.max_bands);
+  else
+    fwd_band<NS, false>(o, slot, part, red, np, nr, nc, band, rows, p, plan.max_bands);
+}
+
+// One block of kFwdSumThreads, a programmatic dependent of the forward: out
+// planes [2 (hi, lo)][P + n_diag], S_p[p] for p < P, then corr[m] of pair
+// diag_pos[m]. A warp per output: its lanes add the pair's bands t = lane +
+// 32 i in order, then a warp tree; a fixed order.
+__global__ void __launch_bounds__(kFwdSumThreads)
+df_fwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int np, int nr, FwdPlan plan,
+                  const int* __restrict__ diag_pos, int n_diag) {
+  gpmpc_pdl::release_dependents();  // a programmatic dependent launch after this one may start
+  gpmpc_pdl::wait_for_prerequisite();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_out = np + n_diag;
+  const size_t plane = (size_t)np * plan.max_bands * 2;
+  for (int o = warp; o < n_out; o += kFwdSumThreads / 32) {
+    const bool corr = o >= np;
+    const int p = corr ? diag_pos[o - np] : o;
+    const int rows = ik_slot(p, diag_pos, n_diag) >= 0 ? plan.rows_d : plan.rows_o;
+    const int n_bands = (nr + rows - 1) / rows;
+    df acc = {0.f, 0.f};
+    for (int t = lane; t < n_bands; t += 32) {
+      const size_t idx = ((size_t)p * plan.max_bands + t) * 2 + corr;
+      acc = df_add(acc, {part[idx], part[plane + idx]});
+    }
+    acc = warp_df_sum(acc);
+    if (lane == 0) {
+      out[o] = acc.h;
+      out[n_out + o] = acc.l;
+    }
+  }
+}
+
 // grid (ceil(N / kWarps), 2P), block kThreads. Warp w of block (x, b) owns
 // stacked row n = x kWarps + w of stacked pair b: pair b on the row side
 // (b < P), pair b - P with the roles swapped on the column side. gs and gco
@@ -457,41 +509,40 @@ df_bwd_kernel(Operands o, const float* __restrict__ gs, const float* __restrict_
   }
 }
 
-// out[o, i] = df sum over t of part[o, t, i], sequentially in t.
-// part: planes [2][outer][n_parts][inner]; out: planes [2][outer][inner]
-__global__ void df_sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int outer, int n_parts, int inner) {
-  const size_t total = (size_t)outer * inner;
-  const size_t plane = (size_t)outer * n_parts * inner;
-  for (size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x; o < total;
-       o += (size_t)gridDim.x * blockDim.x) {
-    const size_t oo = o / inner, ii = o % inner;
-    df acc = {0.f, 0.f};
-    for (int t = 0; t < n_parts; ++t) {
-      const size_t idx = (oo * n_parts + t) * inner + ii;
-      acc = df_add(acc, {part[idx], part[plane + idx]});
-    }
-    out[o] = acc.h;
-    out[total + o] = acc.l;
-  }
-}
-
-int launch_sum_parts(const float* part, float* out, int outer, int n_parts, int inner,
-                     cudaStream_t stream) {
-  const long long total = (long long)outer * inner;
-  const int blocks = (int)(total < 256LL * 1024 ? (total + 255) / 256 : 1024);
-  df_sum_parts_kernel<<<blocks, 256, 0, stream>>>(part, out, outer, n_parts, inner);
-  return (int)cudaGetLastError();
-}
+int fwd_threads(const FwdPlan& plan) { return 32 * (plan.rows_d > plan.rows_o ? plan.rows_d : plan.rows_o); }
 
 template <int NS>
-int launch_fwd(const Operands& o, const int* diag_pos, int n_diag, float* part, float* out,
-               int p, int nr, int nc, cudaStream_t stream) {
-  const dim3 grid((nc + kTileCols - 1) / kTileCols, (nr + kTileRows - 1) / kTileRows, p);
-  df_fwd_kernel<NS><<<grid, kThreads, 0, stream>>>(o, diag_pos, n_diag, part, nr, nc);
-  const int rc = (int)cudaGetLastError();
+int launch_fwd(const Operands& o, const int* diag_pos, int n_diag, float* part, float* out, int p, int nr, int nc,
+               FwdPlan plan, int blocks, cudaStream_t stream) {
+  const int rc = gpmpc_pdl::launch_dependent(df_fwd_kernel<NS>, blocks, fwd_threads(plan), 0, stream, o, diag_pos,
+                                             n_diag, part, p, nr, nc, plan);
   if (rc != 0) return rc;
-  return launch_sum_parts(part, out, p, grid.x * grid.y, 2, stream);
+  return gpmpc_pdl::launch_dependent(df_fwd_sum_kernel, 1, kFwdSumThreads, 0, stream, (const float*)part, out, p, nr,
+                                     plan, diag_pos, n_diag);
+}
+
+// #5's registers, spill bytes, threads, resident blocks per SM, grid, SMs
+// and dynamic shared memory (none), then the rows of its bands, for the
+// smoke's report: info[9]
+template <int NS>
+int fwd_info(FwdPlan plan, int blocks, int* info) {
+  cudaFuncAttributes a;
+  int rc = (int)cudaFuncGetAttributes(&a, df_fwd_kernel<NS>);
+  if (rc != 0) return rc;
+  int per_sm = 0, dev = 0, sms = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_fwd_kernel<NS>, fwd_threads(plan), 0);
+  if (rc != 0) return rc;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int vals[9] = {a.numRegs, (int)a.localSizeBytes, fwd_threads(plan), per_sm, blocks, sms, 0, plan.rows_d,
+                       plan.rows_o};
+  for (int k = 0; k < 9; ++k) info[k] = vals[k];
+  return 0;
+}
+
+bool valid_plan(const FwdPlan& plan, int blocks) {
+  return plan.rows_d >= 1 && plan.rows_d <= kFwdMaxWarps && plan.rows_o >= 1 && plan.rows_o <= kFwdMaxWarps &&
+         plan.max_bands >= 1 && blocks >= 1;
 }
 
 Bands fwdres_bands(int p, int nr, int n_diag, int ns) {
@@ -570,22 +621,35 @@ int launch_bwd(const Operands& o, const float* gs, const float* gco, const int* 
 
 extern "C" {
 
-// tile extents: the wrappers size the partial buffers with them
-int gpmpc_df_tile_rows() { return kTileRows; }
-int gpmpc_df_tile_cols() { return kTileCols; }
-
+// the lean forward on the bands the wrapper planned (df_cov.fwd_launch_plan:
+// rows per band of a diagonal and of another pair, the most bands of a pair,
+// the blocks); part [2][P][max_bands][2], out [2][P + n_diag]
 int gpmpc_df_fwd_f32(const float* ah, const float* al, const float* ch, const float* cl,
                      const float* uh, const float* ul, const float* xjh, const float* xjl,
                      const float* bih, const float* bil, const float* bjh, const float* bjl,
                      const float* ikh, const float* ikl, const int* diag_pos, int n_diag,
-                     float* part, float* out, int p, int nr, int nc, int ns, void* stream) {
-  if (p < 1 || nr < 1 || nc < 1) return (int)cudaErrorInvalidValue;
+                     float* part, float* out, int p, int nr, int nc, int ns, int rows_d, int rows_o,
+                     int max_bands, int blocks, void* stream) {
+  const FwdPlan plan{rows_d, rows_o, max_bands};
+  if (p < 1 || nr < 1 || nc < 1 || !valid_plan(plan, blocks)) return (int)cudaErrorInvalidValue;
   const Operands o{ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ns) {
-    case 1: return launch_fwd<1>(o, diag_pos, n_diag, part, out, p, nr, nc, s);
-    case 2: return launch_fwd<2>(o, diag_pos, n_diag, part, out, p, nr, nc, s);
-    case 3: return launch_fwd<3>(o, diag_pos, n_diag, part, out, p, nr, nc, s);
+    case 1: return launch_fwd<1>(o, diag_pos, n_diag, part, out, p, nr, nc, plan, blocks, s);
+    case 2: return launch_fwd<2>(o, diag_pos, n_diag, part, out, p, nr, nc, plan, blocks, s);
+    case 3: return launch_fwd<3>(o, diag_pos, n_diag, part, out, p, nr, nc, plan, blocks, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// #5's launch report (fwd_info) for a planned launch: info[9]
+int gpmpc_df_fwd_info(int ns, int rows_d, int rows_o, int max_bands, int blocks, int* info) {
+  const FwdPlan plan{rows_d, rows_o, max_bands};
+  if (!valid_plan(plan, blocks)) return (int)cudaErrorInvalidValue;
+  switch (ns) {
+    case 1: return fwd_info<1>(plan, blocks, info);
+    case 2: return fwd_info<2>(plan, blocks, info);
+    case 3: return fwd_info<3>(plan, blocks, info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -55,21 +55,23 @@ None of the kernels stores E. What bounds them on an H100 is arithmetic:
 each E element costs about 700 f32 add/multiply instructions (12 df Horner
 steps in the exp alone), none of which may fuse into an FMA, so the bound is
 instructions over the FP32 lanes' issue rate, far above the bytes of the df
-iK slab. The lean forward tiles a pair's (N, N) slab into 32 x 64 blocks of
-256 threads (8 warps, one row each at a time; a lane owns two columns). The
-forward with residuals runs on row bands: a block owns a band of rows of one
+iK slab. Both forwards run on row bands: a block owns a band of rows of one
 pair against all columns, a warp one row, and the bands' sizes are chosen
 from the card's SM count so that all blocks fit one wave and carry about the
-same work, a diagonal pair's (with its iK terms) in shorter bands
-(``fwdres_launch_info`` reports the launch). Its row sums end inside their
-warp; its column sums are added over the band's warps in shared memory and
-written per band. Cross-block partials are summed by a second launch in df32
-in a fixed order (for df_fwdres a programmatic dependent launch), so no
-atomics and runs repeat bitwise.
+same work, a diagonal pair's (with its iK terms) in shorter bands (the lean
+forward's planned here, ``fwd_launch_plan``; ``fwd_launch_info`` and
+``fwdres_launch_info`` report the launches). The lean forward sums each
+band's terms inside its lanes, then its warps; the forward with residuals
+ends its row sums inside their warp and adds its column sums over the band's
+warps in shared memory, written per band. The bands' partials are summed by
+a second launch, a programmatic dependent, in df32 in a fixed order (the
+lean forward's writes S_p and corr in diag_pos order, so the wrapper runs no
+PyTorch operation after it), so no atomics and runs repeat bitwise.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Tuple
 
@@ -265,25 +267,88 @@ def _ptrs(args):
     return [t.data_ptr() for t in args]
 
 
+FWD_MAX_ROWS = 20  # kFwdMaxWarps of csrc/df_cov.cu: a band's rows, a warp each
+
+
+def fwd_elem_cost(ns: int, diag: bool) -> int:
+    """f32 instructions per slab element of ``df_fwd``, from the counts of
+    csrc/df32.cuh's operations (df_add 11, df_mul 32, df_exp 566; the
+    exponent's two_sum and fast_two_sum 11, its cap 1): E, the S_p term
+    bi E bj and its sum, and on a diagonal pair the corr term iK E and its
+    sum (chip_smoke.df_instructions_per_element counts the same)."""
+    df_add, df_mul, df_exp = 11, 32, 566
+    e = 11 + ns * (df_mul + df_add) + 1 + df_exp
+    return e + 2 * df_mul + df_add + (df_mul + df_add if diag else 0)
+
+
+FWD_SCHEDULERS = 4  # warp schedulers of an SM: a block's warp w runs on scheduler w % 4
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_launch_plan(p: int, n: int, diag_pos: Tuple[int, ...], ns: int, sms: int) -> dict:
+    """The row bands of ``df_fwd`` for P pairs of N rows on a card with
+    ``sms`` SMs. Block b takes the bands of pair 0, then of pair 1, ... (a
+    pair of ``rows`` rows per band has ceil(N / rows) bands, the last one
+    shorter); warp w of band t owns the row t rows + w (w < rows), its lanes
+    the columns lane + 32 j. A diagonal pair's bands have ``rows_diag`` rows,
+    another's ``rows_off``. A block runs one warp per row, spread over the
+    SM's FWD_SCHEDULERS warp schedulers, so it takes as long as its busiest
+    scheduler: ceil(rows / 4) rows of ``fwd_elem_cost`` each. The plan is the
+    (rows_diag, rows_off), each at most FWD_MAX_ROWS and N, whose bands fit
+    one wave of one block per SM with the least such time, on a tie the
+    fewest blocks; where none fits, the longest bands. ``threads`` is the
+    block: 32 times the longer band."""
+    kinds = set(diag_pos)
+    cd, co = fwd_elem_cost(ns, True), fwd_elem_cost(ns, False)
+    cap = min(FWD_MAX_ROWS, n)
+
+    def cost(rows_d, rows_o):
+        bands_d, bands_o = -(-n // rows_d), -(-n // rows_o)
+        blocks = len(kinds) * bands_d + (p - len(kinds)) * bands_o
+        busiest = max(-(-rows_d // FWD_SCHEDULERS) * cd if kinds else 0,
+                      -(-rows_o // FWD_SCHEDULERS) * co if len(kinds) < p else 0)
+        return (blocks > sms, busiest, blocks), (rows_d, rows_o, blocks, max(bands_d, bands_o))
+
+    rows_d_all = range(1, cap + 1) if kinds else (cap,)
+    rows_o_all = range(1, cap + 1) if len(kinds) < p else (cap,)
+    key, (rows_d, rows_o, blocks, max_bands) = min(cost(rd, ro) for rd in rows_d_all for ro in rows_o_all)
+    if key[0]:  # no plan fits one wave
+        rows_d, rows_o, blocks, max_bands = cost(cap, cap)[1]
+    return dict(rows_diag=rows_d, rows_off=rows_o, blocks=blocks, max_bands=max_bands,
+                threads=32 * max(rows_d if kinds else 1, rows_o if len(kinds) < p else 1))
+
+
 def df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
     """(S_p h, l (P,), corr h, l (n_diag,)). A CPU tensor takes the plain twin;
-    a CUDA tensor launches the kernel or raises."""
+    a CUDA tensor launches the kernel or raises. On the card the four are
+    views of the summing launch's one output: no PyTorch operation follows
+    the kernels."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
     if ah.device.type == "cpu":
         return df_cov_fwd_plain(*args, diag_pos)
     p, nr, nc, ns = _check("df_cov_fwd", args, diag_pos)
+    diag_pos = tuple(diag_pos)
+    if not all(0 <= q < p for q in diag_pos):  # the summing launch reads pair diag_pos[m]'s partials
+        raise ValueError(f"df_cov_fwd: diag_pos {diag_pos} outside the {p} pairs")
     lib = _build.load()
-    tr, tc = lib.gpmpc_df_tile_rows(), lib.gpmpc_df_tile_cols()
-    nblk = -(-nr // tr) * -(-nc // tc)
-    part = torch.empty((2, p, nblk, 2), dtype=torch.float32, device=ah.device)
-    out = torch.empty((2, p, 2), dtype=torch.float32, device=ah.device)
+    plan = fwd_launch_plan(p, nr, diag_pos, ns, _build.sm_count(ah.device))
+    part = torch.empty((2, p, plan["max_bands"], 2), dtype=torch.float32, device=ah.device)
+    out = torch.empty((2, p + len(diag_pos)), dtype=torch.float32, device=ah.device)
     rc = lib.gpmpc_df_fwd_f32(*_ptrs(args), _index(diag_pos, ah.device, torch.int32).data_ptr(), len(diag_pos),
-                              part.data_ptr(), out.data_ptr(), p, nr, nc, ns,
-                              torch.cuda.current_stream(ah.device).cuda_stream)
+                              part.data_ptr(), out.data_ptr(), p, nr, nc, ns, plan["rows_diag"], plan["rows_off"],
+                              plan["max_bands"], plan["blocks"], torch.cuda.current_stream(ah.device).cuda_stream)
     _build.check(rc, "df_cov_fwd")
     LAUNCHES["df_fwd"] += 1
-    d = _index(diag_pos, ah.device, torch.long)
-    return out[0, :, 0], out[1, :, 0], out[0, :, 1].index_select(0, d), out[1, :, 1].index_select(0, d)
+    return out[0, :p], out[1, :p], out[0, p:], out[1, p:]
+
+
+def fwd_launch_info(p: int, n: int, diag_pos: Tuple[int, ...], ns: int) -> dict:
+    """``df_fwd``'s launch at (P, N, diag_pos) on the current card
+    (``_build.launch_info``), with the rows per band of a diagonal pair and
+    of another pair."""
+    plan = fwd_launch_plan(p, n, tuple(diag_pos), ns, _build.sm_count(torch.device("cuda")))
+    return _build.launch_info("gpmpc_df_fwd_info", ns, plan["rows_diag"], plan["rows_off"], plan["max_bands"],
+                              plan["blocks"], extra=("rows_diag", "rows_off"))
 
 
 def df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):

@@ -24,12 +24,19 @@ Kernels (``csrc/cov_core.cu``), each replacing a Pallas TPU kernel of
   partials in a fixed order and writes S_p and corr, so no PyTorch
   reduction follows the kernel. The forward itself is a programmatic
   dependent of the kernel before it on the stream.
-* ``cov_bwd_row`` replaces ``_bwd_row_kernel`` (via ``_bwd_row_call``).
-  Grid (P, ceil(N/8)), 8 warps, one warp per row n reducing over k:
-  with W = g wr wc^T E + g_corr iK E it writes ga = rowsum W, gU = W Xj and
-  g_wr = g (E wc). ``CovCore.backward`` runs it twice, the second time with
-  (a, c), (U, Xj) and (bi, bj) swapped for the column side; iK is symmetric
-  in the square case, so the same slab serves both sides.
+* ``cov_bwd`` replaces ``_bwd_row_kernel`` (via ``_bwd_row_call``), which
+  the reference launches once per side. One launch runs both sides on 2P
+  stacked rows (``bwd_launch_plan``): rows P..2P-1 are the column side, with
+  (a, U, wr) and (c, Xj, wc) swapped, and read iK's row slab at their own
+  row index (iK is symmetric in the square case). One warp per stacked row
+  reducing over its columns: with W = g wr wc^T E + g_corr iK E it writes
+  ga = rowsum W, gU = W Xj and g_wr = g (E wc). A lane's iK entries and the
+  block's column operands (staged in shared memory) are loaded before any
+  E, and its columns are unrolled. The corr cotangent is read in diag_pos
+  order through each pair's slot, so ``CovCore.backward`` runs no PyTorch
+  scatter before the launch; the launch is a programmatic dependent of the
+  kernel before it. Its launch count keeps the key ``cov_bwd_row``: one per
+  backward.
 * ``cov_gik`` replaces ``_gik_kernel`` (via ``_gik_call``): the gradient
   with respect to iK, gK[m] = g_corr[m] E[diag_pos[m]] (Ns, Nr, Nc). Grid
   (Ns, Nr), 128 threads striding a row's columns, one element each; E by
@@ -39,11 +46,13 @@ Kernels (``csrc/cov_core.cu``), each replacing a Pallas TPU kernel of
   while planning, so a planning step launches it zero times.
 
 What bounds them on an H100: at the flagship shape (P=6, N=384, ns=3) each
-call reads the 1.77 MB iK slab once and evaluates 0.9 M exps, about half a
-microsecond of memory traffic at 3.35 TB/s, so launch latency (~2 us per
-launch) and dependent memory latency dominate: the forward issues a
-thread's column operands and iK loads together, before the band's rows
-are staged, and hides both launches' start behind the kernel before it. The design keeps E out of device memory entirely
+call reads the 1.77 MB iK slab once and evaluates 0.9 M exps (the backward
+1.8 M, both sides), about half a microsecond of memory traffic at 3.35 TB/s,
+so launch latency (~2 us per launch) and dependent memory latency dominate:
+the forward issues a thread's column operands and iK loads together, before
+the band's rows are staged, the backward a lane's iK entries before the
+column operands are staged, and each hides its launch's start behind the
+kernel before it. The design keeps E out of device memory entirely
 (recomputed in the backward, never stored) and uses no atomics, so results
 repeat bitwise. ``cov_gik`` writes its 1.77 MB output once: bytes bound it.
 """
@@ -170,14 +179,30 @@ def fwd_launch_info(p: int, n: int, ns: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# row-side backward kernel and its plain twin
+# backward kernel (both sides) and its plain twins
 # ---------------------------------------------------------------------------
 
 
-def cov_bwd_row_plain(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
-    """What ``cov_bwd_row`` computes, in plain PyTorch (the CPU path).
+BWD_WARPS = 8  # kBwdWarps of csrc/cov_core.cu: stacked rows of a block, a warp each
+BWD_LANE_COLS = 12  # kBwdCols of csrc/cov_core.cu: a lane's columns per batch of 32 BWD_LANE_COLS
 
-    With W = g wr wc^T E + gco iK_slot E: (rowsum W, W Xj, g (E wc))."""
+
+def bwd_launch_plan(p: int, n: int) -> dict:
+    """The grid of ``cov_bwd`` for P pairs of N rows: block (x, s), x <
+    ``row_blocks``, s < 2P, owns the stacked rows x BWD_WARPS + w, w <
+    BWD_WARPS (a warp each; rows past N idle), of stacked pair s: the row
+    side of pair s for s < P, the column side of pair s - P otherwise. A
+    lane takes the columns lane + 32 j of each batch of 32 BWD_LANE_COLS."""
+    return dict(row_blocks=-(-n // BWD_WARPS), stacked_pairs=2 * p, threads=32 * BWD_WARPS,
+                batches=-(-n // (32 * BWD_LANE_COLS)))
+
+
+def cov_bwd_row_plain(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
+    """One side of ``cov_bwd``, in plain PyTorch: the row side as written,
+    the column side with (a, c), (U, Xj) and (wr, wc) swapped.
+
+    With W = g wr wc^T E + gco iK_slot E (gco (P,), zero off the diagonal
+    pairs): (rowsum W, W Xj, g (E wc))."""
     e = _e_slab(a, c, u, xj)
     ewc = e * wc[:, None, :]
     w = (g[:, None, None] * wr[:, :, None]) * ewc
@@ -186,6 +211,17 @@ def cov_bwd_row_plain(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
         corr_w[p] = gco[p] * ik[m] * e[p]
     w = w + corr_w
     return w.sum(dim=2), torch.einsum("pnk,pke->pne", w, xj), g[:, None] * ewc.sum(dim=2)
+
+
+def cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos):
+    """What ``cov_bwd`` computes, in plain PyTorch (the CPU path): the two
+    one-side calls, the corr cotangent scattered to the pair axis.
+    (ga, gc, gU, gXj, gbi, gbj)."""
+    gco = torch.zeros(a.shape[0], dtype=g_corr.dtype, device=g_corr.device).index_copy(
+        0, _index(diag_pos, g_corr.device, torch.long), g_corr)
+    ga, gu, gbi = cov_bwd_row_plain(g, a, c, u, xj, bi, bj, ik, gco, diag_pos)
+    gc, gxj, gbj = cov_bwd_row_plain(g, c, a, xj, u, bj, bi, ik, gco, diag_pos)
+    return ga, gc, gu, gxj, gbi, gbj
 
 
 def cov_fwd_abs_terms(a, c, u, xj, bi, bj, ik, diag_pos):
@@ -197,8 +233,8 @@ def cov_fwd_abs_terms(a, c, u, xj, bi, bj, ik, diag_pos):
 
 
 def cov_bwd_row_abs_terms(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
-    """Sum of the absolute values of the terms of each ``cov_bwd_row``
-    output (see cov_fwd_abs_terms): E keeps its signed exponent, the
+    """Sum of the absolute values of the terms of each output of one side
+    of ``cov_bwd`` (see cov_fwd_abs_terms): E keeps its signed exponent, the
     factors g, wr, wc, gco, iK and, in gU, Xj are taken absolute."""
     e = _e_slab(a, c, u, xj)
     ewc = e * wc.abs()[:, None, :]
@@ -210,34 +246,44 @@ def cov_bwd_row_abs_terms(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
     return w.sum(dim=2), torch.einsum("pnk,pke->pne", w, xj.abs()), g.abs()[:, None] * ewc.sum(dim=2)
 
 
-def cov_bwd_row(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
-    """(ga (P,Nr), gU (P,Nr,ns), g_wr (P,Nr)). A CPU tensor takes the plain
-    twin; a CUDA tensor launches the kernel or raises."""
+def cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos):
+    """(ga, gc (P, N), gU, gXj (P, N, ns), gbi, gbj (P, N)): the cov core's
+    backward on both sides at the S_p cotangent g (P,) and the corr
+    cotangent g_corr (n_diag,), in diag_pos order; square slabs. A CPU
+    tensor takes the plain twin; a CUDA tensor launches the kernel once or
+    raises."""
     if a.device.type == "cpu":
-        return cov_bwd_row_plain(g, a, c, u, xj, wr, wc, ik, gco, diag_pos)
-    _check_cuda_f32("cov_bwd_row", g=g, a=a, c=c, u=u, xj=xj, wr=wr, wc=wc, ik=ik, gco=gco)
-    p, nr = a.shape
-    nc = c.shape[1]
+        return cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos)
+    _check_cuda_f32("cov_bwd", g=g, a=a, c=c, u=u, xj=xj, bi=bi, bj=bj, ik=ik, g_corr=g_corr)
+    p, n = a.shape
     ns = u.shape[2]
-    if g.shape != (p,) or gco.shape != (p,) or u.shape != (p, nr, ns) \
-            or xj.shape != (p, nc, ns) or wr.shape != (p, nr) or wc.shape != (p, nc) \
-            or ik.shape != (len(diag_pos), nr, nc):
-        raise ValueError("cov_bwd_row: inconsistent shapes")
-    _check_ns("cov_bwd_row", ns)
+    if g.shape != (p,) or g_corr.shape != (len(diag_pos),) or c.shape != (p, n) or u.shape != (p, n, ns) \
+            or xj.shape != (p, n, ns) or bi.shape != (p, n) or bj.shape != (p, n) \
+            or ik.shape != (len(diag_pos), n, n):
+        raise ValueError("cov_bwd: inconsistent shapes (square slabs only)")
+    _check_ns("cov_bwd", ns)
+    if not all(0 <= q < p for q in diag_pos):  # a diagonal pair reads its slot's iK slab and cotangent
+        raise ValueError(f"cov_bwd: diag_pos {tuple(diag_pos)} outside the {p} pairs")
     lib = _build.load()
-    ga = torch.empty((p, nr), dtype=torch.float32, device=a.device)
-    gu = torch.empty((p, nr, ns), dtype=torch.float32, device=a.device)
-    gwr = torch.empty((p, nr), dtype=torch.float32, device=a.device)
-    dpos = _index(diag_pos, a.device, torch.int32)
-    rc = lib.gpmpc_cov_bwd_row_f32(
-        g.data_ptr(), a.data_ptr(), c.data_ptr(), u.data_ptr(), xj.data_ptr(),
-        wr.data_ptr(), wc.data_ptr(), ik.data_ptr(), gco.data_ptr(), dpos.data_ptr(),
-        len(diag_pos), ga.data_ptr(), gu.data_ptr(), gwr.data_ptr(), p, nr, nc, ns,
+    plan = bwd_launch_plan(p, n)
+    ga = torch.empty((2, p, n), dtype=torch.float32, device=a.device)
+    gu = torch.empty((2, p, n, ns), dtype=torch.float32, device=a.device)
+    gw = torch.empty((2, p, n), dtype=torch.float32, device=a.device)
+    rc = lib.gpmpc_cov_bwd_f32(
+        g.data_ptr(), a.data_ptr(), c.data_ptr(), u.data_ptr(), xj.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+        ik.data_ptr(), g_corr.data_ptr(), _index(diag_pos, a.device, torch.int32).data_ptr(), len(diag_pos),
+        ga.data_ptr(), gu.data_ptr(), gw.data_ptr(), p, n, ns, plan["row_blocks"],
         torch.cuda.current_stream(a.device).cuda_stream,
     )
-    _build.check(rc, "cov_bwd_row")
+    _build.check(rc, "cov_bwd")
     LAUNCHES["cov_bwd_row"] += 1
-    return ga, gu, gwr
+    return ga[0], ga[1], gu[0], gu[1], gw[0], gw[1]
+
+
+def bwd_launch_info(p: int, n: int, ns: int) -> dict:
+    """``cov_bwd``'s launch at (P, N, ns) on the current card
+    (``_build.launch_info``)."""
+    return _build.launch_info("gpmpc_cov_bwd_info", p, n, ns)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +344,8 @@ def cov_gik(g_corr, a, c, u, xj, diag_pos):
 class CovCore(torch.autograd.Function):
     """(S_p, corr) with the kernel backward; mirrors _make_cov_core
     (gpmpc_tpu/ops/pallas_moment_cov.py:241-285) for the square case. The
-    iK gradient is its own launch (``cov_gik``), made only when iK needs one."""
+    backward of both sides is one ``cov_bwd`` launch; the iK gradient is its
+    own launch (``cov_gik``), made only when iK needs one."""
 
     @staticmethod
     def forward(ctx, a, c, u, xj, bi, bj, ik, diag_pos):
@@ -314,15 +361,10 @@ class CovCore(torch.autograd.Function):
             raise NotImplementedError("CovCore: rectangular (sharded) slabs are not ported")
         p = a.shape[0]
         g_s = torch.zeros(p, dtype=a.dtype, device=a.device) if g_s is None else g_s.contiguous()
-        g_co = torch.zeros(p, dtype=a.dtype, device=a.device)
-        if g_corr is not None:
-            # corr cotangent scattered to the pair axis, zero off-diagonal
-            g_co = g_co.index_copy(0, _index(diag_pos, a.device, torch.long), g_corr)
-        ga, gu, gbi = cov_bwd_row(g_s, a, c, u, xj, bi, bj, ik, g_co, diag_pos)
-        gc, gxj, gbj = cov_bwd_row(g_s, c, a, xj, u, bj, bi, ik, g_co, diag_pos)
+        g_corr = torch.zeros(len(diag_pos), dtype=a.dtype, device=a.device) if g_corr is None \
+            else g_corr.contiguous()
+        ga, gc, gu, gxj, gbi, gbj = cov_bwd(g_s, a, c, u, xj, bi, bj, ik, g_corr, diag_pos)
         gik = None
         if ctx.needs_input_grad[6]:
-            g_corr = torch.zeros(len(diag_pos), dtype=a.dtype, device=a.device) if g_corr is None \
-                else g_corr.contiguous()
             gik = cov_gik(g_corr, a, c, u, xj, diag_pos)
         return ga, gc, gu, gxj, gbi, gbj, gik, None

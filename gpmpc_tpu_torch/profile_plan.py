@@ -105,8 +105,8 @@ def profile_case(name, n_points, bucket, steps, dev, warmup=2):
         by_name[kname] += end - start
         count[kname] += 1
     port = {}
-    for short in ("gram_kernel", "cov_fwd_kernel", "cov_bwd_row_kernel", "df_fwd_kernel",
-                  "df_fwdres_kernel", "df_sum_parts_kernel", "df_mm_fwd_kernel", "df_mm_fwd_sum_kernel",
+    for short in ("gram_kernel", "cov_fwd_kernel", "cov_bwd_kernel", "df_fwd_kernel",
+                  "df_fwdres_kernel", "df_fwd_sum_kernel", "df_mm_fwd_kernel", "df_mm_fwd_sum_kernel",
                   "df_mm_bwd_kernel", "df_mm_bwd_sum_kernel"):
         names = [k for k in by_name if short in k]
         n = sum(count[k] for k in names)

@@ -6,7 +6,7 @@ the card and nvcc (no JAX needed, hence no repo conftest):
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Sizes cover a single row, ragged edges (N not a multiple of the 8-row
-backward block, nor of the df kernels' 32 x 64 tiles, nor a whole number of
+backward block, nor a whole number of the df lean forward's bands or
 the cov forward's row bands) and the flagship N=384. The kernels whose
 cross-block sums run in a fixed order are also called twice and must agree
 bit for bit.
@@ -102,15 +102,22 @@ def test_cov_fwd_kernel_matches_plain(dev, n, ns):
 
 @pytest.mark.parametrize("n", SIZES)
 def test_cov_bwd_row_kernel_matches_plain(dev, n):
+    """#3, both sides in one launch (cov_bwd), against the two one-side
+    plain calls, each output within COV_RTOL of its sum of |terms|, bitwise
+    repeatable; the corr cotangent in diag_pos order."""
     a, c, u, xj, bi, bj, ik = _cov_problem(n + 1, n, dev)
     g = torch.linspace(1.0, 2.0, 6, device=dev)
-    gco = torch.zeros(6, device=dev).index_copy(0, torch.tensor(DIAG, device=dev),
-                                                 torch.tensor([1.0, 2.0, 3.0], device=dev))
-    out = moment_cov.cov_bwd_row(g, a, c, u, xj, bi, bj, ik, gco, DIAG)
-    ref = moment_cov.cov_bwd_row_plain(g, a, c, u, xj, bi, bj, ik, gco, DIAG)
-    scale = moment_cov.cov_bwd_row_abs_terms(g, a, c, u, xj, bi, bj, ik, gco, DIAG)
-    for o, r, s in zip(out, ref, scale):
+    g_corr = torch.tensor([1.0, -2.0, 3.0], device=dev)
+    gco = torch.zeros(6, device=dev).index_copy(0, torch.tensor(DIAG, device=dev), g_corr)
+    out = moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, DIAG)
+    ref = moment_cov.cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, DIAG)
+    row = moment_cov.cov_bwd_row_abs_terms(g, a, c, u, xj, bi, bj, ik, gco, DIAG)
+    col = moment_cov.cov_bwd_row_abs_terms(g, c, a, xj, u, bj, bi, ik.transpose(1, 2), gco, DIAG)
+    for o, r, s in zip(out, ref, (row[0], col[0], row[1], col[1], row[2], col[2])):
+        assert o.shape == r.shape
         assert torch.all((o - r).abs() <= COV_RTOL * s + 1e-30)
+    again = moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, DIAG)
+    assert all(torch.equal(x, y) for x, y in zip(again, out))  # bitwise repeatable
 
 
 def test_covcore_autograd_matches_plain_and_counts_launches(dev):
@@ -124,7 +131,7 @@ def test_covcore_autograd_matches_plain_and_counts_launches(dev):
 
     for o, r in zip(grads(ops.cov_core), grads(moment_cov.cov_core_ref)):
         torch.testing.assert_close(o, r, rtol=0, atol=1e-4 * float(r.abs().max()))
-    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 1, "cov_bwd_row": 2, "cov_gik": 0, "df_fwd": 0,
+    assert ops.launch_counts() == {"gram": 0, "cov_fwd": 1, "cov_bwd_row": 1, "cov_gik": 0, "df_fwd": 0,
                                    "df_fwdres": 0, "df_bwd": 0, "df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0,
                                    "df_mm_bwd_mean": 0, "df_mm_bwd_pair": 0}
 

@@ -8,16 +8,28 @@ every element exactly once.
 * ``moment_cov.fwd_launch_plan`` (#2 ``cov_fwd``, csrc/cov_core.cu): row
   bands of one pair against all columns, a thread a column against every
   m-th row of the band.
+* ``df_cov.fwd_launch_plan`` (#5 ``df_fwd``, csrc/df_cov.cu): row bands of
+  one pair against all columns, a warp a row, shorter bands on the diagonal
+  pairs, sized for the busiest warp scheduler of an SM.
+* ``moment_cov.bwd_launch_plan`` (#3 ``cov_bwd``, csrc/cov_core.cu): 2P
+  stacked rows (the row side, then the column side), a warp a row. Its grid
+  does not depend on the SM count.
 
 Each case mirrors the kernel's mapping from (block, warp or thread, lane,
 step) to (pair, row, column) as its source comment states it, counts the
-elements each plan reaches and requires every count to be 1. CPU only.
+elements each plan reaches and requires every count to be 1. CPU only. The
+last cases hold #3's two-side plain twin (the CPU path of ``cov_bwd``) to
+its two one-side calls and to the JAX package's cov core VJP.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
-from gpmpc_tpu_torch.ops import df_mm, moment_cov
+from gpmpc_tpu.ops import cov_core_xla
+from gpmpc_tpu_torch.ops import df_cov, df_mm, moment_cov
 
 SIZES = [24, 32, 37, 100, 128, 384]
 SMS = [132, 114, 8]
@@ -99,3 +111,142 @@ def test_cov_fwd_plan_covers_every_element_once(n, sms):
         counts, loads = _cov_counts(p, n, rows, bands)
         assert np.all(counts == 1), (p, int(counts.min()), int(counts.max()))
         assert max(loads) <= 1  # every thread of a block within one element of the others
+
+
+PLAN_SIZES = [32, 100, 128, 384, 512]
+PLAN_SMS = [132, 114, 78]
+DF_FWD_LANE_COLS = 2  # kFwdLaneCols of csrc/df_cov.cu: a lane's columns per chunk
+# (P, diag_pos, ns): the flagship's three models, one model, two models
+DF_CASES = [(6, (0, 3, 5), 3), (1, (0,), 1), (3, (0, 2), 2)]
+
+
+def _lane_columns(n, lane_cols):
+    """The columns lane + 32 j of each chunk of 32 lane_cols, below N."""
+    chunk = 32 * lane_cols
+    k = (np.arange(0, n, chunk)[:, None, None] + 32 * np.arange(lane_cols)[None, :, None]
+         + np.arange(32)[None, None, :]).ravel()
+    return k[k < n]
+
+
+def _df_fwd_counts(p, n, diag_pos, plan):
+    """(pair, row, column) counts of #5's grid: block b the bands of pair 0,
+    then of pair 1, ...; warp w of band t the row t rows + w (w < rows), its
+    lanes the columns lane + 32 j of each chunk. Also the blocks walked and
+    the most bands of a pair."""
+    counts = np.zeros((p, n, n), dtype=np.int64)
+    cols = _lane_columns(n, DF_FWD_LANE_COLS)
+    blocks, most = 0, 0
+    for q in range(p):
+        rows = plan["rows_diag"] if q in diag_pos else plan["rows_off"]
+        bands = -(-n // rows)
+        most = max(most, bands)
+        for t in range(bands):
+            for w in range(plan["threads"] // 32):
+                row = t * rows + w
+                if w < rows and row < n:
+                    np.add.at(counts[q, row], cols, 1)
+            blocks += 1
+    return counts, blocks, most
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_df_fwd_plan_covers_every_element_once(n, sms):
+    for p, diag_pos, ns in DF_CASES:
+        plan = df_cov.fwd_launch_plan(p, n, diag_pos, ns, sms)
+        cap = min(df_cov.FWD_MAX_ROWS, n)
+        assert 1 <= plan["rows_diag"] <= cap and 1 <= plan["rows_off"] <= cap
+        assert plan["threads"] <= 32 * df_cov.FWD_MAX_ROWS
+        counts, blocks, most = _df_fwd_counts(p, n, diag_pos, plan)
+        assert np.all(counts == 1), (p, int(counts.min()), int(counts.max()))
+        assert blocks == plan["blocks"] and most == plan["max_bands"]  # the summing launch's stride
+        if plan["blocks"] > sms:  # more than one wave only where the longest bands cannot fit one
+            assert plan["rows_diag"] == plan["rows_off"] == cap
+            assert len(diag_pos) * -(-n // cap) + (p - len(diag_pos)) * -(-n // cap) > sms
+    if sms == 132 and n == 384:  # the flagship: 4 rows a scheduler on diagonal pairs, 5 elsewhere
+        plan = df_cov.fwd_launch_plan(6, 384, (0, 3, 5), 3, 132)
+        assert (plan["rows_diag"], plan["rows_off"], plan["blocks"]) == (16, 20, 132)
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3])
+def test_df_fwd_plan_costs_are_the_smokes_instruction_counts(ns):
+    """The element costs the band plan weighs are the f32 instruction
+    counts chip_smoke.py bounds #5 with (its own count of csrc/df32.cuh)."""
+    import chip_smoke
+
+    per, per_diag = chip_smoke.df_instructions_per_element(ns)["df_fwd"]
+    assert (df_cov.fwd_elem_cost(ns, False), df_cov.fwd_elem_cost(ns, True)) == (per, per + per_diag)
+
+
+def _cov_bwd_counts(p, n, plan):
+    """(side, pair, row, column) counts of #3's grid: block (x, s) the
+    stacked rows x BWD_WARPS + w of stacked pair s (s < P the row side of
+    pair s, else the column side of pair s - P, whose rows are the pair's
+    columns), a lane the columns lane + 32 j of each batch."""
+    counts = np.zeros((2, p, n, n), dtype=np.int64)
+    cols = _lane_columns(n, moment_cov.BWD_LANE_COLS)
+    for s in range(plan["stacked_pairs"]):
+        for x in range(plan["row_blocks"]):
+            for w in range(plan["threads"] // 32):
+                row = x * moment_cov.BWD_WARPS + w
+                if row < n:
+                    np.add.at(counts[s // p, s % p, row], cols, 1)
+    return counts
+
+
+@pytest.mark.parametrize("p", [1, 3, 6])
+@pytest.mark.parametrize("n", PLAN_SIZES)
+def test_cov_bwd_plan_covers_every_element_once(n, p):
+    plan = moment_cov.bwd_launch_plan(p, n)
+    assert plan["threads"] == 32 * moment_cov.BWD_WARPS and plan["stacked_pairs"] == 2 * p
+    assert plan["batches"] == -(-n // (32 * moment_cov.BWD_LANE_COLS))
+    counts = _cov_bwd_counts(p, n, plan)
+    assert np.all(counts == 1), (int(counts.min()), int(counts.max()))  # every element once on each side
+
+
+def _cov_args(seed, dtype, p=6, n=40, ns=3):
+    rng = np.random.default_rng(seed)
+    ikh = rng.normal(0, 0.1, (3, n, n))
+    return tuple(v.astype(dtype) for v in (
+        rng.normal(-2, 0.5, (p, n)), rng.normal(-2, 0.5, (p, n)), rng.normal(0, 0.3, (p, n, ns)),
+        rng.normal(0, 0.3, (p, n, ns)), rng.normal(0, 1, (p, n)), rng.normal(0, 1, (p, n)),
+        (ikh + ikh.transpose(0, 2, 1)) / 2))
+
+
+COV_DIAG = (0, 3, 5)
+
+
+def test_cov_bwd_plain_is_the_two_one_side_calls():
+    """#3's two-side plain twin (the CPU path of cov_bwd, and the oracle of
+    the kernel) equals the row-side and the role-swapped column-side calls
+    of the one-side twin bit for bit, the corr cotangent scattered by slot."""
+    a, c, u, xj, bi, bj, ik = (torch.tensor(v) for v in _cov_args(0, np.float32))
+    g = torch.linspace(1.0, 2.0, 6)
+    g_corr = torch.tensor([1.0, -2.0, 3.0])
+    gco = torch.zeros(6).index_copy(0, torch.tensor(COV_DIAG), g_corr)
+    two = moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, COV_DIAG)
+    row = moment_cov.cov_bwd_row_plain(g, a, c, u, xj, bi, bj, ik, gco, COV_DIAG)
+    col = moment_cov.cov_bwd_row_plain(g, c, a, xj, u, bj, bi, ik, gco, COV_DIAG)
+    for out, ref in zip(two, (row[0], col[0], row[1], col[1], row[2], col[2])):
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-10), (np.float32, 2e-5)])
+def test_cov_bwd_matches_jax_vjp(dtype, rtol):
+    """cov_bwd (its plain twin here) and CovCore's autograd (which runs it)
+    against JAX's VJP of cov_core_xla in all six operands at the same
+    cotangents, each output relative to its largest entry."""
+    args = _cov_args(1, dtype)
+    g = np.linspace(1.0, 2.0, 6).astype(dtype)
+    g_corr = np.array([1.0, -2.0, 3.0], dtype=dtype)
+    _, vjp = jax.vjp(lambda *t: cov_core_xla(*t, jnp.asarray(args[6]), COV_DIAG), *(jnp.asarray(v) for v in args[:6]))
+    ref = [np.asarray(r) for r in vjp((jnp.asarray(g), jnp.asarray(g_corr)))]  # a, c, U, Xj, bi, bj
+    t = [torch.tensor(v) for v in args]
+    ga, gc, gu, gxj, gbi, gbj = moment_cov.cov_bwd(torch.tensor(g), *t, torch.tensor(g_corr), COV_DIAG)
+    leaves = [x.clone().requires_grad_(True) for x in t[:6]]
+    s, co = moment_cov.CovCore.apply(*leaves, t[6], COV_DIAG)
+    via_core = torch.autograd.grad((s * torch.tensor(g)).sum() + (co * torch.tensor(g_corr)).sum(), leaves)
+    for outs in ((ga, gc, gu, gxj, gbi, gbj), via_core):
+        for out, r in zip(outs, ref):
+            scale = np.abs(r).max()
+            np.testing.assert_allclose(out.detach().numpy() / scale, r / scale, rtol=0, atol=rtol)

@@ -134,7 +134,7 @@ def test_cov_bwd_row_plain_matches_autograd():
     s, co = moment_cov.cov_core_ref(leaves[0], c, leaves[1], xj, leaves[2], bj, ik, DIAG)
     ga_ref, gu_ref, gbi_ref = torch.autograd.grad((s * w_s).sum() + (co * w_c).sum(), leaves)
     gco = torch.zeros(6, dtype=torch.float64).index_copy(0, torch.tensor(DIAG), w_c)
-    ga, gu, gbi = moment_cov.cov_bwd_row(w_s, a, c, u, xj, bi, bj, ik, gco, DIAG)
+    ga, gu, gbi = moment_cov.cov_bwd_row_plain(w_s, a, c, u, xj, bi, bj, ik, gco, DIAG)
     torch.testing.assert_close(ga, ga_ref, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(gu, gu_ref, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(gbi, gbi_ref, rtol=1e-12, atol=1e-12)
