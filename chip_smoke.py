@@ -39,12 +39,15 @@ the df cov kernels (lean forward, forward with residuals, stacked backward)
 on the trained-GP flagship's operands and random ones, the whole-step
 kernels at N = 32, 96, 128 and 384 and the split backward (the mean path's
 and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
-and random ones, each redesigned kernel also for bitwise repeats; it also
-reports the launch shape, time and bound of the six kernels redesigned for
-the H100 (#9 df_mm_bwd, #6 df_fwdres, #12 df_mm_full, #2 cov_fwd, #5 df_fwd,
-#3 cov_bwd_row, both sides in one launch) beside unchanged kernels timed in
-the same run, and the times of #12 at N = 32 and 96 and of #2 at N = 32.
-Phase 4 also holds the launch counts of #5 and #3 on their paths
+and random ones, each redesigned kernel also for bitwise repeats, the split
+route bit for bit against #9 and its on-card combination against
+``combine_split``; it also reports the launch shape, time and bound of the
+eight kernels redesigned for the H100 (#9 df_mm_bwd, #6 df_fwdres, #12
+df_mm_full, #2 cov_fwd, #5 df_fwd, #3 cov_bwd_row, both sides in one launch,
+#11 df_mm_bwd_pair and #10 df_mm_bwd_mean at N = 192 and 384, #10 beside its
+latency floor) beside unchanged kernels timed in the same run, and the times
+of #12 at N = 32 and 96 and of #2 at N = 32. Phase 4 also holds the launch
+counts of #5 and #3 on their paths, phase 5 those of #10 and #11
 (EXPECTED_LAUNCHES). Phase 5 times the blocked planning step of the
 paths and 15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the
 whole-step route's value-and-grad rollout runs the split backward, and its
@@ -93,23 +96,31 @@ H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # f32 add or multiply instructions per second that cannot fuse into an FMA:
 # 16,896 FP32 lanes x 1.98 GHz boost, half the 67 TFLOP/s FMA figure
 H100_F32_INSTR_PER_S = 33.5e12
+# cycles from one dependent f32 add or multiply to the next (the latency
+# floor of a chain of them, with nvidia-smi's maximum SM clock)
+F32_LATENCY_CYCLES = 4
 
 # The kernels redesigned for the H100 after their first port, and their
 # device times before (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at
 # 700 W: #9 and #6 from their first design's runs, the others from the runs
 # of the design before this one; #3's is two one-side launches, 2 x
-# 0.0081-0.0083): phase 3 prints each beside its new time, its launch shape
-# and its bound, with #8, #11 and #7 from the same call as controls.
+# 0.0081-0.0083; #11 and #10 at N = 384): phase 3 prints each beside its new
+# time, its launch shape and its bound, with #8, #7 and #4 from the same
+# call as controls.
 REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.0696", "df_mm_full": "0.0271-0.0274",
-                        "cov_fwd": "0.0214-0.0223", "df_fwd": "0.0461-0.0462", "cov_bwd_row": "0.0162-0.0166"}
+                        "cov_fwd": "0.0214-0.0223", "df_fwd": "0.0461-0.0462", "cov_bwd_row": "0.0162-0.0166",
+                        "df_mm_bwd_pair": "0.2339-0.2406", "df_mm_bwd_mean": "0.0205-0.0213"}
 # Launches of #5 and #3 on their driven paths (phase 4), held exactly: the
 # f32 refresh + PLAN_STEPS plans run 30 backwards per plan (two
 # value-and-grad objective evaluations of 15 rollout steps), one cov_bwd_row
 # launch each; a mixed plan runs 5 forward-only evaluations of 15 steps
 # through df_fwd, and the stacked VJP 5 more for its value-and-grad ones.
-# The plans have run these evaluations in every run on the card.
+# The plans have run these evaluations in every run on the card. Phase 5's
+# whole-step value-and-grad rollout at 384 runs one split backward per step
+# (#10, then #11) of its 15.
 EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 75,
-                     "df_fwd per stacked mixed plan": 150}
+                     "df_fwd per stacked mixed plan": 150, "df_mm_bwd_mean per split rollout": 15,
+                     "df_mm_bwd_pair per split rollout": 15}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -197,9 +208,11 @@ DF_MM_SIZES = (32, 96, 128, 384)
 RAGGED_N = 100  # and on random operands at an N with a ragged last tile
 # the split backward (#10 mean path, #11 pairs) that serves N > 128, each
 # output against its plain twin to DF_GRAD_TOL of its largest entry, and the
-# combined split route against #9 at 384 (#9 is right at any N)
+# combined split route against #9 (#9 is right at any N), timed at both
 SPLIT_SIZES = (192, 384)
 FULL_EPS = 4 * 2.0 ** -23
+# launches of each whole-step wrapper (the split route's cotangent cat apart)
+LAUNCHES_PER_CALL = {"df_mm_full": 2, "df_mm_fwd": 2, "df_mm_bwd": 2, "df_mm_bwd_mean": 1, "df_mm_bwd_pair": 3}
 # the whole-step path (phase 4): the trained-GP problem at 100 points in the
 # 128 bucket, where the card's dispatch takes it (ops.use_df_fused)
 FUSED_POINTS, FUSED_BUCKET = 100, 128
@@ -325,14 +338,21 @@ def bound_ms(nbytes: float, flops: float, ops_per_s: float = H100_F32_FLOPS) -> 
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def launch_report(name, info, ms, bound) -> str:
+def launch_report(name, info, ms, bound, extra="") -> str:
     """One line on a redesigned kernel: its launch shape on this card (ptxas
     registers and spills, threads, resident blocks per SM, grid, waves), its
     device time against its bound, and its time before the redesign."""
     return (f"redesigned {name}: {info['registers']} registers, {info['spill_bytes']} spill bytes, "
             f"{info['threads']} threads, {info['blocks_per_sm']} blocks per SM, grid {info['grid']} on "
             f"{info['sms']} SMs = {info['waves']:.2f} waves; {ms:.4f} ms against its bound {bound:.5f} ms = "
-            f"{bound / ms:.1%} of the bound (before: {REDESIGNED_BEFORE_MS[name]} ms)")
+            f"{bound / ms:.1%} of the bound{extra} (before: {REDESIGNED_BEFORE_MS[name]} ms)")
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30, check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def df_op_instructions() -> SimpleNamespace:
@@ -386,6 +406,133 @@ def mean_vjp_instructions(ns: int, d: int) -> int:
            + d * (2 * c.df_mul_f32 + c.df_add) + ns * ns * (2 * c.df_mul_f32 + c.df_add) + (d - ns) * c.df_add
            + d * c.df_mul_f32 + (d + ns * ns) * c.df_add)
     return fwd + vjp
+
+
+class _Depth:
+    """An f32 value by its depth: the longest chain of dependent f32
+    instructions that computes it (a load or a constant has depth 0)."""
+
+    __slots__ = ("d",)
+
+    def __init__(self, d=0):
+        self.d = d
+
+    def op(self, *others):
+        return _Depth(1 + max([self.d] + [o.d for o in others if isinstance(o, _Depth)]))
+
+    def __add__(self, o):
+        return self.op(o)
+
+    __radd__ = __sub__ = __rsub__ = __mul__ = __rmul__ = __add__
+
+    def __neg__(self):  # a sign flip folds into the instruction that reads it
+        return self
+
+
+def _one(a):
+    """One dependent instruction on a (a mask, a conversion, a min or a shuffle)."""
+    return a.op() if isinstance(a, _Depth) else a
+
+
+def df_op_depths() -> SimpleNamespace:
+    """The df32 operations of csrc/df32.cuh on _Depth values, in their
+    instruction order: what a lane's dependent chain through them is."""
+
+    def two_sum(a, b):
+        s = a + b
+        bb = s - a
+        return s, (a - (s - bb)) + (b - bb)
+
+    def fast_two_sum(a, b):
+        s = a + b
+        return s, b - (s - a)
+
+    def two_prod(a, b):
+        ah, bh = _one(a), _one(b)
+        al, bl = a - ah, b - bh
+        s = two_sum(ah * bl, al * bh)
+        p = two_sum(ah * bh, s[0])
+        return fast_two_sum(p[0], (s[1] + p[1]) + al * bl)
+
+    def df_add(x, y):
+        s = two_sum(x[0], y[0])
+        return fast_two_sum(s[0], s[1] + (x[1] + y[1]))
+
+    def df_add_f32(x, y):
+        s = two_sum(x[0], y)
+        return fast_two_sum(s[0], s[1] + x[1])
+
+    def df_mul(x, y):
+        p = two_prod(x[0], y[0])
+        return fast_two_sum(p[0], p[1] + (x[0] * y[1] + x[1] * y[0]))
+
+    def df_mul_f32(x, y):
+        p = two_prod(x[0], y)
+        return fast_two_sum(p[0], p[1] + x[1] * y)
+
+    def df_exp(x):
+        k = _one(x[0] * 1.4426950)
+        t = two_prod(k, 0.6931472)
+        t = fast_two_sum(t[0], t[1] + k * -1.9046e-9)
+        r = df_add(x, (-t[0], -t[1]))
+        e = (0.0, 0.0)
+        for _ in range(12):
+            e = df_add(df_mul(e, r), (0.0, 0.0))
+        scale = _one(_one(_one(k)))
+        return e[0] * scale, e[1] * scale
+
+    return SimpleNamespace(two_prod=two_prod, df_add=df_add, df_add_f32=df_add_f32, df_mul=df_mul,
+                           df_mul_f32=df_mul_f32, df_exp=df_exp, collapse=lambda x: x[0] + x[1])
+
+
+def mean_vjp_chain(ns: int, d: int, n: int) -> int:
+    """The dependent chain of #10 (df_mm_bwd_mean) in f32 instructions: one
+    lane's mean_point and VJP (csrc/df_mm.cuh, df_mm_bwd.cu mean_item), the
+    warp sums of its outputs (a shuffle and a df add per level), then block
+    0's sequential sum over the ns ceil(N / 32) items. Loads count 0, so the
+    chain times the instruction latency is a floor on the launch's time."""
+    o = df_op_depths()
+    ld, f = (lambda: (_Depth(), _Depth())), _Depth
+    i_n = [o.df_mul(o.df_add_f32(ld(), f()), ld()) for _ in range(d)]
+    t = []
+    for _ in range(ns):
+        acc = o.df_mul(i_n[0], ld())
+        for k in range(1, ns):
+            acc = o.df_add(acc, o.df_mul(i_n[k], ld()))
+        t.append(acc)
+    t += i_n[ns:]
+    ex = o.df_mul(i_n[0], t[0])
+    for e in range(1, d):
+        ex = o.df_add(ex, o.df_mul(i_n[e], t[e]))
+    q = o.df_exp((_one(ex[0] * -0.5), ex[1] * -0.5))
+    lb = o.df_mul(q, ld())
+    lb_c, q_c, beta_c = o.collapse(lb), o.collapse(q), o.collapse(ld())
+    g_lb, g_t, ils_c = (f(), 0.0), [], []
+    for e in range(d):
+        ils = ld()
+        ils_c.append(o.collapse(ils))
+        g_lb = o.df_add(g_lb, o.two_prod(f(), o.collapse(o.df_mul(t[e], ils))))
+        g_t.append(o.df_mul_f32(o.two_prod(f(), lb_c), ils_c[e]))
+    g_ex = o.df_mul_f32(o.df_mul_f32(g_lb, beta_c), q_c)
+    g_ex = (g_ex[0] * -0.5, g_ex[1] * -0.5)
+    g_i = [o.df_mul_f32(g_ex, o.collapse(t[e])) for e in range(d)]
+    g_t = [o.df_add(g_t[e], o.df_mul_f32(g_ex, o.collapse(i_n[e]))) for e in range(d)]
+    g_b = []
+    for j in range(ns):
+        for k in range(ns):
+            g_i[k] = o.df_add(g_i[k], o.df_mul_f32(g_t[j], o.collapse(ld())))
+            g_b.append(o.df_mul_f32(g_t[j], o.collapse(i_n[k])))
+    for e in range(ns, d):
+        g_i[e] = o.df_add(g_i[e], g_t[e])
+    lane = 0
+    for x in [o.df_mul_f32(g_i[e], ils_c[e]) for e in range(d)] + g_b:
+        for _ in range(5):
+            x = o.df_add(x, (_one(x[0]), _one(x[1])))
+        lane = max(lane, x[0].d, x[1].d)
+    acc = (0.0, 0.0)
+    for _ in range(ns * -(-n // 32)):
+        acc = o.df_add(acc, ld())
+    return lane + max(acc[0].d, acc[1].d)
 
 
 def flagship_cov_operands(device):
@@ -897,8 +1044,14 @@ def split_cotangents(mu, p):
 def check_df_mm_split(label, cache, mu, sv) -> tuple[float, float]:
     """The split backward (#10 the mean path, #11 every pair) against its
     plain twins, each output (a df contribution collapsed in f64, or an f32
-    gradient) to DF_GRAD_TOL of its largest entry; at N = 384 also the
-    combined split route (``stage23_bwd``) against #9 at the same N."""
+    gradient) to DF_GRAD_TOL of its largest entry, each called twice for
+    bitwise repeats; the combined split route (``stage23_bwd``) against #9
+    at the same N, exactly (the parent printed bit for bit at every N and
+    operand set here: the same df sums, g_mu's in another order hidden by
+    the collapse), and its g_mu (#11's last launch adds #10's df
+    contribution and the pairs') against ``combine_split`` run by PyTorch on
+    the card on #10's and #11's outputs, bit for bit (the same IEEE
+    operations in the same order)."""
     ns = cache.ils_hi.shape[0]
     n = cache.x_hi.shape[0]
     ii, jj, _, _ = df_mm.pair_indices(ns, mu.device)
@@ -912,17 +1065,27 @@ def check_df_mm_split(label, cache, mu, sv) -> tuple[float, float]:
                                       df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, cache, g[0], g[1]))
     err_mean = max(hold_grad(f"df_mm_bwd_mean g_inp (N={n})", label, v(m_inp), v(m_ref)),
                    hold_grad(f"df_mm_bwd_mean g_B (N={n})", label, g_b, g_b_ref))
+    again = df_mm.stage23_bwd_mean(mu, Bh, Bl, cache, g[0], g[1])
+    hold_repeat(f"df_mm_bwd_mean (N={n})", label, (*m_inp, g_b), (*again[0], again[1]))
     (p_inp, g_q), (p_ref, g_q_ref) = (df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3]),
                                       df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, cache, g[2], g[3]))
     err_pair = max(hold_grad(f"df_mm_bwd_pair g_inp (N={n})", label, v(p_inp), v(p_ref)),
                    hold_grad(f"df_mm_bwd_pair g_Q (N={n})", label, g_q, g_q_ref))
-    if n == 384:
-        split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
-        whole = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)
-        for nm, o, r in zip(("g_mu", "g_B", "g_Q"), split, whole):
-            hold_grad(f"split route (df_mm_bwd_mean + df_mm_bwd_pair) {nm}, against df_mm_bwd (N={n})", label, o, r)
-        log(f"split route against df_mm_bwd (N={n}) [{label}]: bit for bit: "
-            f"{all(torch.equal(o, r) for o, r in zip(split, whole))}")
+    again = df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3])
+    hold_repeat(f"df_mm_bwd_pair (N={n})", label, (*p_inp, g_q), (*again[0], again[1]))
+    split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    combined = df_mm.combine_split(m_inp, p_inp)
+    log(f"split route's on-card combination against combine_split (N={n}) [{label}]: bit for bit: "
+        f"{torch.equal(split[0], combined)}")
+    if not (torch.equal(split[0], combined) and torch.equal(split[1], g_b) and torch.equal(split[2], g_q)):
+        raise AssertionError(f"the split route's g_mu [{label}] (N={n}) differs from combine_split's")
+    whole = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)
+    for nm, o, r in zip(("g_mu", "g_B", "g_Q"), split, whole):
+        hold_grad(f"split route (df_mm_bwd_mean + df_mm_bwd_pair) {nm}, against df_mm_bwd (N={n})", label, o, r)
+    exact = all(torch.equal(o, r) for o, r in zip(split, whole))
+    log(f"split route against df_mm_bwd (N={n}) [{label}]: bit for bit: {exact}")
+    if not exact:
+        raise AssertionError(f"the split route [{label}] (N={n}) differs from df_mm_bwd in its last bits")
     return err_mean, err_pair
 
 
@@ -947,7 +1110,8 @@ def check_df_mm_kernels(dev):
     # a ragged N (not a multiple of the 32-column tiles) on random operands
     errs.append(check_df_mm_operands("random", *random_df_mm_problem(dev, RAGGED_N, seed=RAGGED_N)))
     results = {}
-    for n, names in ((128, ("df_mm_full", "df_mm_fwd", "df_mm_bwd")), (384, ("df_mm_bwd_mean", "df_mm_bwd_pair"))):
+    for n, names in ((128, ("df_mm_full", "df_mm_fwd", "df_mm_bwd")), (192, ("df_mm_bwd_mean", "df_mm_bwd_pair")),
+                     (384, ("df_mm_bwd_mean", "df_mm_bwd_pair"))):
         cache, mu, sv = steps[n]
         ns, d = cache.ils_hi.shape
         ii, jj, _, _ = df_mm.pair_indices(ns, dev)
@@ -986,19 +1150,46 @@ def check_df_mm_kernels(dev):
                       else in_bytes) + out_bytes[name]  # the mean path reads no iK and no Q
             b, by = bound_ms(nbytes, ops_, H100_F32_INSTR_PER_S)
             log(f"kernel {name} (P={p}, N={n}, ns={ns}, trained-GP operands): wrapper {ms:.4f} ms (device, "
-                f"2 launches) plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {what}, over "
+                f"{LAUNCHES_PER_CALL[name]} launches) plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {what}, over "
                 f"{H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
             err = max(e[names.index(name)] for e in (errs if n == 128 else split_errs))
-            results[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
-        if n == 384:
+            results[name if n != 192 else f"{name} N=192"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                                                                  bound_by=by)
+        if n in SPLIT_SIZES:
             ms_all, _ = cuda_ms(calls["df_mm_bwd"][0])
-            # the split route's df combination is ~60 small launches: queue fewer calls
-            ms_split, _ = cuda_ms(lambda: df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g), reps=4)
+            ms_split, _ = cuda_ms(lambda: df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g))
             log(f"kernel df_mm_bwd at N={n} (trained-GP operands): {ms_all:.4f} ms against the split route "
-                f"(df_mm_bwd_mean + df_mm_bwd_pair + the df combination) {ms_split:.4f} ms, device, per call")
+                f"(one cotangent cat, df_mm_bwd_mean, df_mm_bwd_pair with the df combination) {ms_split:.4f} ms, "
+                f"device, per call")
     bwd = results["df_mm_bwd"]
     bwd["report"] = launch_report("df_mm_bwd", df_mm.bwd_launch_info(128, 3), bwd["ms"], bwd["bound_ms"])
     log("kernel " + results["df_mm_bwd"]["report"])
+    d = steps[384][0].ils_hi.shape[1]
+    clock = max_sm_clock_mhz()
+    for n in SPLIT_SIZES:
+        key = "" if n == 384 else f" N={n}"
+        pair, mean = results["df_mm_bwd_pair" + key], results["df_mm_bwd_mean" + key]
+        info = df_mm.pair_launch_info(n, 3)
+        plan = df_mm.pair_launch_plan(n, 3, info["sms"])
+        if (info["grid"], info["unit_warps"], info["unit_blocks"]) != (plan["tile_blocks"], plan["unit_warps"],
+                                                                     plan["unit_blocks"]):
+            raise AssertionError(f"df_mm_bwd_pair's launch {info} is not df_mm.pair_launch_plan's {plan}")
+        pair["report"] = launch_report(
+            "df_mm_bwd_pair", info, pair["ms"], pair["bound_ms"],
+            f" at N={n}; chain rule {info['unit_blocks']} blocks of {info['unit_warps']} warps, "
+            f"{info['unit_registers']} registers")
+        info = df_mm.mean_launch_info(n, 3, d)
+        plan = df_mm.mean_launch_plan(n, 3, info["sms"])
+        if (info["grid"], info["threads"]) != (plan["cluster"], 32 * plan["warps"]):
+            raise AssertionError(f"df_mm_bwd_mean's launch {info} is not df_mm.mean_launch_plan's {plan}")
+        chain = mean_vjp_chain(3, d, n)
+        floor = chain * F32_LATENCY_CYCLES / (clock * 1e3)
+        mean["report"] = launch_report(
+            "df_mm_bwd_mean", info, mean["ms"], mean["bound_ms"],
+            f" at N={n} (one cluster); latency floor {floor:.5f} ms ({chain} dependent f32 instructions x "
+            f"{F32_LATENCY_CYCLES} cycles at {clock:.0f} MHz) = {floor / mean['ms']:.1%} of it")
+        log("kernel " + pair["report"])
+        log("kernel " + mean["report"])
     full = results["df_mm_full"]
     full["report"] = launch_report("df_mm_full", df_mm.full_launch_info(128, 3), full["ms"], full["bound_ms"])
     log("kernel " + full["report"])
@@ -1222,8 +1413,7 @@ def time_rollouts(dev, card):
         if n == 384:
             log(f"  launches in the whole-step value-and-grad rollout at N={n}: {split_launches}")
             for name in ("df_mm_bwd_mean", "df_mm_bwd_pair"):
-                if split_launches[name] <= 0:
-                    raise AssertionError(f"kernel {name} was not launched by the whole-step backward at N={n}")
+                check_launches(name, split_launches, EXPECTED_LAUNCHES[f"{name} per split rollout"])
             if split_launches["df_mm_bwd"] != 0:
                 raise AssertionError(f"kernel df_mm_bwd was launched at N={n}, past the reference's single-launch range")
             ref_prob = trained_gp_problem(dev, dtype=torch.float64, n_points=prob.n_points, bucket=n)
@@ -1273,10 +1463,11 @@ def _run() -> int:
     kern.update(check_df_kernels(dev))
     kern.update(check_df_mm_kernels(dev))
     log("phase 3 kernels: all twelve match their plain versions on the card")
-    for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres", "df_fwd", "cov_bwd_row"):
+    for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres", "df_fwd", "cov_bwd_row", "df_mm_bwd_pair N=192",
+                 "df_mm_bwd_pair", "df_mm_bwd_mean N=192", "df_mm_bwd_mean"):
         log(f"phase 3 {kern[name]['report']}")
     log("phase 3 controls in this call: " + ", ".join(
-        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_mm_bwd_pair", "df_bwd")))
+        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_bwd", "cov_gik")))
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec

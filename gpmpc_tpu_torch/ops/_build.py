@@ -54,7 +54,9 @@ _SIGNATURES = {
     "gpmpc_df_mm_bwd_f32": (_P,) * 24 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_bwd_info": (_I,) * 2 + (_P,),
     "gpmpc_df_mm_bwd_mean_f32": (_P,) * 18 + (_I,) * 3 + (_P,),
-    "gpmpc_df_mm_bwd_pair_f32": (_P,) * 20 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_mean_info": (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_pair_f32": (_P,) * 21 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_pair_info": (_I,) * 2 + (_P,),
 }
 
 

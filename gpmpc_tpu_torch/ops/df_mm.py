@@ -55,8 +55,18 @@ kernel of ``gpmpc_tpu/ops/pallas_df_mm.py``:
   split into the mean path's VJP (to mu and B^-1) and every pair's (to mu
   and Q_k; the pair is a grid axis of one launch, where the reference
   launches once per pair), built from #9's device code. The reference's
-  rule (``SINGLE_BWD_MAX_N``) runs them in place of #9 past N = 128; their
-  contributions to mu's cotangent are added in df (``combine_split``).
+  rule (``SINGLE_BWD_MAX_N``) runs them in place of #9 past N = 128. #10 is
+  one thread-block cluster (``mean_launch_plan``): a warp per (model,
+  32-point tile), then block 0 sums over models and tiles. #11 computes E
+  once per element in 32 x 32 pair tiles, then applies the chain rule on
+  (side, pair, 32 points) units, 1 + ns warps each, over the SMs
+  (``pair_launch_plan``) and sums per pair, three launches each a
+  programmatic dependent of the one before. In ``stage23_bwd`` #11 follows
+  #10 on the stream, its tiles run beside it, and its last launch adds
+  #10's df contribution to mu's cotangent and its own as ``combine_split``
+  (the CPU path and the oracle) does, so the split route launches no
+  PyTorch op after the cotangent block. ``mean_launch_info`` and
+  ``pair_launch_info`` report the launches.
 
 ``FullStep`` is the differentiable whole step: forward #12, backward the
 split path of ``_build_full`` (``df_stage1`` by autograd, then ``Stage23``:
@@ -675,14 +685,28 @@ def stage23_fwd(mu, bh, bl, qh, ql, cache):
 def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
     """(g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns)): the VJP of stages 2-3
     at the hi cotangents, by the reference's rule (``SINGLE_BWD_MAX_N``): up
-    to N = 128 one #9 launch (``stage23_bwd_all``); past it #10 and #11
-    (``stage23_bwd_mean``, ``stage23_bwd_pairs``), combined by
-    ``combine_split``. A CPU tensor takes the plain twins."""
+    to N = 128 one #9 launch (``stage23_bwd_all``); past it #10 and then #11,
+    whose last launch adds #10's df contribution and its own as
+    ``combine_split`` does and writes g_mu. A CPU tensor takes the plain
+    twins and ``combine_split``."""
     if cache.x_hi.shape[0] <= SINGLE_BWD_MAX_N:
         return stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr)
-    mean_inp, g_B = stage23_bwd_mean(mu, bh, bl, cache, g_m, g_v)
-    pairs_inp, g_Q = stage23_bwd_pairs(mu, qh, ql, cache, g_sp, g_corr)
-    return combine_split(mean_inp, pairs_inp), g_B, g_Q
+    if mu.device.type == "cpu":
+        mean_inp, g_B = stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v)
+        pairs_inp, g_Q = stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr)
+        return combine_split(mean_inp, pairs_inp), g_B, g_Q
+    mu, bh, bl, qh, ql, g_m, g_v, g_sp, g_corr = (t.contiguous() for t in (mu, bh, bl, qh, ql, g_m, g_v, g_sp,
+                                                                            g_corr))
+    n, ns, d = _check("df_mm_bwd_mean + df_mm_bwd_pair", cache, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql, g_m=g_m,
+                      g_v=g_v, g_sp=g_sp, g_corr=g_corr)
+    ct = _full_ct(cache, g_m, g_v, g_sp, g_corr)
+    # every buffer of both launches exists before the first: #11's first
+    # launch may run beside #10, so no scratch of one may reuse the other's
+    mean = _MeanLaunch(mu, n, ns, d)
+    pairs = _PairLaunch(mu, n, ns, d)
+    mean.launch(mu, bh, bl, cache, ct)
+    pairs.launch(mu, qh, ql, cache, ct, mean_out=mean.out)
+    return pairs.g_mu(), mean.g_B(), pairs.g_Q()
 
 
 def stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
@@ -715,14 +739,107 @@ def bwd_launch_info(n: int, ns: int) -> dict:
     return _build.launch_info("gpmpc_df_mm_bwd_info", n, ns)
 
 
+@functools.lru_cache(maxsize=None)
+def _zeros(k: int, device: torch.device) -> torch.Tensor:
+    """k f32 zeros on device, made once (never written)."""
+    return torch.zeros(k, dtype=torch.float32, device=device)
+
+
 def _full_ct(cache, g_m=None, g_v=None, g_sp=None, g_corr=None):
-    """The kernels' cotangent block g_M, g_V, g_S_p, g_corr, zeros where a
-    launch reads none."""
+    """The kernels' cotangent block g_M, g_V, g_S_p, g_corr (one cat), zeros
+    where a launch reads none."""
     ns, d = cache.ils_hi.shape
     dev = cache.x_hi.device
-    parts = [g if g is not None else torch.zeros(shape, dtype=torch.float32, device=dev)
-             for g, shape in ((g_m, (ns,)), (g_v, (ns, d)), (g_sp, (ns * (ns + 1) // 2,)), (g_corr, (ns,)))]
-    return torch.cat([t.reshape(-1) for t in parts])
+    parts = [g.reshape(-1) if g is not None else _zeros(k, dev)
+             for g, k in ((g_m, ns), (g_v, ns * d), (g_sp, ns * (ns + 1) // 2), (g_corr, ns))]
+    return torch.cat(parts)
+
+
+# #10's and #11's plans (csrc/df_mm_bwd.cu mean_plan, pair_plan): the 32-point
+# tiles, the most blocks of #10's one cluster and warps of each, the most
+# units of a block of #11's chain-rule launch (1 + ns warps each)
+BWD_TILE, MEAN_MAX_CLUSTER, MEAN_MAX_WARPS, PAIR_UNIT_MAX_UNITS = 32, 16, 8, 2
+
+
+def mean_launch_plan(n: int, ns: int, sms: int) -> dict:
+    """#10's grid at N on a card with ``sms`` SMs: one cluster of ``cluster``
+    blocks of ``warps`` warps. Block r takes the tiles r, r + cluster, ... of
+    every model; its item i (a warp each, warp w the items w, w + warps, ...)
+    is model i % ns of tile r + cluster (i // ns), a lane a stored point."""
+    tiles = -(-n // BWD_TILE)
+    cluster = min(MEAN_MAX_CLUSTER, tiles, sms)
+    return dict(tiles=tiles, cluster=cluster, warps=min(MEAN_MAX_WARPS, ns * -(-tiles // cluster)))
+
+
+def pair_launch_plan(n: int, ns: int, sms: int) -> dict:
+    """#11's grids at N on a card with ``sms`` SMs: P tiles^2 pair blocks
+    (block b: pair b // tiles^2, row tile (b // tiles) % tiles, column tile
+    b % tiles), then the 2 P tiles units of the chain rule (unit u = (side P
+    + pair) tiles + chunk, the 32 points of one side of a pair), 1 + ns warps
+    each (warp w of a block: unit block (unit_warps // (1 + ns)) + w // (1 +
+    ns), its residual w % (1 + ns)), enough units to a block to spread them
+    over the SMs."""
+    p = ns * (ns + 1) // 2
+    tiles = -(-n // BWD_TILE)
+    units = 2 * p * tiles
+    per = min(PAIR_UNIT_MAX_UNITS, max(1, -(-units // sms)))
+    return dict(tiles=tiles, tile_blocks=p * tiles * tiles, units=units, unit_warps=per * (1 + ns),
+                unit_blocks=-(-units // per))
+
+
+class _MeanLaunch:
+    """#10's buffers: the items' partials and out (g_inp hi, lo (d), g_B)."""
+
+    def __init__(self, mu, n, ns, d):
+        nt = -(-n // BWD_TILE)
+        self.ns, self.d = ns, d
+        self.mean_part = torch.empty((2, ns, nt, d + ns * ns), dtype=torch.float32, device=mu.device)
+        self.out = torch.empty(2 * d + ns ** 3, dtype=torch.float32, device=mu.device)
+
+    def launch(self, mu, bh, bl, cache, ct):
+        n, d = cache.x_hi.shape
+        rc = _build.load().gpmpc_df_mm_bwd_mean_f32(
+            mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), *_cache_ptrs(cache), ct.data_ptr(),
+            self.mean_part.data_ptr(), self.out.data_ptr(), n, self.ns, d, _stream(mu))
+        _build.check(rc, "df_mm_bwd_mean")
+        LAUNCHES["df_mm_bwd_mean"] += 1
+
+    def g_B(self):
+        return self.out[2 * self.d:].view(self.ns, self.ns, self.ns)
+
+
+class _PairLaunch:
+    """#11's buffers: the tiles' row and column partials, the units' sums
+    and out (g_inp hi, lo (P, d), g_Q, then g_mu (d) when given #10's out)."""
+
+    def __init__(self, mu, n, ns, d):
+        nt = -(-n // BWD_TILE)
+        self.p, self.ns, self.d = ns * (ns + 1) // 2, ns, d
+        dev = mu.device
+        self.row_part = torch.empty((2, self.p, 1 + ns, nt, n), dtype=torch.float32, device=dev)
+        self.col_part = torch.empty((2, self.p, 1 + ns, nt, n), dtype=torch.float32, device=dev)
+        self.unit_part = torch.empty((2, 2 * self.p * nt, d + ns * ns), dtype=torch.float32, device=dev)
+        self.out = torch.empty(2 * self.p * d + self.p * ns * ns + d, dtype=torch.float32, device=dev)
+
+    def launch(self, mu, qh, ql, cache, ct, mean_out=None):
+        n, d = cache.x_hi.shape
+        rc = _build.load().gpmpc_df_mm_bwd_pair_f32(
+            mu.data_ptr(), qh.data_ptr(), ql.data_ptr(), *_cache_ptrs(cache), ct.data_ptr(),
+            None if mean_out is None else mean_out.data_ptr(), self.row_part.data_ptr(), self.col_part.data_ptr(),
+            self.unit_part.data_ptr(), self.out.data_ptr(), n, self.ns, d, _stream(mu))
+        _build.check(rc, "df_mm_bwd_pair")
+        LAUNCHES["df_mm_bwd_pair"] += 1
+
+    def g_inp(self):
+        pd = self.p * self.d
+        return self.out[:pd].view(self.p, self.d), self.out[pd:2 * pd].view(self.p, self.d)
+
+    def g_Q(self):
+        pd = self.p * self.d
+        return self.out[2 * pd:2 * pd + self.p * self.ns * self.ns].view(self.p, self.ns, self.ns)
+
+    def g_mu(self):
+        return self.out[2 * self.p * self.d + self.p * self.ns * self.ns:]
 
 
 def stage23_bwd_mean(mu, bh, bl, cache, g_m, g_v):
@@ -732,17 +849,9 @@ def stage23_bwd_mean(mu, bh, bl, cache, g_m, g_v):
         return stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v)
     mu, bh, bl, g_m, g_v = (t.contiguous() for t in (mu, bh, bl, g_m, g_v))
     n, ns, d = _check("df_mm_bwd_mean", cache, mu=mu, bh=bh, bl=bl, g_m=g_m, g_v=g_v)
-    lib = _build.load()
-    nt, _, _ = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
-    dev = mu.device
-    ct = _full_ct(cache, g_m=g_m, g_v=g_v)
-    mean_part = torch.empty((2, ns, nt, d + ns * ns), dtype=torch.float32, device=dev)
-    out = torch.empty(2 * d + ns ** 3, dtype=torch.float32, device=dev)
-    rc = lib.gpmpc_df_mm_bwd_mean_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), *_cache_ptrs(cache),
-                                      ct.data_ptr(), mean_part.data_ptr(), out.data_ptr(), n, ns, d, _stream(mu))
-    _build.check(rc, "df_mm_bwd_mean")
-    LAUNCHES["df_mm_bwd_mean"] += 1
-    return (out[:d], out[d:2 * d]), out[2 * d:].view(ns, ns, ns)
+    mean = _MeanLaunch(mu, n, ns, d)
+    mean.launch(mu, bh, bl, cache, _full_ct(cache, g_m=g_m, g_v=g_v))
+    return (mean.out[:d], mean.out[d:2 * d]), mean.g_B()
 
 
 def stage23_bwd_pairs(mu, qh, ql, cache, g_sp, g_corr):
@@ -753,20 +862,22 @@ def stage23_bwd_pairs(mu, qh, ql, cache, g_sp, g_corr):
         return stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr)
     mu, qh, ql, g_sp, g_corr = (t.contiguous() for t in (mu, qh, ql, g_sp, g_corr))
     n, ns, d = _check("df_mm_bwd_pair", cache, mu=mu, qh=qh, ql=ql, g_sp=g_sp, g_corr=g_corr)
-    lib = _build.load()
-    nt, _, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
-    dev = mu.device
-    ct = _full_ct(cache, g_sp=g_sp, g_corr=g_corr)
-    row_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
-    col_part = torch.empty((2, p, n, 1 + ns, nt), dtype=torch.float32, device=dev)
-    unit_part = torch.empty((2, 2 * p * nt, d + ns * ns), dtype=torch.float32, device=dev)
-    out = torch.empty(2 * p * d + p * ns * ns, dtype=torch.float32, device=dev)
-    rc = lib.gpmpc_df_mm_bwd_pair_f32(mu.data_ptr(), qh.data_ptr(), ql.data_ptr(), *_cache_ptrs(cache),
-                                      ct.data_ptr(), row_part.data_ptr(), col_part.data_ptr(), unit_part.data_ptr(),
-                                      out.data_ptr(), n, ns, d, _stream(mu))
-    _build.check(rc, "df_mm_bwd_pair")
-    LAUNCHES["df_mm_bwd_pair"] += 1
-    return (out[:p * d].view(p, d), out[p * d:2 * p * d].view(p, d)), out[2 * p * d:].view(p, ns, ns)
+    pairs = _PairLaunch(mu, n, ns, d)
+    pairs.launch(mu, qh, ql, cache, _full_ct(cache, g_sp=g_sp, g_corr=g_corr))
+    return pairs.g_inp(), pairs.g_Q()
+
+
+def mean_launch_info(n: int, ns: int, d: int) -> dict:
+    """#10's launch at N on the current card (``_build.launch_info``; grid is
+    its one cluster)."""
+    return _build.launch_info("gpmpc_df_mm_bwd_mean_info", n, ns, d)
+
+
+def pair_launch_info(n: int, ns: int) -> dict:
+    """#11's pair-block launch at N on the current card (``_build.launch_info``),
+    with the chain-rule launch's registers, warps per block and blocks."""
+    return _build.launch_info("gpmpc_df_mm_bwd_pair_info", n, ns,
+                              extra=("unit_registers", "unit_warps", "unit_blocks"))
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,10 @@ within FULL_EPS of themselves plus DF_COV_RTOL of their scaled sum of
 of its largest entry. The dispatch's shape rules: state widths past the
 kernels' take the plain cores on the card. The backward kernels of the
 last slice: the stacked df cov backward and the split whole-step VJP (the
-mean path's and the pairs', at N = 160, 192 and 384) within DF_GRAD_RTOL of
-each output's largest entry, and the cov core's iK gradient elementwise
+mean path's and the pairs', at N = 129 to 512 and every width) within
+DF_GRAD_RTOL of each output's largest entry and bitwise repeatable, the
+split route bit for bit with #9 and its on-card combination with
+combine_split, and the cov core's iK gradient elementwise
 within GIK_RTOL (1 + the sum of the exponent's |terms|) of itself (the
 exponent's rounding in another order, see chip_smoke.py).
 """
@@ -396,7 +398,7 @@ def test_wide_state_dispatch_takes_the_plain_cores(dev):
 # ---------------------------------------------------------------------------
 
 GIK_RTOL = 8 * 2.0 ** -23
-SPLIT_SIZES = [160, 192, 384]
+SPLIT_SIZES = [129, 160, 192, 384, 512]
 
 
 def _within_largest(out, ref, rtol=DF_GRAD_RTOL):
@@ -445,16 +447,28 @@ def test_stacked_dispatch_matches_residual_and_counts_launches(dev):
         _within_largest(o, r)
 
 
-@pytest.mark.parametrize("n", SPLIT_SIZES)
-def test_df_mm_split_bwd_kernels_match_plain(dev, n):
-    """#10 and #11 against their twins (each df output collapsed in f64),
-    and the split route of stage23_bwd (N > 128) against #9 at the same N."""
+def _split_case(n, ns, d, dev):
+    """A random problem of the split route's shapes, its stage 1 (B^-1 and Q
+    halves) and random cotangents g_M, g_V, g_S_p, g_corr."""
     from gpmpc_tpu_torch.ops import df_mm
 
-    cache, mu, sv = _df_mm_problem(n + 3, n, dev)
+    cache, mu, sv = _df_mm_problem(n + 10 * ns + d + 3, n, dev, ns=ns, d=d)
     Bh, Bl, _, Qh, Ql, _ = _stage1(cache, sv)
-    rng = np.random.default_rng(n)
-    g = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in ((3,), (3, 4), (6,), (3,))]
+    p = Qh.shape[0]
+    rng = np.random.default_rng(n + ns + d)
+    g = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=dev) for s in ((ns,), (ns, d), (p,), (ns,))]
+    return df_mm, cache, mu, Bh, Bl, Qh, Ql, g
+
+
+@pytest.mark.parametrize("n", SPLIT_SIZES)
+@pytest.mark.parametrize("ns,d", [(1, 2), (2, 3), (3, 4), (1, 8), (2, 8), (3, 8)])
+def test_df_mm_split_bwd_kernels_match_plain(dev, n, ns, d):
+    """#10 and #11 against their twins (each df output collapsed in f64) at
+    every width they take and ragged N, each bitwise repeatable, and the
+    split route of stage23_bwd (N > 128) against #9 at the same N: within
+    DF_GRAD_RTOL, and bit for bit (the same df sums; g_mu adds them in
+    another order, which the collapse to f32 hides)."""
+    df_mm, cache, mu, Bh, Bl, Qh, Ql, g = _split_case(n, ns, d, dev)
 
     def v(x):
         return x[0].double() + x[1].double()
@@ -463,10 +477,14 @@ def test_df_mm_split_bwd_kernels_match_plain(dev, n):
     (m_inp_r, g_b_r) = df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, cache, g[0], g[1])
     _within_largest(v(m_inp), v(m_inp_r))
     _within_largest(g_b, g_b_r)
+    again = df_mm.stage23_bwd_mean(mu, Bh, Bl, cache, g[0], g[1])
+    assert all(torch.equal(a, b) for a, b in zip((*again[0], again[1]), (*m_inp, g_b)))
     (p_inp, g_q) = df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3])
     (p_inp_r, g_q_r) = df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, cache, g[2], g[3])
     _within_largest(v(p_inp), v(p_inp_r))
     _within_largest(g_q, g_q_r)
+    again = df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3])
+    assert all(torch.equal(a, b) for a, b in zip((*again[0], again[1]), (*p_inp, g_q)))
     ops.reset_launch_counts()
     split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
     counts = ops.launch_counts()
@@ -475,6 +493,21 @@ def test_df_mm_split_bwd_kernels_match_plain(dev, n):
     assert ops.launch_counts()["df_mm_bwd"] == 1
     for o, r in zip(split, whole):
         _within_largest(o, r)
+        assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("n", [129, 384])
+def test_df_mm_split_combine_matches_combine_split(dev, n):
+    """The split route's on-card combination (#11's last launch adds #10's
+    df contribution to mu's cotangent and the pairs') equals combine_split,
+    the same IEEE operations in the same order, run by PyTorch on the card's
+    #10 and #11 outputs, bit for bit; g_B and g_Q are #10's and #11's."""
+    df_mm, cache, mu, Bh, Bl, Qh, Ql, g = _split_case(n, 3, 4, dev)
+    m_inp, g_b = df_mm.stage23_bwd_mean(mu, Bh, Bl, cache, g[0], g[1])
+    p_inp, g_q = df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3])
+    g_mu, g_B, g_Q = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, cache, *g)
+    assert torch.equal(g_mu, df_mm.combine_split(m_inp, p_inp))
+    assert torch.equal(g_B, g_b) and torch.equal(g_Q, g_q)
 
 
 @pytest.mark.parametrize("n", SIZES)

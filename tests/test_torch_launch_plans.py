@@ -14,6 +14,11 @@ every element exactly once.
 * ``moment_cov.bwd_launch_plan`` (#3 ``cov_bwd``, csrc/cov_core.cu): 2P
   stacked rows (the row side, then the column side), a warp a row. Its grid
   does not depend on the SM count.
+* ``df_mm.pair_launch_plan`` (#11 ``df_mm_bwd_pair``, csrc/df_mm_bwd.cu):
+  32 x 32 pair tiles, then the chain rule on (side, pair, 32-point) units,
+  1 + ns warps a unit, spread over the SMs.
+* ``df_mm.mean_launch_plan`` (#10 ``df_mm_bwd_mean``, csrc/df_mm_bwd.cu):
+  one thread-block cluster, a warp a (model, 32-point tile) item.
 
 Each case mirrors the kernel's mapping from (block, warp or thread, lane,
 step) to (pair, row, column) as its source comment states it, counts the
@@ -250,3 +255,92 @@ def test_cov_bwd_matches_jax_vjp(dtype, rtol):
         for out, r in zip(outs, ref):
             scale = np.abs(r).max()
             np.testing.assert_allclose(out.detach().numpy() / scale, r / scale, rtol=0, atol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# the split whole-step VJP past N = 128: #11 df_mm_bwd_pair (pair tiles, then
+# the chain rule on (side, pair, 32-point) units) and #10 df_mm_bwd_mean (one
+# thread-block cluster of (model, tile) items), csrc/df_mm_bwd.cu
+# ---------------------------------------------------------------------------
+
+SPLIT_PLAN_SIZES = [129, 192, 384, 512, 1000]
+SPLIT_PLAN_SMS = [132, 114, 8]
+TILE_WARPS, TILE_ROWS_PER_WARP = 8, 4  # kWarps, kRowsPerWarp of csrc/df_mm.cuh
+
+
+@pytest.mark.parametrize("sms", SPLIT_PLAN_SMS)
+@pytest.mark.parametrize("n", SPLIT_PLAN_SIZES)
+def test_df_mm_bwd_pair_tiles_cover_every_element_once(n, sms):
+    """#11's pair blocks: block b the tile (b // tiles % tiles, b % tiles) of
+    pair b // tiles^2, warp w its rows w + TILE_WARPS r, a lane a column."""
+    for ns in (1, 2, 3):
+        p = ns * (ns + 1) // 2
+        plan = df_mm.pair_launch_plan(n, ns, sms)
+        tiles = plan["tiles"]
+        assert tiles == -(-n // df_mm.BWD_TILE) and plan["tile_blocks"] == p * tiles * tiles
+        b = np.arange(plan["tile_blocks"])[:, None, None, None]
+        w = np.arange(TILE_WARPS)[None, :, None, None]
+        r = np.arange(TILE_ROWS_PER_WARP)[None, None, :, None]
+        lane = np.arange(df_mm.BWD_TILE)[None, None, None, :]
+        pair = b // (tiles * tiles)
+        row = (b // tiles) % tiles * df_mm.BWD_TILE + w + TILE_WARPS * r
+        col = b % tiles * df_mm.BWD_TILE + lane
+        pair, row, col = np.broadcast_arrays(pair, row, col)
+        live = (row < n) & (col < n)
+        counts = np.bincount(((pair * n + row) * n + col)[live], minlength=p * n * n)
+        assert counts.size == p * n * n and np.all(counts == 1), (ns, int(counts.min()), int(counts.max()))
+
+
+@pytest.mark.parametrize("sms", SPLIT_PLAN_SMS)
+@pytest.mark.parametrize("n", SPLIT_PLAN_SIZES)
+def test_df_mm_bwd_pair_units_cover_every_point_once(n, sms):
+    """#11's chain-rule launch: warp w of block x is residual w % (1 + ns) of
+    unit x (unit_warps // (1 + ns)) + w // (1 + ns) = (side P + pair) tiles +
+    chunk, a lane a point: every (side, pair, chunk) unit gets each of its
+    1 + ns warps once and every (side, pair, point) is some lane's once."""
+    for ns in (1, 2, 3):
+        p, nr = ns * (ns + 1) // 2, 1 + ns
+        plan = df_mm.pair_launch_plan(n, ns, sms)
+        tiles, units = plan["tiles"], plan["units"]
+        per = plan["unit_warps"] // nr
+        assert units == 2 * p * tiles and plan["unit_warps"] % nr == 0
+        assert 1 <= per <= df_mm.PAIR_UNIT_MAX_UNITS and plan["unit_blocks"] == -(-units // per)
+        x = np.arange(plan["unit_blocks"])[:, None]
+        w = np.arange(plan["unit_warps"])[None, :]
+        u, v = np.broadcast_arrays(x * per + w // nr, w % nr)
+        live = u < units
+        warps = np.bincount((u * nr + v)[live], minlength=units * nr)
+        assert np.all(warps == 1), (ns, int(warps.min()), int(warps.max()))
+        side, pair, chunk = u // (p * tiles), (u // tiles) % p, u % tiles
+        pts = chunk[live & (v == 0)][:, None] * df_mm.BWD_TILE + np.arange(df_mm.BWD_TILE)[None, :]
+        keys = ((side[live & (v == 0)][:, None] * p + pair[live & (v == 0)][:, None]) * n + pts)[pts < n]
+        counts = np.bincount(keys, minlength=2 * p * n)
+        assert counts.size == 2 * p * n and np.all(counts == 1), (ns, int(counts.min()), int(counts.max()))
+        if per < df_mm.PAIR_UNIT_MAX_UNITS:  # the units spread over the SMs, a block each at most
+            assert plan["unit_blocks"] <= sms
+    if (n, sms) == (384, 132):  # the driven path: 144 units, 2 a block, 72 blocks
+        assert df_mm.pair_launch_plan(n, 3, sms) == dict(tiles=12, tile_blocks=864, units=144, unit_warps=8,
+                                                          unit_blocks=72)
+
+
+@pytest.mark.parametrize("sms", SPLIT_PLAN_SMS)
+@pytest.mark.parametrize("n", SPLIT_PLAN_SIZES)
+def test_df_mm_bwd_mean_cluster_covers_every_point_once(n, sms):
+    """#10's one cluster: block r takes the tiles r, r + cluster, ... of
+    every model, warp w its items w, w + warps, ... (item i: model i % ns of
+    tile r + cluster (i // ns)), a lane a point: every (model, point) once."""
+    for ns in (1, 2, 3):
+        plan = df_mm.mean_launch_plan(n, ns, sms)
+        tiles, cl, warps = plan["tiles"], plan["cluster"], plan["warps"]
+        assert 1 <= cl <= min(df_mm.MEAN_MAX_CLUSTER, tiles, sms) and 1 <= warps <= df_mm.MEAN_MAX_WARPS
+        counts = np.zeros((ns, n), dtype=np.int64)
+        for r in range(cl):
+            items = ns * -(-(tiles - r) // cl)
+            for w in range(warps):
+                for it in range(w, items, warps):
+                    m, rt = it % ns, r + cl * (it // ns)
+                    pts = rt * df_mm.BWD_TILE + np.arange(df_mm.BWD_TILE)
+                    counts[m, pts[pts < n]] += 1
+        assert np.all(counts == 1), (ns, int(counts.min()), int(counts.max()))
+        if tiles <= min(df_mm.MEAN_MAX_CLUSTER, sms):  # a block a tile: ns warps, one item each
+            assert (cl, warps) == (tiles, ns)
