@@ -41,12 +41,15 @@ kernels at N = 32, 96, 128 and 384 and the split backward (the mean path's
 and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
 and random ones, each redesigned kernel also for bitwise repeats, the split
 route bit for bit against #9 and its on-card combination against
-``combine_split``; it also reports the launch shape, time and bound of the
-eight kernels redesigned for the H100 (#9 df_mm_bwd, #6 df_fwdres, #12
-df_mm_full, #2 cov_fwd, #5 df_fwd, #3 cov_bwd_row, both sides in one launch,
-#11 df_mm_bwd_pair and #10 df_mm_bwd_mean at N = 192 and 384, #10 beside its
-latency floor) beside unchanged kernels timed in the same run, and the times
-of #12 at N = 32 and 96 and of #2 at N = 32. Phase 4 also holds the launch
+``combine_split``, the Gram also at a ragged N and the iK gradient on
+rectangular slabs; it also reports the launch floor (an empty kernel,
+plainly and as a programmatic dependent), and the launch shape, time and
+bound of the ten kernels redesigned for the H100 (#9 df_mm_bwd, #6
+df_fwdres, #12 df_mm_full, #2 cov_fwd, #5 df_fwd, #3 cov_bwd_row, both sides
+in one launch, #11 df_mm_bwd_pair and #10 df_mm_bwd_mean at N = 192 and 384,
+#10 beside its latency floor, #1 gram and #4 cov_gik beside the launch
+floor) beside unchanged kernels timed in the same run, and the times of #12
+at N = 32 and 96 and of #2 at N = 32. Phase 4 also holds the launch
 counts of #5 and #3 on their paths, phase 5 those of #10 and #11
 (EXPECTED_LAUNCHES). Phase 5 times the blocked planning step of the
 paths and 15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the
@@ -104,12 +107,14 @@ F32_LATENCY_CYCLES = 4
 # device times before (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at
 # 700 W: #9 and #6 from their first design's runs, the others from the runs
 # of the design before this one; #3's is two one-side launches, 2 x
-# 0.0081-0.0083; #11 and #10 at N = 384): phase 3 prints each beside its new
-# time, its launch shape and its bound, with #8, #7 and #4 from the same
+# 0.0081-0.0083; #11 and #10 at N = 384; #1 and #4 at 3 x 384 x 384):
+# phase 3 prints each beside its new time, its launch shape and its bound
+# (#1 and #4 also beside the launch floor), with #8 and #7 from the same
 # call as controls.
 REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.0696", "df_mm_full": "0.0271-0.0274",
                         "cov_fwd": "0.0214-0.0223", "df_fwd": "0.0461-0.0462", "cov_bwd_row": "0.0162-0.0166",
-                        "df_mm_bwd_pair": "0.2339-0.2406", "df_mm_bwd_mean": "0.0205-0.0213"}
+                        "df_mm_bwd_pair": "0.2339-0.2406", "df_mm_bwd_mean": "0.0205-0.0213",
+                        "gram": "0.0073-0.0075", "cov_gik": "0.0038-0.0040"}
 # Launches of #5 and #3 on their driven paths (phase 4), held exactly: the
 # f32 refresh + PLAN_STEPS plans run 30 backwards per plan (two
 # value-and-grad objective evaluations of 15 rollout steps), one cov_bwd_row
@@ -571,19 +576,27 @@ def check_kernels(dev):
     ns, d = ls.shape
     n = x.shape[0]
 
-    k_out = gram_mod.gram(ls, outs, x)
-    k_ref = gram_mod.gram_ref(ls, outs, x)
-    excess = float(((k_out - k_ref).abs() - (GRAM_ATOL + GRAM_RTOL * k_ref.abs())).max())
-    abs_e, rel_e = max_err(k_out, k_ref)
+    floor = launch_floor()
+    log("kernel launch floor (device ms per call of a launch that does nothing): " + ", ".join(
+        f"{name} {ms:.5f}" for name, ms in floor.items()))
+    floor_dep = floor[f"empty {_build.sm_count(dev)}x256 programmatic dependent"]
+
+    abs_e = check_gram("flagship", ls, outs, x)
+    n_rag = ragged_n(lambda m: gram_mod.launch_plan(ns, m, _build.sm_count(dev))["rows"])
+    rng = np.random.default_rng(n_rag)
+    abs_e = max(abs_e, check_gram(f"random N={n_rag}", *(torch.tensor(v, dtype=torch.float32, device=dev) for v in (
+        rng.uniform(0.3, 2.0, (ns, d)), rng.uniform(0.02, 0.4, ns), rng.uniform(0, 1, (n_rag, d))))))
     ms, host = cuda_ms(lambda: gram_mod.gram(ls, outs, x))
     plain, _ = cuda_ms(lambda: gram_mod.gram_ref(ls, outs, x))
     b, by = bound_ms(4 * (ns * d + ns + n * d + ns * n * n), ns * n * n * (8 * d + 6))
-    log(f"kernel gram ({ns}x{n}x{n}): max abs err {abs_e:.3e} rel {rel_e:.3e} (tol atol {GRAM_ATOL} "
-        f"+ rtol {GRAM_RTOL}) | kernel {ms:.4f} ms plain {plain:.4f} ms bound {b:.5f} ms ({by}); "
+    log(f"kernel gram ({ns}x{n}x{n}): kernel {ms:.4f} ms plain {plain:.4f} ms bound {b:.5f} ms ({by}); "
         f"host {host:.4f} ms per call")
-    if not excess <= 0.0:
-        raise AssertionError(f"gram kernel disagrees with gram_ref: max abs err {abs_e:.3e}")
     results["gram"] = dict(err=abs_e, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    results["gram"]["report"] = launch_report("gram", gram_mod.launch_info(ns, n), ms, b, floor_extra(ms, floor_dep))
+    log("kernel " + results["gram"]["report"])
+    both, fill = after_torch_op_ms(lambda: gram_mod.gram(ls, outs, x), torch.empty(ns, n, n, device=dev))
+    log(f"kernel gram after a PyTorch kernel (a fill_ of its size, as on the refresh path): {both:.4f} ms "
+        f"against the fill_ alone {fill:.4f}: {both - fill:.4f} ms for the gram")
 
     cov_flag, diag_pos = flagship_cov_operands(dev)
     cov_rand = random_cov_operands(dev, *cov_flag[0].shape, cov_flag[2].shape[2], diag_pos)
@@ -624,6 +637,12 @@ def check_kernels(dev):
     log("kernel " + results["cov_bwd_row"]["report"])
 
     err_gik = max(check_cov_gik("flagship", cov_flag, diag_pos), check_cov_gik("random", cov_rand, diag_pos))
+    # rectangular slabs the flagship path never sends: Nc % 4 != 0, Nr not a
+    # whole number of the plan's bands, each diagonal pair its own E
+    nc_rect = 301
+    nr_rect = ragged_n(lambda m: moment_cov.gik_launch_plan(nd, m, nc_rect, _build.sm_count(dev))["rows"], start=203)
+    rect = random_gik_operands(dev, p, nr_rect, nc_rect, ns_, seed=nr_rect)
+    err_gik = max(err_gik, check_cov_gik_kernel(f"random {nr_rect}x{nc_rect}", rect, diag_pos))
     g_corr = torch.linspace(1.0, 3.0, nd, device=dev)
     ms, host = cuda_ms(lambda: moment_cov.cov_gik(g_corr, a, c, u, xj, diag_pos))
     plain, _ = cuda_ms(lambda: moment_cov.cov_gik_plain(g_corr, a, c, u, xj, diag_pos))
@@ -631,7 +650,69 @@ def check_kernels(dev):
     log(f"kernel cov_gik (Ns={nd}, N={n}, ns={ns_}): kernel {ms:.4f} ms plain {plain:.4f} ms "
         f"bound {b:.5f} ms ({by}); host {host:.4f} ms per call")
     results["cov_gik"] = dict(err=err_gik, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    results["cov_gik"]["report"] = launch_report("cov_gik", moment_cov.gik_launch_info(nd, n, n, ns_), ms, b,
+                                                 floor_extra(ms, floor_dep))
+    log("kernel " + results["cov_gik"]["report"])
+    # CovCore.backward's pair: cov_bwd, then cov_gik as its programmatic dependent
+    both, _ = cuda_ms(lambda: (moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos),
+                               moment_cov.cov_gik(g_corr, a, c, u, xj, diag_pos)))
+    log(f"kernel cov_bwd then cov_gik (CovCore.backward with an iK gradient): {both:.4f} ms (device) against "
+        f"{results['cov_bwd_row']['ms']:.4f} + {ms:.4f} apart; the programmatic-dependent launch floor "
+        f"{floor_dep:.5f} ms")
     return results
+
+
+def launch_floor() -> dict:
+    """Device ms per call of launches that do nothing (the launch floor,
+    which no kernel's design can remove): ``torch.cuda._sleep(1)``, and an
+    empty kernel of one block of 32 threads and of one wave of 256-thread
+    blocks, launched plainly and as a programmatic dependent, each timed by
+    cuda_ms as the kernels are."""
+    sms = _build.sm_count(torch.device("cuda"))
+    calls = {"torch.cuda._sleep(1)": lambda: torch.cuda._sleep(1)}
+    for blocks, threads in ((1, 32), (sms, 256)):
+        for dependent in (False, True):
+            kind = "programmatic dependent" if dependent else "plain"
+            calls[f"empty {blocks}x{threads} {kind}"] = (
+                lambda b=blocks, t=threads, d=dependent: _build.empty_launch(b, t, d))
+    return {name: cuda_ms(fn)[0] for name, fn in calls.items()}
+
+
+def after_torch_op_ms(fn, like) -> tuple[float, float]:
+    """(device ms per call of a plain PyTorch kernel (``like.fill_``, as a
+    PyTorch op precedes the Gram on the refresh path) then fn, that of the
+    fill alone): their difference is fn's cost on such a path."""
+    return cuda_ms(lambda: (like.fill_(1.0), fn()))[0], cuda_ms(lambda: like.fill_(1.0))[0]
+
+
+def floor_extra(ms, floor) -> str:
+    """A redesigned kernel's time against the launch floor of its kind of
+    launch (programmatic dependent), for launch_report."""
+    return f"; programmatic-dependent launch floor {floor:.5f} ms = {floor / ms:.1%} of it"
+
+
+def ragged_n(rows_at, start=301) -> int:
+    """The largest N <= start with N % 4 != 0 and N not a whole number of
+    the bands of rows_at(N) rows: a ragged row end and a short last band."""
+    for m in range(start, 4, -1):
+        if m % 4 and m % rows_at(m):
+            return m
+    raise AssertionError("ragged_n: no ragged size below start")
+
+
+def check_gram(label, ls, outs, x) -> float:
+    """The Gram kernel against gram_ref elementwise (GRAM_RTOL, GRAM_ATOL),
+    called twice for bitwise repeats."""
+    k_out = gram_mod.gram(ls, outs, x)
+    k_ref = gram_mod.gram_ref(ls, outs, x)
+    excess = float(((k_out - k_ref).abs() - (GRAM_ATOL + GRAM_RTOL * k_ref.abs())).max())
+    abs_e, rel_e = max_err(k_out, k_ref)
+    log(f"kernel gram [{label}] ({ls.shape[0]}x{x.shape[0]}x{x.shape[0]}, d={x.shape[1]}): max abs err "
+        f"{abs_e:.3e} rel {rel_e:.3e} (tol atol {GRAM_ATOL} + rtol {GRAM_RTOL})")
+    if not excess <= 0.0:
+        raise AssertionError(f"gram kernel [{label}] disagrees with gram_ref: max abs err {abs_e:.3e}")
+    hold_repeat("gram", label, (k_out,), (gram_mod.gram(ls, outs, x),))
+    return abs_e
 
 
 def cov_fwd_bound(p, n, ns, nd) -> tuple[float, str]:
@@ -654,15 +735,25 @@ def hold_gik(what, label, out, ref, g_corr, expo_abs) -> float:
     return float(diff.max())
 
 
+def check_cov_gik_kernel(label, operands, diag_pos) -> float:
+    """The iK-gradient kernel against its plain twin, called twice for
+    bitwise repeats (any Nr x Nc slabs)."""
+    a, c, u, xj = operands[:4]
+    expo = moment_cov.cov_gik_expo_abs(a, c, u, xj, diag_pos)
+    g_corr = torch.linspace(1.0, -2.0, len(diag_pos), device=a.device)
+    out = moment_cov.cov_gik(g_corr, a, c, u, xj, diag_pos)
+    err = hold_gik("cov_gik", label, out, moment_cov.cov_gik_plain(g_corr, a, c, u, xj, diag_pos), g_corr, expo)
+    hold_repeat("cov_gik", label, (out,), (moment_cov.cov_gik(g_corr, a, c, u, xj, diag_pos),))
+    return err
+
+
 def check_cov_gik(label, operands, diag_pos) -> float:
     """The iK-gradient kernel against its plain twin, and CovCore's iK
     gradient (which launches it) against autograd of the plain core."""
     a, c, u, xj, bi, bj, ik = operands
     p, nd = a.shape[0], len(diag_pos)
     expo = moment_cov.cov_gik_expo_abs(a, c, u, xj, diag_pos)
-    g_corr = torch.linspace(1.0, -2.0, nd, device=a.device)
-    err = hold_gik("cov_gik", label, moment_cov.cov_gik(g_corr, a, c, u, xj, diag_pos),
-                   moment_cov.cov_gik_plain(g_corr, a, c, u, xj, diag_pos), g_corr, expo)
+    err = check_cov_gik_kernel(label, operands, diag_pos)
     w_s = torch.linspace(1.0, 2.0, p, device=a.device)
     w_c = torch.linspace(1.0, 3.0, nd, device=a.device)
 
@@ -685,6 +776,15 @@ def random_cov_operands(dev, p, n, ns, diag_pos, seed=0):
     arrays = (rng.normal(-2, 0.5, (p, n)), rng.normal(-2, 0.5, (p, n)), rng.normal(0, 0.3, (p, n, ns)),
               rng.normal(0, 0.3, (p, n, ns)), rng.normal(0, 1, (p, n)), rng.normal(0, 1, (p, n)),
               (ikh + ikh.transpose(0, 2, 1)) / 2)
+    return [torch.tensor(x, dtype=torch.float32, device=dev) for x in arrays]
+
+
+def random_gik_operands(dev, p, nr, nc, ns, seed):
+    """The iK gradient's operands (a, c, U, Xj) of Nr rows and Nc columns,
+    drawn as random_cov_operands draws them: each pair its own E."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(-2, 0.5, (p, nr)), rng.normal(-2, 0.5, (p, nc)), rng.normal(0, 0.3, (p, nr, ns)),
+              rng.normal(0, 0.3, (p, nc, ns)))
     return [torch.tensor(x, dtype=torch.float32, device=dev) for x in arrays]
 
 
@@ -1464,10 +1564,10 @@ def _run() -> int:
     kern.update(check_df_mm_kernels(dev))
     log("phase 3 kernels: all twelve match their plain versions on the card")
     for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres", "df_fwd", "cov_bwd_row", "df_mm_bwd_pair N=192",
-                 "df_mm_bwd_pair", "df_mm_bwd_mean N=192", "df_mm_bwd_mean"):
+                 "df_mm_bwd_pair", "df_mm_bwd_mean N=192", "df_mm_bwd_mean", "gram", "cov_gik"):
         log(f"phase 3 {kern[name]['report']}")
     log("phase 3 controls in this call: " + ", ".join(
-        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_bwd", "cov_gik")))
+        f"{name} {kern[name]['ms']:.4f} ms" for name in ("df_mm_fwd", "df_bwd")))
 
     prob = flagship_problem(dev, torch.float32)
     spec = prob.spec

@@ -39,8 +39,11 @@ _SIGNATURES = {
     "gpmpc_cov_fwd_info": (_I,) * 5 + (_P,),
     "gpmpc_cov_bwd_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
     "gpmpc_cov_bwd_info": (_I,) * 3 + (_P,),
-    "gpmpc_cov_gik_f32": (_P,) * 6 + (_I,) + (_P,) + (_I,) * 3 + (_P,),
-    "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "gpmpc_cov_gik_f32": (_P,) * 6 + (_I,) + (_P,) + (_I,) * 6 + (_P,),
+    "gpmpc_cov_gik_info": (_I,) * 6 + (_P,),
+    "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "gpmpc_gram_info": (_I,) * 4 + (_P,),
+    "gpmpc_empty_launch": (_I,) * 3 + (_P,),
     "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 8 + (_P,),
     "gpmpc_df_fwd_info": (_I,) * 5 + (_P,),
     "gpmpc_df_fwdres_max_bands": (_I,) * 4,
@@ -180,6 +183,14 @@ def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device: the kernels' launch plans
     size their grids with it."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def empty_launch(blocks: int, threads: int, dependent: bool) -> None:
+    """Launch a kernel that does nothing (csrc/launch_floor.cu) on the
+    current stream, plainly or as a programmatic dependent of the launch
+    before it: its device time per call is the launch floor."""
+    stream = torch.cuda.current_stream().cuda_stream
+    check(load().gpmpc_empty_launch(blocks, threads, int(dependent), stream), "empty_launch")
 
 
 def check(rc: int, name: str) -> None:

@@ -18,13 +18,20 @@
 //
 // The forward and the backward read iK once (the only O(N^2) input) and
 // compute E on the fly, never writing it. The iK gradient is the one kernel
-// with an O(N^2) output: it is bound by writing gK (1.77 MB at the flagship),
-// so each thread computes and stores one element at a time, a warp 32
-// neighbouring columns of one row. Every kernel computes E by cov_e, the
-// same f32 operations in the same order. The ns-contraction is ns scalar f32
+// with an O(N^2) output: by bytes it is bound by writing gK (1.77 MB at the
+// flagship, 0.53 us), in practice by its launch, its latency and its
+// instructions per element (a launch that does nothing costs ~1.9 us of
+// device time per call on an H100, ~1.0 us as a programmatic dependent). So
+// it runs one wave of row bands in blocks of up to 1,024 threads, a thread
+// loading its item's operands in 16-byte loads and writing 16 bytes a
+// store, and launches as a programmatic dependent of the kernel before it
+// (cov_gik_kernel). Every kernel computes E by cov_e, the same f32
+// operations in the same order. The ns-contraction is ns scalar f32
 // FMAs: no tensor cores, whose TF32 inputs would put a ~1e-3 error inside the
 // exp. Each block writes its own partial, summed in a fixed order, so runs
 // repeat bitwise.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -321,31 +328,97 @@ static_assert(GPMPC_MAX_NS == 8, "one backward instantiation per state width");
 // the backward's dynamic shared memory: a batch's column operands
 size_t bwd_smem(int ns) { return (size_t)kBwdBatch * (2 + ns) * sizeof(float); }
 
-constexpr int kGikThreads = 128;  // iK gradient: threads stride the Nc columns of one row
+constexpr int kGikThreads = 1024;  // most threads of a block (32 warps an SM to hide the latencies)
 
-// grid (n_diag, Nr), block kGikThreads: gK[m, n, k] = g_corr[m] E_p[n, k] for
-// the diagonal pair p = diag_pos[m].
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// gK[m, n, k] = g_corr[m] E_p[n, k] for the diagonal pair p = diag_pos[m],
+// on the grid the wrapper planned (moment_cov.gik_launch_plan): block (m, t)
+// owns model m and the band of `rows` rows t; its thread (x, y) takes the
+// band's rows y + blockDim.y i against the quads x + blockDim.x j of
+// ceil(Nc / 4), quad q the columns 4 q .. 4 q + 3, so no index is found by
+// an integer division (on an H100 a chain of them took a large share of the
+// kernel's device time). Per item a thread loads what it needs itself: a
+// and U of its row (one address for most of a warp), c and Xj of its 4
+// columns as 1 + NS 16-byte loads where the pair's columns are 16-byte
+// aligned and the quad is whole (scalar loads otherwise); then 4 E by
+// cov_e (the f32 operations of the forward and the backward) and one
+// 16-byte store (scalar stores where the item ends a ragged row or its row
+// is not 16-byte aligned). No shared memory and no barrier: staging the
+// operands in shared memory cost more instructions than it saved loads. A
+// programmatic dependent:
+// it waits for the launch before it (cov_bwd on CovCore.backward's path)
+// before it reads anything, so its launch overlaps that kernel's tail.
+template <int NS>
 __global__ void __launch_bounds__(kGikThreads)
-cov_gik_kernel(const float* __restrict__ g_corr, const float* __restrict__ a,
-               const float* __restrict__ c, const float* __restrict__ u,
-               const float* __restrict__ xj, const int* __restrict__ diag_pos,
-               float* __restrict__ gk, int nr, int nc, int ns) {
+cov_gik_kernel(const float* __restrict__ g_corr, const float* __restrict__ a, const float* __restrict__ c,
+               const float* __restrict__ u, const float* __restrict__ xj, const int* __restrict__ diag_pos,
+               float* __restrict__ gk, int nr, int nc, int rows) {
+  gpmpc_pdl::release_dependents();
+  gpmpc_pdl::wait_for_prerequisite();
   const int m = blockIdx.x;
-  const int n = blockIdx.y;
+  const int n0 = blockIdx.y * rows;
+  const int nrow = min(rows, nr - n0);
+  const int quads = (nc + 3) / 4;
   const int p = diag_pos[m];
   const float g = g_corr[m];
-  const float an = a[(size_t)p * nr + n];
-  float un[GPMPC_MAX_NS];
+  const size_t row0 = (size_t)p * nr, col0 = (size_t)p * nc;  // the pair's first row and first column
+  const float* a_p = a + row0;
+  const float* u_p = u + row0 * NS;
+  const float* c_p = c + col0;
+  const float* x_p = xj + col0 * NS;
+  // the pair's c and Xj rows start 16-byte aligned: whole quads load as float4
+  const bool vec = ((reinterpret_cast<uintptr_t>(c_p) | reinterpret_cast<uintptr_t>(x_p)) & 15) == 0;
+  float* out_m = gk + (size_t)m * nr * nc;
+
+  for (int r = threadIdx.y; r < nrow; r += blockDim.y)
+  for (int jq = threadIdx.x; jq < quads; jq += blockDim.x) {
+    const int k = 4 * jq, n = n0 + r;
+    const float an = a_p[n];
+    float un[NS], ck[4], xk[4][NS];
 #pragma unroll
-  for (int e = 0; e < GPMPC_MAX_NS; ++e) un[e] = e < ns ? u[((size_t)p * nr + n) * ns + e] : 0.f;
-  float* out = gk + ((size_t)m * nr + n) * nc;
-  for (int k = threadIdx.x; k < nc; k += blockDim.x) {
-    float xk[GPMPC_MAX_NS];
+    for (int e = 0; e < NS; ++e) un[e] = u_p[(size_t)n * NS + e];
+    if (vec && k + 4 <= nc) {
+      const float4 c4 = *reinterpret_cast<const float4*>(c_p + k);
+      float4 x4[NS];  // Xj of the 4 columns, [column][e] as in memory
 #pragma unroll
-    for (int e = 0; e < GPMPC_MAX_NS; ++e) xk[e] = e < ns ? xj[((size_t)p * nc + k) * ns + e] : 0.f;
-    out[k] = g * cov_e(an, c[(size_t)p * nc + k], un, xk, ns);
+      for (int q = 0; q < NS; ++q) x4[q] = reinterpret_cast<const float4*>(x_p + (size_t)k * NS)[q];
+#pragma unroll
+      for (int col = 0; col < 4; ++col) {
+        ck[col] = lane_of(c4, col);
+#pragma unroll
+        for (int e = 0; e < NS; ++e) xk[col][e] = lane_of(x4[(col * NS + e) / 4], (col * NS + e) % 4);
+      }
+    } else {
+#pragma unroll
+      for (int col = 0; col < 4; ++col) {
+        const bool kv = k + col < nc;
+        ck[col] = kv ? c_p[k + col] : 0.f;
+#pragma unroll
+        for (int e = 0; e < NS; ++e) xk[col][e] = kv ? x_p[(size_t)(k + col) * NS + e] : 0.f;
+      }
+    }
+    float v[4];
+#pragma unroll
+    for (int col = 0; col < 4; ++col) v[col] = g * cov_e(an, ck[col], un, xk[col], NS);
+    float* o = out_m + (size_t)n * nc + k;
+    if (k + 4 <= nc && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int col = 0; col < 4; ++col)
+        if (k + col < nc) o[col] = v[col];
+    }
   }
 }
+
+// cov_gik_kernel at each state width 1..GPMPC_MAX_NS
+using GikKernel = decltype(&cov_gik_kernel<1>);
+const GikKernel kGikKernels[GPMPC_MAX_NS] = {cov_gik_kernel<1>, cov_gik_kernel<2>, cov_gik_kernel<3>,
+                                             cov_gik_kernel<4>, cov_gik_kernel<5>, cov_gik_kernel<6>,
+                                             cov_gik_kernel<7>, cov_gik_kernel<8>};
 
 // the forward's dynamic shared memory: a band's row operands
 size_t fwd_smem(int rows, int ns) { return (size_t)rows * (2 + ns) * sizeof(float); }
@@ -422,15 +495,40 @@ int gpmpc_cov_bwd_info(int p, int n, int ns, int* info) {
   return 0;
 }
 
-int gpmpc_cov_gik_f32(const float* g_corr, const float* a, const float* c,
-                      const float* u, const float* xj, const int* diag_pos,
-                      int n_diag, float* gk, int nr, int nc, int ns, void* stream) {
-  if (n_diag < 1 || nr < 1 || nc < 1 || ns < 1 || ns > GPMPC_MAX_NS || nr > 65535)
+// the iK gradient on the grid the wrapper planned (moment_cov.gik_launch_plan:
+// n_diag bands of `rows` rows, blocks of tx x ty threads), a programmatic
+// dependent of the launch before it
+int gpmpc_cov_gik_f32(const float* g_corr, const float* a, const float* c, const float* u, const float* xj,
+                      const int* diag_pos, int n_diag, float* gk, int nr, int nc, int ns, int rows, int tx, int ty,
+                      void* stream) {
+  if (n_diag < 1 || nr < 1 || nc < 1 || ns < 1 || ns > GPMPC_MAX_NS || rows < 1 || rows > nr || tx < 1 || ty < 1 ||
+      tx * ty > kGikThreads)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_diag, nr);
-  cov_gik_kernel<<<grid, kGikThreads, 0, (cudaStream_t)stream>>>(
-      g_corr, a, c, u, xj, diag_pos, gk, nr, nc, ns);
-  return (int)cudaGetLastError();
+  const int bands = (nr + rows - 1) / rows;
+  if (bands > 65535) return (int)cudaErrorInvalidValue;
+  return gpmpc_pdl::launch_dependent(kGikKernels[ns - 1], dim3(n_diag, bands), dim3(tx, ty), 0, (cudaStream_t)stream,
+                                     g_corr, a, c, u, xj, diag_pos, gk, nr, nc, rows);
+}
+
+// #4's registers, spill bytes, threads, resident blocks per SM, grid, SMs
+// and dynamic shared memory at (n_diag, nr, ns, rows, tx, ty), then rows,
+// for the smoke's report: info[8]
+int gpmpc_cov_gik_info(int n_diag, int nr, int ns, int rows, int tx, int ty, int* info) {
+  if (n_diag < 1 || nr < 1 || ns < 1 || ns > GPMPC_MAX_NS || rows < 1 || rows > nr || tx < 1 || ty < 1 ||
+      tx * ty > kGikThreads)
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  int rc = (int)cudaFuncGetAttributes(&fa, kGikKernels[ns - 1]);
+  if (rc != 0) return rc;
+  int per_sm = 0, dev = 0, sms = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kGikKernels[ns - 1], tx * ty, 0);
+  if (rc != 0) return rc;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int vals[8] = {fa.numRegs, (int)fa.localSizeBytes, tx * ty, per_sm, n_diag * ((nr + rows - 1) / rows), sms, 0,
+                       rows};
+  for (int k = 0; k < 8; ++k) info[k] = vals[k];
+  return 0;
 }
 
 }  // extern "C"

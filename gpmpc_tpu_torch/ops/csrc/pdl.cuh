@@ -2,9 +2,11 @@
 // kernel before it on the stream runs and waits for that kernel's writes
 // (griddepcontrol.wait) before it reads anything, so the launch gap between
 // the two leaves the device timeline. A launch that sums another's partials
-// waits in its first instruction; the forwards of #12, #8 and #2 follow
-// whatever kernel precedes them the same way, and their summing launches
-// release the next launch at once. The order of every sum is unchanged.
+// waits in its first instruction; the forwards of #12, #8 and #2, and #1 and
+// #4, follow whatever kernel precedes them the same way (after a plain
+// PyTorch kernel too, which ends before the dependent's wait returns), and
+// their summing launches release the next launch at once. The order of
+// every sum is unchanged.
 
 #pragma once
 

@@ -38,12 +38,18 @@ Kernels (``csrc/cov_core.cu``), each replacing a Pallas TPU kernel of
   kernel before it. Its launch count keeps the key ``cov_bwd_row``: one per
   backward.
 * ``cov_gik`` replaces ``_gik_kernel`` (via ``_gik_call``): the gradient
-  with respect to iK, gK[m] = g_corr[m] E[diag_pos[m]] (Ns, Nr, Nc). Grid
-  (Ns, Nr), 128 threads striding a row's columns, one element each; E by
-  the same f32 operations as the forward. ``CovCore.backward`` launches it,
-  as a launch of its own, only when iK needs a gradient (the reference's
-  separate call, which XLA drops when nothing consumes it): iK is constant
-  while planning, so a planning step launches it zero times.
+  with respect to iK, gK[m] = g_corr[m] E[diag_pos[m]] (Ns, Nr, Nc). One
+  wave of row bands in blocks of up to 1,024 threads (``gik_launch_plan``):
+  a thread loads the operands of a row and 4 consecutive columns of the
+  diagonal pair (16-byte loads where aligned), computes their 4 E and
+  writes them with one 16-byte store, its row and columns found from its
+  2-D index without a division; E by the same f32 operations as the
+  forward, so gK keeps its bits. A programmatic dependent of the kernel
+  before it (``cov_bwd`` in ``CovCore.backward``), so its launch overlaps
+  that kernel's tail. ``CovCore.backward`` launches it, as a launch of its own,
+  only when iK needs a gradient (the reference's separate call, which XLA
+  drops when nothing consumes it): iK is constant while planning, so a
+  planning step launches it zero times.
 
 What bounds them on an H100: at the flagship shape (P=6, N=384, ns=3) each
 call reads the 1.77 MB iK slab once and evaluates 0.9 M exps (the backward
@@ -54,7 +60,10 @@ the band's rows are staged, the backward a lane's iK entries before the
 column operands are staged, and each hides its launch's start behind the
 kernel before it. The design keeps E out of device memory entirely
 (recomputed in the backward, never stored) and uses no atomics, so results
-repeat bitwise. ``cov_gik`` writes its 1.77 MB output once: bytes bound it.
+repeat bitwise. ``cov_gik`` writes its 1.77 MB output once: by bytes that
+bounds it (0.53 us), in practice its launch and its latency do (a launch
+that does nothing costs ~1.9 us of device time per call, ~1.0 us as a
+programmatic dependent, ``_build.empty_launch``).
 """
 
 from __future__ import annotations
@@ -309,6 +318,29 @@ def cov_gik_expo_abs(a, c, u, xj, diag_pos):
     return a[:, :, None] + c[:, None, :] + torch.einsum("pne,pke->pnk", u, xj)
 
 
+GIK_THREADS = 1024  # kGikThreads of csrc/cov_core.cu: most threads of a block
+
+
+def gik_launch_plan(n_diag: int, nr: int, nc: int, sms: int) -> dict:
+    """The grid of ``cov_gik`` for n_diag models of Nr rows and Nc columns
+    on a card with ``sms`` SMs. Block (m, t) owns model m and rows t rows ..
+    (t + 1) rows (the last band shorter) against every column; its thread
+    (x, y) of tx x ty takes the band's rows y + ty i against the quads
+    x + tx j of quads = ceil(Nc / 4), quad q the columns 4 q .. 4 q + 3.
+    rows is the least whose n_diag bands fit one wave of one block per SM;
+    tx covers a row's quads (at most GIK_THREADS), ty as many of the band's
+    rows as fit the rest of GIK_THREADS."""
+    rows = max(1, -(-n_diag * nr // sms))
+    while rows < nr and n_diag * -(-nr // rows) > sms:
+        rows += 1
+    rows = min(rows, nr)
+    quads = -(-nc // 4)
+    tx = min(quads, GIK_THREADS)
+    ty = min(rows, GIK_THREADS // tx)
+    bands = -(-nr // rows)
+    return dict(rows=rows, bands=bands, quads=quads, tx=tx, ty=ty, blocks=n_diag * bands)
+
+
 def cov_gik(g_corr, a, c, u, xj, diag_pos):
     """gK (Ns, Nr, Nc) = g_corr[m] E[diag_pos[m]]. A CPU tensor takes the
     plain twin; a CUDA tensor launches the kernel or raises."""
@@ -325,15 +357,24 @@ def cov_gik(g_corr, a, c, u, xj, diag_pos):
         raise ValueError(f"cov_gik: diag_pos {tuple(diag_pos)} outside the {p} pairs")
     _check_ns("cov_gik", ns)
     lib = _build.load()
+    plan = gik_launch_plan(len(diag_pos), nr, nc, _build.sm_count(a.device))
     gk = torch.empty((len(diag_pos), nr, nc), dtype=torch.float32, device=a.device)
     rc = lib.gpmpc_cov_gik_f32(
         g_corr.data_ptr(), a.data_ptr(), c.data_ptr(), u.data_ptr(), xj.data_ptr(),
         _index(diag_pos, a.device, torch.int32).data_ptr(), len(diag_pos), gk.data_ptr(), nr, nc, ns,
-        torch.cuda.current_stream(a.device).cuda_stream,
+        plan["rows"], plan["tx"], plan["ty"], torch.cuda.current_stream(a.device).cuda_stream,
     )
     _build.check(rc, "cov_gik")
     LAUNCHES["cov_gik"] += 1
     return gk
+
+
+def gik_launch_info(n_diag: int, nr: int, nc: int, ns: int) -> dict:
+    """``cov_gik``'s launch at (n_diag, Nr, Nc, ns) on the current card
+    (``_build.launch_info``), with the plan's rows."""
+    plan = gik_launch_plan(n_diag, nr, nc, _build.sm_count(torch.device("cuda")))
+    return _build.launch_info("gpmpc_cov_gik_info", n_diag, nr, ns, plan["rows"], plan["tx"], plan["ty"],
+                              extra=("rows",))
 
 
 # ---------------------------------------------------------------------------

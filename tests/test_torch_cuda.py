@@ -10,6 +10,9 @@ backward block, nor a whole number of the df lean forward's bands or
 the cov forward's row bands) and the flagship N=384. The kernels whose
 cross-block sums run in a fixed order are also called twice and must agree
 bit for bit.
+The Gram runs at 1, 4 and 8 features, one and three models, and at a
+ragged band and several column chunks; the iK gradient also on
+rectangular slabs (Nr != Nc, Nc % 4 != 0) at ns 1, 3 and 8.
 Tolerances: Gram entries rtol 2e-5 + atol 2e-6; each cov output within
 COV_RTOL of the sum of the absolute values of its terms (f32 sums in
 another order than the plain einsum, E rounded differently through its
@@ -71,12 +74,39 @@ def _cov_problem(seed, n, dev, p=6, ns=3, m=3):
 
 
 @pytest.mark.parametrize("n", SIZES)
-def test_gram_kernel_matches_plain(dev, n):
-    rng = np.random.default_rng(n)
+@pytest.mark.parametrize("d", [1, 4, 8])
+@pytest.mark.parametrize("ns", [1, 3])
+def test_gram_kernel_matches_plain(dev, n, d, ns):
+    """Every feature count (one stage of kGramQ features, a partial one, two)
+    and a ragged N; bitwise repeatable."""
+    rng = np.random.default_rng(n + 10 * d + 100 * ns)
     ls, outs, x = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (
-        rng.uniform(0.3, 2.0, (3, 4)), rng.uniform(0.02, 0.4, 3), rng.uniform(0, 1, (n, 4))))
+        rng.uniform(0.3, 2.0, (ns, d)), rng.uniform(0.02, 0.4, ns), rng.uniform(0, 1, (n, d))))
     out = gram_rbf.gram(ls, outs, x)
     torch.testing.assert_close(out, gram_rbf.gram_ref(ls, outs, x), rtol=2e-5, atol=2e-6)
+    assert torch.equal(gram_rbf.gram(ls, outs, x), out)
+
+
+@pytest.mark.parametrize("n", [299, 1000])
+def test_gram_kernel_matches_plain_at_ragged_bands_and_chunks(dev, n):
+    """N with a ragged row end and a short last band (299), and N whose
+    rows span several column chunks on a card of few SMs (1000 at 8 SMs:
+    the wrapper's plan for another SM count, patched in); the last fifth of
+    the points are 0, as a bucket's padding is (the kernel divides no 0)."""
+    rng = np.random.default_rng(n)
+    xs = rng.uniform(0, 1, (n, 4))
+    xs[n - n // 5:] = 0.0
+    ls, outs, x = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (
+        rng.uniform(0.3, 2.0, (3, 4)), rng.uniform(0.02, 0.4, 3), xs))
+    ref = gram_rbf.gram_ref(ls, outs, x)
+    torch.testing.assert_close(gram_rbf.gram(ls, outs, x), ref, rtol=2e-5, atol=2e-6)
+    plan = gram_rbf.launch_plan
+    try:
+        gram_rbf.launch_plan = lambda ns_, n_, sms: plan(ns_, n_, 8)
+        assert plan(3, n, 8)["chunks"] > 1
+        torch.testing.assert_close(gram_rbf.gram(ls, outs, x), ref, rtol=2e-5, atol=2e-6)
+    finally:
+        gram_rbf.launch_plan = plan
 
 
 def _pairs(ns):
@@ -519,6 +549,36 @@ def test_cov_gik_kernel_matches_plain(dev, n):
     expo = moment_cov.cov_gik_expo_abs(a, c, u, xj, DIAG)
     assert out.shape == ref.shape == (3, n, n)
     assert torch.all((out - ref).abs() <= GIK_RTOL * (1.0 + expo) * ref.abs())
+
+
+@pytest.mark.parametrize("nr,nc", [(1, 5), (37, 24), (100, 37), (203, 301), (384, 101), (60, 1500)])
+@pytest.mark.parametrize("ns", [1, 3, 8])
+def test_cov_gik_kernel_matches_plain_on_rectangular_slabs(dev, nr, nc, ns):
+    """Nr != Nc, Nc % 4 != 0 (the pair's columns then not 16-byte aligned,
+    scalar loads), Nr not a whole number of the plan's bands, more items
+    than threads in a block (60 x 1500); each diagonal pair its own E, so a
+    wrong pair slot shows; bitwise repeatable."""
+    rng = np.random.default_rng(nr + nc + ns)
+    a, c, u, xj = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (
+        rng.normal(-2, 0.5, (6, nr)), rng.normal(-2, 0.5, (6, nc)), rng.normal(0, 0.3, (6, nr, ns)),
+        rng.normal(0, 0.3, (6, nc, ns))))
+    g = torch.tensor([1.0, -2.0, 0.5], device=dev)
+    out = moment_cov.cov_gik(g, a, c, u, xj, DIAG)
+    ref = moment_cov.cov_gik_plain(g, a, c, u, xj, DIAG)
+    expo = moment_cov.cov_gik_expo_abs(a, c, u, xj, DIAG)
+    assert out.shape == ref.shape == (3, nr, nc)
+    assert torch.all((out - ref).abs() <= GIK_RTOL * (1.0 + expo) * ref.abs())
+    assert torch.equal(moment_cov.cov_gik(g, a, c, u, xj, DIAG), out)
+
+
+def test_redesigned_elementwise_launch_info(dev):
+    """#1's and #4's launch reports at the flagship's shapes: no spills, the
+    plan's rows and grid, at least one resident block per SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for info, plan in ((gram_rbf.launch_info(3, 384), gram_rbf.launch_plan(3, 384, sms)),
+                       (moment_cov.gik_launch_info(3, 384, 384, 3), moment_cov.gik_launch_plan(3, 384, 384, sms))):
+        assert info["spill_bytes"] == 0 and info["blocks_per_sm"] >= 1
+        assert (info["rows"], info["grid"]) == (plan["rows"], plan["blocks"])
 
 
 def test_covcore_ik_grad_launches_cov_gik_only_when_asked(dev):

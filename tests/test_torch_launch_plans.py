@@ -19,6 +19,10 @@ every element exactly once.
   1 + ns warps a unit, spread over the SMs.
 * ``df_mm.mean_launch_plan`` (#10 ``df_mm_bwd_mean``, csrc/df_mm_bwd.cu):
   one thread-block cluster, a warp a (model, 32-point tile) item.
+* ``gram_rbf.launch_plan`` (#1 ``gram``, csrc/gram.cu) and
+  ``moment_cov.gik_launch_plan`` (#4 ``cov_gik``, csrc/cov_core.cu): row
+  bands of one model against all columns in chunks, a thread a row's 4
+  consecutive columns per item.
 
 Each case mirrors the kernel's mapping from (block, warp or thread, lane,
 step) to (pair, row, column) as its source comment states it, counts the
@@ -34,7 +38,7 @@ import pytest
 import torch
 
 from gpmpc_tpu.ops import cov_core_xla
-from gpmpc_tpu_torch.ops import df_cov, df_mm, moment_cov
+from gpmpc_tpu_torch.ops import df_cov, df_mm, gram_rbf, moment_cov
 
 SIZES = [24, 32, 37, 100, 128, 384]
 SMS = [132, 114, 8]
@@ -344,3 +348,94 @@ def test_df_mm_bwd_mean_cluster_covers_every_point_once(n, sms):
         assert np.all(counts == 1), (ns, int(counts.min()), int(counts.max()))
         if tiles <= min(df_mm.MEAN_MAX_CLUSTER, sms):  # a block a tile: ns warps, one item each
             assert (cl, warps) == (tiles, ns)
+
+
+# ---------------------------------------------------------------------------
+# the elementwise O(N^2) outputs: #1 gram (csrc/gram.cu) and #4 cov_gik
+# (csrc/cov_core.cu), row bands against all columns in chunks of 4-column items
+# ---------------------------------------------------------------------------
+
+BAND_SMS = [132, 114, 8]
+
+
+def _band_counts(models, nr, nc, plan, threads, items_per_thread=None):
+    """(model, row, column) counts of a band grid: block b the rows
+    b % bands x rows .. of model b // bands; per chunk of 4 quads columns,
+    thread t the items t + threads k (k < items_per_thread, or every k while
+    the items last), item i the band's row i // quads against the columns
+    c0 + 4 (i % quads) + c, c < 4, below Nc. (#1's thread (x, y) of its
+    quads x rows block is thread t = y quads + x.)"""
+    rows, quads = plan["rows"], plan["quads"]
+    counts = np.zeros(models * nr * nc, dtype=np.int64)
+    for b in range(plan["blocks"]):
+        m, i0 = b // plan["bands"], b % plan["bands"] * rows
+        nrow = min(rows, nr - i0)
+        per = items_per_thread if items_per_thread is not None else -(-nrow * quads // threads)
+        it = (np.arange(threads)[:, None] + threads * np.arange(per)[None, :]).ravel()
+        it = it[it < nrow * quads]
+        for c0 in range(0, nc, 4 * quads):
+            row = i0 + it // quads
+            col = (c0 + 4 * (it % quads))[:, None] + np.arange(4)[None, :]
+            row = np.broadcast_to(row[:, None], col.shape)
+            live = col < nc
+            np.add.at(counts, (m * nr + row[live]) * nc + col[live], 1)
+    return counts
+
+
+@pytest.mark.parametrize("sms", BAND_SMS)
+@pytest.mark.parametrize("n", SIZES + [299, 1000])
+def test_gram_plan_covers_every_entry_once(n, sms):
+    """#1: a thread's one item per chunk reaches every (model, row, column)
+    once; a band's rows x quads fit THREADS; the bands of all models fit
+    one wave of one block per SM where they can."""
+    for ns in (1, 3, 8):
+        plan = gram_rbf.launch_plan(ns, n, sms)
+        rows, quads = plan["rows"], plan["quads"]
+        assert 1 <= rows <= n and 1 <= quads <= gram_rbf.MAX_QUADS
+        assert rows * quads <= gram_rbf.THREADS
+        assert plan["bands"] == -(-n // rows) and plan["blocks"] == ns * plan["bands"]
+        assert plan["chunks"] == -(-n // (4 * quads))
+        if ns * n <= sms:
+            assert rows == 1 and plan["blocks"] == ns * n
+        elif rows < n and rows < gram_rbf.THREADS:
+            assert plan["blocks"] <= sms  # one wave
+        counts = _band_counts(ns, n, n, plan, gram_rbf.THREADS, 1)
+        assert np.all(counts == 1), (ns, int(counts.min()), int(counts.max()))
+    if (n, sms) == (384, 132):  # the flagship refresh: 129 blocks of 9 rows, all 96 quads of a row in one chunk
+        assert gram_rbf.launch_plan(3, 384, 132) == dict(rows=9, bands=43, quads=96, blocks=129, chunks=1)
+
+
+GIK_SHAPES = [(1, 5), (24, 37), (37, 24), (100, 301), (203, 301), (384, 101), (384, 384), (60, 1500), (2000, 9),
+              (5, 5000)]
+
+
+@pytest.mark.parametrize("sms", BAND_SMS)
+@pytest.mark.parametrize("nr,nc", GIK_SHAPES)
+def test_cov_gik_plan_covers_every_entry_once(nr, nc, sms):
+    """#4 on Nr x Nc slabs: block (m, t)'s thread (x, y) takes the band's
+    rows y + ty i against the quads x + tx j; every (model, row, column) is
+    reached once; the bands fit one wave of one block per SM where they
+    can."""
+    for nd in (1, 3):
+        plan = moment_cov.gik_launch_plan(nd, nr, nc, sms)
+        rows, quads, tx, ty = plan["rows"], plan["quads"], plan["tx"], plan["ty"]
+        assert 1 <= rows <= nr and quads == -(-nc // 4)
+        assert 1 <= tx <= quads and 1 <= ty <= rows and tx * ty <= moment_cov.GIK_THREADS
+        assert plan["bands"] == -(-nr // rows) and plan["blocks"] == nd * plan["bands"]
+        if rows < nr:
+            assert plan["blocks"] <= sms  # one wave
+        counts = np.zeros(nd * nr * nc, dtype=np.int64)
+        for m in range(nd):
+            for t in range(plan["bands"]):
+                n0 = t * rows
+                nrow = min(rows, nr - n0)
+                r = (np.arange(ty)[:, None] + ty * np.arange(-(-nrow // ty))[None, :]).ravel()
+                q = (np.arange(tx)[:, None] + tx * np.arange(-(-quads // tx))[None, :]).ravel()
+                r, q = r[r < nrow], q[q < quads]
+                col = (4 * q)[:, None] + np.arange(4)[None, :]
+                col = col[col < nc]
+                np.add.at(counts, ((m * nr + n0 + r)[:, None] * nc + col[None, :]).ravel(), 1)
+        assert np.all(counts == 1), (nd, int(counts.min()), int(counts.max()))
+    if (nr, nc, sms) == (384, 384, 132):  # the flagship's shapes: 9 rows x 96 quads, one item a thread
+        assert moment_cov.gik_launch_plan(3, 384, 384, 132) == dict(rows=9, bands=43, quads=96, tx=96, ty=9,
+                                                                      blocks=129)
