@@ -22,16 +22,24 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   replayed with parts of the mixed objective and optimizer, to show which
   of them moves a_opt (``a_opt_witness``);
 * the trained-GP problem at 100 points in the 128 bucket in mixed mode
-  (phase 4, whole-step): the same, with every rollout step through the
-  whole-step df32 kernels (#12 forward, #8 and #9 in the backward) instead
-  of the df cov kernels, held to the card's f64 plan;
+  (phase 4, whole-step; horizon FUSED_NH): the same, with every rollout step
+  through the whole-step df32 kernels (#12 forward, #8 and #9 in the
+  backward) instead of the df cov kernels, held to the card's f64 plan;
 * the gradient of the f32 planning objective with respect to the
   factorization cache's iK (phase 4, iK gradient) at 24 points, where the
   cov core's iK-gradient kernel runs, held to the port's float64 CPU run;
 * the trained-GP flagship in mixed mode under the stacked df32 VJP (phase 4,
   stacked: ``df_cov.VJP_MODE = "stacked"``, the reference's
-  ``GPMPC_DF_COV_VJP=stacked``): the lean forward and the stacked backward
-  kernel instead of the forward with residuals, held to the same f64 plan.
+  ``GPMPC_DF_COV_VJP=stacked``; horizon STACKED_NH): the lean forward and
+  the stacked backward kernel instead of the forward with residuals, held
+  to the card's f64 plan of the same horizon;
+* the controller (phase 6): the pendulum example's ``GpMpcController`` in
+  mixed mode on ``PendulumEnv``, driven through ``get_action`` and
+  ``add_memory``: 10 random warmup steps (``Planner.evaluate``), the MLL
+  training they fire (f64, on the controller's CPU thread), then 2 planned
+  steps, each held to the card's f64 plan of the same memory and
+  parameters; with at most 32 stored points every rollout step runs the
+  whole-step kernels (#12, and #8 and #9 in the backward).
 
 Phase 3 holds the twelve kernels to their plain versions: the f32 Gram and
 cov kernels (forward, row backward, iK gradient) at the flagship's shapes,
@@ -50,11 +58,13 @@ in one launch, #11 df_mm_bwd_pair and #10 df_mm_bwd_mean at N = 192 and 384,
 #10 beside its latency floor, #1 gram and #4 cov_gik beside the launch
 floor) beside unchanged kernels timed in the same run, and the times of #12
 at N = 32 and 96 and of #2 at N = 32. Phase 4 also holds the launch
-counts of #5 and #3 on their paths, phase 5 those of #10 and #11
-(EXPECTED_LAUNCHES). Phase 5 times the blocked planning step of the
-paths and 15-step rollouts of the mixed routes at ROLLOUT_BUCKETS; at 384 the
-whole-step route's value-and-grad rollout runs the split backward, and its
-gradient is held to the df cov route's and to the f64 rollout's.
+counts of #5 and #3 on their paths, phase 5 those of #10 and #11, phase 6
+those of #12, #8 and #9 in each controller step (EXPECTED_LAUNCHES). Phase 5
+times the blocked planning step of the paths and 15-step rollouts of the
+mixed routes at ROLLOUT_BUCKETS; at 384 the whole-step route's
+value-and-grad rollout runs the split backward, and its gradient is held to
+the df cov route's and to the f64 rollout's. Phase 6 times each controller
+step (blocked) and the training on its thread.
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -76,10 +86,18 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from gpmpc_tpu_torch import ops
+from gpmpc_tpu_torch import GpMpcController, ops
 from gpmpc_tpu_torch.controllers.lbfgs import lbfgs_b_minimize
 from gpmpc_tpu_torch.controllers.planner import Planner, _cast_cache, _objective_and_info
-from gpmpc_tpu_torch.flagship import flagship_problem, plan_step, run_steps, start_steps, trained_gp_problem
+from gpmpc_tpu_torch.envs import PendulumEnv
+from gpmpc_tpu_torch.flagship import (
+    flagship_problem,
+    pendulum_config,
+    plan_step,
+    run_steps,
+    start_steps,
+    trained_gp_problem,
+)
 from gpmpc_tpu_torch.models import gp as gp_mod
 from gpmpc_tpu_torch.models.gp import constrained_params
 from gpmpc_tpu_torch.ops import _build, df_cov, df_mm
@@ -90,10 +108,17 @@ WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 # Depths of the paths. A cold run took 102-160 s on H100 hosts of different
 # speed (the f32 step 416-848 ms) with 5, 10 and 2 here, so they were cut to
 # keep a slow host well inside WATCHDOG_S; no path or check was dropped.
+# The controller (phase 6, ~22 s on the card) took a cold run to ~165 s on
+# one host, so three more depths were cut: TIMED_STEPS from 5 to 3, and the
+# horizon of the stacked-VJP mixed plan (STACKED_NH) and of the whole-step
+# plan at 128 (FUSED_NH) from 15 to 5. The residual mixed plan keeps the
+# flagship's 15, and phase 6 plans through the whole-step path at 15.
 PLAN_STEPS = 3
-TIMED_STEPS = 5
+TIMED_STEPS = 3
 MIXED_STEPS = 1  # trained-GP flagship steps in mixed mode, each checked and timed
 FUSED_STEPS = 1  # whole-step path steps, each checked and timed
+STACKED_NH = 5
+FUSED_NH = 5
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # f32 add or multiply instructions per second that cannot fuse into an FMA:
@@ -119,13 +144,26 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # f32 refresh + PLAN_STEPS plans run 30 backwards per plan (two
 # value-and-grad objective evaluations of 15 rollout steps), one cov_bwd_row
 # launch each; a mixed plan runs 5 forward-only evaluations of 15 steps
-# through df_fwd, and the stacked VJP 5 more for its value-and-grad ones.
-# The plans have run these evaluations in every run on the card. Phase 5's
+# through df_fwd. The stacked plan, at horizon STACKED_NH = 5, runs 5
+# value-and-grad evaluations and the forward-only one of its result, each
+# forward through df_fwd: 30 (150 at horizon 15; the plain twins on the CPU
+# take the same line-search decisions). The plans have run these
+# evaluations in every run on the card. Phase 5's
 # whole-step value-and-grad rollout at 384 runs one split backward per step
 # (#10, then #11) of its 15.
+# Phase 6's controller steps, each a 15-step rollout per evaluation: a warmup
+# step one forward-only rollout (15 df_mm_full); a planned step runs df_mm_full
+# in every rollout and df_mm_fwd and df_mm_bwd in the backward of each
+# value-and-grad one: the first planned step 5 value-and-grad evaluations, 3
+# forward-only line-search trials and the rollout of its result, the second
+# 3, 3 and 1 (the same counts on the plain twins on the CPU, by the same
+# line-search decisions).
 EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 75,
-                     "df_fwd per stacked mixed plan": 150, "df_mm_bwd_mean per split rollout": 15,
-                     "df_mm_bwd_pair per split rollout": 15}
+                     "df_fwd per stacked mixed plan": 30, "df_mm_bwd_mean per split rollout": 15,
+                     "df_mm_bwd_pair per split rollout": 15,
+                     "controller warmup step": {"df_mm_full": 15},
+                     "controller planned steps": ({"df_mm_full": 135, "df_mm_fwd": 75, "df_mm_bwd": 75},
+                                                  {"df_mm_full": 105, "df_mm_fwd": 45, "df_mm_bwd": 45})}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -249,6 +287,18 @@ ROLLOUT_BUCKETS = (128, 384)
 # XLA twin is differentiated) missed it by 7.5 of its largest entry on the
 # card (a planted fault of the dispatch), and a plain f32 rollout is NaN.
 MIXED_TOL = {"objective": 1e-4, "gradient": 3e-3, "info": 1e-3, "plan": 1e-2}
+
+# The controller (phase 6): the pendulum example's GpMpcController in mixed
+# mode on PendulumEnv(seed=0), CONTROLLER_WARMUP random steps
+# (run_pendulum.py's random_actions_init), the training they fire, blocked
+# until it is swapped in, then CONTROLLER_PLANNED planned steps. The one
+# reduction: training_frequency is 10 in place of the example's 25, so that
+# training fires right after the warmup. With at most 32 stored points every
+# rollout step takes the whole-step path (ops.use_df_fused); each step's
+# launches are held in EXPECTED_LAUNCHES.
+CONTROLLER_WARMUP = 10
+CONTROLLER_PLANNED = 2
+CONTROLLER_TRAINING_FREQUENCY = 10
 
 _T0 = time.perf_counter()
 
@@ -1530,6 +1580,128 @@ def time_rollouts(dev, card):
     return split_launches
 
 
+def record_plans(planner):
+    """Keep the arguments and result of every ``planner.plan`` call: returns
+    the list they are appended to, as (args, (a_opt, actions_model, info))."""
+    calls = []
+    plan = planner.plan
+
+    def recorded(*args, **kwargs):
+        out = plan(*args, **kwargs)
+        calls.append((args, out))
+        return out
+
+    planner.plan = recorded
+    return calls
+
+
+def _as_dtype(tree, dtype):
+    return type(tree)(*(a.to(dtype) if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in tree))
+
+
+def controller_plan_gaps(ctrl, call, dev):
+    """MIXED_TOL's gaps (``compare_mixed_to_f64``) of one planned step of a
+    mixed-mode controller, recorded by ``record_plans`` and compared right
+    after it, against a float64 Planner's plan on ``dev`` of the same
+    memory, parameters, state, inits and previous action."""
+    args, (a_opt, _, info) = call
+    x_pad, y_pad, mask, params, bounds, state_mu, state_var, inits, action_prev, iter_ctrl = args
+    f64 = torch.float64
+    spec64 = ctrl.plan_spec._replace(reward=_as_dtype(ctrl.plan_spec.reward, f64),
+                                     action=_as_dtype(ctrl.plan_spec.action, f64))
+    ref_planner = Planner(spec64, dtype=f64, device=dev)
+    ref_args = [a.to(f64) for a in (state_mu, state_var, inits, action_prev)]
+    a_ref, _, info_ref = ref_planner.plan(x_pad, y_pad, mask, _as_dtype(params, f64), _as_dtype(bounds, f64),
+                                          *ref_args, iter_ctrl)
+
+    def problem(spec, state_mu, state_var, inits, action_prev):
+        return SimpleNamespace(spec=spec, state_mu=state_mu, state_var=state_var, inits=inits,
+                               action_prev=action_prev, n_points=int(mask.sum()), x=x_pad)
+
+    ref_prob = problem(spec64, *ref_args)
+    f, g = objective_and_grad(ref_prob, ref_planner._cache, ref_prob.inits[0])
+    ref = SimpleNamespace(prob=ref_prob, planner=ref_planner, plans=[(a_ref, info_ref)], f=f, g=g)
+    gaps, _ = compare_mixed_to_f64(problem(ctrl.plan_spec, state_mu, state_var, inits, action_prev), ctrl.planner,
+                                   [(a_opt, info)], ref, witness=False)
+    return gaps
+
+
+def check_controller_launches(kind, i, launches):
+    """Controller step ``i`` launched exactly its EXPECTED_LAUNCHES and no
+    other kernel of the port."""
+    expected = (EXPECTED_LAUNCHES["controller warmup step"] if kind == "warmup"
+                else EXPECTED_LAUNCHES["controller planned steps"][i - CONTROLLER_WARMUP])
+    wrong = {k: n for k, n in launches.items() if n != expected.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"controller {kind} step {i} launched {wrong}, expected {expected} and no other kernel")
+
+
+def check_on_card(ctrl):
+    """The controller's GP parameters and its planner's cache are on the card."""
+    tensors = list(ctrl.planner._cache) + list(ctrl.gp_params) + list(ctrl.bounds)
+    off = {str(t.device) for t in tensors if isinstance(t, torch.Tensor) and t.device.type != "cuda"}
+    if off:
+        raise AssertionError(f"the controller's planner holds tensors on {off}")
+
+
+def drive_controller(dev, card):
+    """Phase 6: the pendulum example's controller in mixed mode on ``dev``
+    through GpMpcController.get_action / add_memory (see CONTROLLER_WARMUP).
+    Each get_action is timed blocked, its launches counted from 0; each
+    planned step is held to the card's f64 plan by MIXED_TOL right after it,
+    and the planner's tensors must be on the card."""
+    env = PendulumEnv(seed=0)
+    box = (env.observation_space.low, env.observation_space.high, env.action_space.low, env.action_space.high)
+    ctrl = GpMpcController(*box, pendulum_config(dtype="float32", training_frequency=CONTROLLER_TRAINING_FREQUENCY),
+                           seed=0, device=dev)
+    calls = record_plans(ctrl.planner)
+    secs = {"warmup": [], "planned": []}
+    obs = env.reset()
+    try:
+        for i in range(CONTROLLER_WARMUP + CONTROLLER_PLANNED):
+            kind = "warmup" if i < CONTROLLER_WARMUP else "planned"
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            action = ctrl.get_action(obs, random=kind == "warmup")
+            torch.cuda.synchronize()
+            secs[kind].append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+            info = ctrl.get_iter_info()
+            cost, _ = ctrl.compute_cost_unnormalized(obs, action)
+            obs_new, _, _, _ = env.step(action)
+            ctrl.add_memory(obs, action, obs_new, -cost, info.predicted_states[1], info.predicted_states_std[1])
+            obs = obs_new
+            log(f"phase 6 controller {kind} step {i}: {secs[kind][-1]:.3f} s blocked, {ctrl.memory.len_mem_model} "
+                f"stored points, action {float(action[0]):.6f}, cost {cost:.6f}, launches "
+                + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+            check_controller_launches(kind, i, launches)
+            if kind == "planned":
+                check_on_card(ctrl)
+                gaps = controller_plan_gaps(ctrl, calls[-1], dev)
+                if not all(v <= MIXED_TOL[k] for k, v in gaps.items()):
+                    raise AssertionError(f"controller step {i} disagrees with the card's f64 plan beyond "
+                                         f"{MIXED_TOL}: {gaps}")
+            if i == CONTROLLER_WARMUP - 1:
+                if ctrl._pending_train is None:
+                    raise AssertionError("the training did not fire after the warmup")
+                t0 = time.perf_counter()
+                ctrl.wait_for_training()
+                log(f"phase 6 controller training: {ctrl.last_train_seconds:.3f} s in f64 on the CPU thread "
+                    f"({ctrl.memory.len_mem_model} points, {ctrl.train_cfg.iters} L-BFGS iterations at most per "
+                    f"model), waited {time.perf_counter() - t0:.3f} s for it after the warmup; losses "
+                    f"{ctrl._last_train_losses.tolist()}")
+    finally:
+        ctrl.close()
+    if len(calls) != CONTROLLER_PLANNED:
+        raise AssertionError(f"{len(calls)} plans for {CONTROLLER_PLANNED} planned steps")
+    log(f"phase 6 controller: blocked s per warmup step (Planner.evaluate) median "
+        f"{statistics.median(secs['warmup']):.3f} (" + ", ".join(f"{t:.3f}" for t in secs["warmup"])
+        + "), per planned step " + ", ".join(f"{t:.3f}" for t in secs["planned"]) + f" on {card}")
+    log(f"phase 6 controller accuracy: {CONTROLLER_PLANNED} planned steps within {MIXED_TOL} of the card's f64 "
+        f"plans; launches per warmup step {EXPECTED_LAUNCHES['controller warmup step']}, per planned step "
+        f"{EXPECTED_LAUNCHES['controller planned steps']}, no other kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only on a CUDA card",
@@ -1619,7 +1791,7 @@ def _run() -> int:
     # accuracy before the launch check, so that a path which skips a kernel
     # shows what it does to the plan
     ref64 = f64_reference(dev, MIXED_STEPS)
-    mgaps, g_residual = compare_mixed_to_f64(mprob, mplanner, mplans, ref64)
+    mgaps, _ = compare_mixed_to_f64(mprob, mplanner, mplans, ref64)
     if not all(v <= MIXED_TOL[k] for k, v in mgaps.items()):  # plan: a signed excess
         raise AssertionError(f"card mixed mode disagrees with card f64 beyond {MIXED_TOL}: {mgaps}")
     for name in ("df_fwd", "df_fwdres"):
@@ -1633,19 +1805,21 @@ def _run() -> int:
 
     df_cov.VJP_MODE = "stacked"
     try:
-        sprob = trained_gp_problem(dev)
+        sprob = trained_gp_problem(dev, nh=STACKED_NH)
         ops.reset_launch_counts()
         splanner, splans, ssecs = run_steps(sprob, dev, torch.float32, MIXED_STEPS, sync=torch.cuda.synchronize)
         torch.cuda.synchronize()
         stacked_launches = ops.launch_counts()
         log(f"phase 4 main path mixed, stacked VJP: f64 refresh + {MIXED_STEPS} trained-GP flagship plans "
-            f"(300 points in the {sprob.x.shape[0]} bucket), launches {stacked_launches}")
+            f"(300 points in the {sprob.x.shape[0]} bucket, horizon {STACKED_NH}), launches {stacked_launches}")
         check_plans(splans, sprob.spec, finite_info=True)
-        sgaps, g_stacked = compare_mixed_to_f64(sprob, splanner, splans, ref64, witness=False)
+        sgaps, g_stacked = compare_mixed_to_f64(sprob, splanner, splans,
+                                                f64_reference(dev, MIXED_STEPS, nh=STACKED_NH), witness=False)
     finally:
         df_cov.VJP_MODE = "residual"
     if not all(v <= MIXED_TOL[k] for k, v in sgaps.items()):
         raise AssertionError(f"card mixed mode (stacked VJP) disagrees with card f64 beyond {MIXED_TOL}: {sgaps}")
+    _, g_residual = objective_and_grad(sprob, splanner._cache, sprob.inits[0])  # the same cache, residual VJP
     vjp_gap = max_err(g_stacked, g_residual)[1]
     log(f"  stacked vs residual VJP: objective gradient at the initial actions differs by {vjp_gap:.3e} of its "
         f"largest entry (tol MIXED_TOL gradient {MIXED_TOL['gradient']}; the two cov-core VJPs agree to "
@@ -1660,14 +1834,14 @@ def _run() -> int:
     check_launches("df_fwd", stacked_launches, EXPECTED_LAUNCHES["df_fwd per stacked mixed plan"] * MIXED_STEPS)
     log(f"phase 4 stacked accuracy: within {MIXED_TOL} of the card's f64 plan")
 
-    sizes = dict(n_points=FUSED_POINTS, bucket=FUSED_BUCKET)
+    sizes = dict(n_points=FUSED_POINTS, bucket=FUSED_BUCKET, nh=FUSED_NH)
     fprob = trained_gp_problem(dev, **sizes)
     ops.reset_launch_counts()
     fplanner, fplans, fsecs = run_steps(fprob, dev, torch.float32, FUSED_STEPS, sync=torch.cuda.synchronize)
     torch.cuda.synchronize()
     fused_launches = ops.launch_counts()
     log(f"phase 4 main path mixed, whole-step: f64 refresh + {FUSED_STEPS} trained-GP plans ({FUSED_POINTS} points "
-        f"in the {FUSED_BUCKET} bucket), launches {fused_launches}")
+        f"in the {FUSED_BUCKET} bucket, horizon {FUSED_NH}), launches {fused_launches}")
     check_plans(fplans, fprob.spec, finite_info=True)
     fgaps, _ = compare_mixed_to_f64(fprob, fplanner, fplans, f64_reference(dev, FUSED_STEPS, **sizes), witness=False)
     if not all(v <= MIXED_TOL[k] for k, v in fgaps.items()):
@@ -1689,14 +1863,15 @@ def _run() -> int:
         f"{statistics.median(msecs) * 1e3:.2f} ms over the {len(msecs)} steps of phase 4 ("
         + ", ".join(f"{t * 1e3:.2f}" for t in msecs) + f" ms; {mixed_launches['df_fwd']} df_fwd and "
         f"{mixed_launches['df_fwdres']} df_fwdres launches in all; peak {peak_mib:.1f} MiB) on {card}")
-    log(f"phase 5 timing: median blocked trained-GP mixed planning step under the stacked VJP "
+    log(f"phase 5 timing: median blocked trained-GP mixed planning step under the stacked VJP (horizon {STACKED_NH}) "
         f"{statistics.median(ssecs) * 1e3:.2f} ms over the {len(ssecs)} steps of phase 4 ("
         + ", ".join(f"{t * 1e3:.2f}" for t in ssecs) + f" ms; {stacked_launches['df_fwd']} df_fwd and "
         f"{stacked_launches['df_bwd']} df_bwd launches in all) on {card}")
     log(f"phase 5 timing: median blocked trained-GP whole-step planning step ({FUSED_POINTS} points in the "
-        f"{FUSED_BUCKET} bucket) {statistics.median(fsecs) * 1e3:.2f} ms over the {len(fsecs)} steps of phase 4 ("
+        f"{FUSED_BUCKET} bucket, horizon {FUSED_NH}) {statistics.median(fsecs) * 1e3:.2f} ms over the {len(fsecs)} steps of phase 4 ("
         + ", ".join(f"{t * 1e3:.2f}" for t in fsecs) + f" ms) on {card}")
     split_launches = time_rollouts(dev, card)
+    drive_controller(dev, card)
 
     kernels_of = {  # name: (source, the TPU kernel it replaces, the driven path's launch counts)
         "gram": ("gram.cu", "pallas_gram.py:28", launches),

@@ -22,6 +22,8 @@ from ..mappers.action import ActionMapperSpec, mpc_to_model_actions, ste_clamp
 from ..mappers.reward import RewardSpec, rewards_trajectory
 from ..models.gp import (
     FactorizationCache,
+    GPBounds,
+    GPParams,
     constrained_params,
     extend_factorization,
     masked_cholesky_factorize,
@@ -153,6 +155,10 @@ class Planner:
         self._extend_safe = True
         self._extend_safe_params = None
 
+    def _check_state(self, state_mu):
+        if state_mu.dtype != self.dtype:
+            raise TypeError(f"this Planner rolls out in {self.dtype}; got a {state_mu.dtype} state")
+
     def _tensor(self, a, dtype=None):
         # master-dtype copy: callers update their host buffers in place between
         # steps, and a CPU tensor made with as_tensor would share that memory
@@ -206,8 +212,14 @@ class Planner:
                 self._cache = extend_factorization(
                     self._cache, self._tensor(x_pad[i]), self._tensor(y_pad[i]))
         else:
+            # the master is factorized in its own dtype whatever the
+            # parameters' (the JAX package's ``upcast`` of an f32 session's
+            # parameters to its f64 master)
+            def master(tree, cls):
+                return cls(*(a.to(device=self.device, dtype=self.master_dtype) for a in tree))
+
             self._cache = masked_cholesky_factorize(
-                params, bounds, self._tensor(x_pad), self._tensor(y_pad),
+                master(params, GPParams), master(bounds, GPBounds), self._tensor(x_pad), self._tensor(y_pad),
                 self._tensor(mask, dtype=torch.bool))
         self._note_cache(bucket, n_active, is_dummy, params)
         return self._cache
@@ -215,8 +227,7 @@ class Planner:
     def plan(self, x_pad, y_pad, mask, params, bounds, state_mu, state_var, inits, action_prev,
              iter_ctrl, is_dummy=None):
         """(a_opt, actions_model, info) for the current memory."""
-        if state_mu.dtype != self.dtype:
-            raise TypeError(f"this Planner rolls out in {self.dtype}; got a {state_mu.dtype} state")
+        self._check_state(state_mu)
         bucket, n_active, is_dummy, appended, can_extend = self._cache_status(
             x_pad, y_pad, mask, params, bounds, is_dummy=is_dummy)
         if can_extend and appended == 1:
@@ -230,3 +241,16 @@ class Planner:
         # re-runs when a Memory-derived flag exists
         cache = self.refresh_cache(x_pad, y_pad, mask, params, bounds, is_dummy=is_dummy)
         return _plan_from_cache(self.spec, cache, state_mu, state_var, inits, action_prev, iter_ctrl)
+
+    def evaluate(self, x_pad, y_pad, mask, params, bounds, state_mu, state_var, actions_mpc, action_prev,
+                 iter_ctrl, is_dummy=None):
+        """(actions_model, info) of one given action sequence, forward only:
+        the random-warmup rollout (the JAX ``build_cached_eval_fn`` after a
+        cache refresh)."""
+        self._check_state(state_mu)
+        cache = _cast_cache(self.refresh_cache(x_pad, y_pad, mask, params, bounds, is_dummy=is_dummy),
+                            state_mu.dtype)
+        with torch.no_grad():
+            _, info = _objective_and_info(self.spec, cache, actions_mpc, state_mu, state_var, action_prev, iter_ctrl)
+            actions_model = mpc_to_model_actions(self.spec.action, actions_mpc, action_prev)
+        return actions_model, info

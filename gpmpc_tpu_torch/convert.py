@@ -6,6 +6,10 @@ array with ``numpy.asarray`` and pass the fields by name (a NamedTuple's
 params._asdict().items()})``. Every function takes the target ``dtype`` and
 ``device`` (default ``cuda``); float arrays are cast to ``dtype``, masks stay
 boolean, and flags, counts and scalars stay Python values.
+
+A controller's state crosses as its GP raw parameters (``gp_params_from_numpy``)
+and its memory (``load_memory``, whose arrays stay numpy, as in both
+packages).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 
 from .mappers.action import ActionMapperSpec
 from .mappers.reward import RewardSpec
+from .memory.buffer import Memory
 from .models.gp import DFCache, FactorizationCache, GPBounds, GPParams, split_cache_df
 
 
@@ -82,3 +87,29 @@ def df_cache_from_numpy(x_mem, mask, iK, beta, lengthscales, outputscales, L, no
     cache on ``device`` (what the mixed planner rolls out on)."""
     return split_cache_df(cache_from_numpy(x_mem, mask, iK, beta, lengthscales, outputscales, L, noises,
                                            y_mem, dtype=torch.float64, device=device))
+
+
+# a Memory's state: its arrays, then its counters
+MEMORY_ARRAYS = ("inputs", "states_next", "rewards", "iter_ctrls", "errors", "stds", "active_data_mask",
+                 "model_inputs", "model_targets")
+MEMORY_COUNTERS = ("len_mem", "len_mem_last_processed", "len_mem_model")
+
+
+def memory_state(memory) -> dict:
+    """The arrays (copied) and counters of a Memory of either package, by
+    name."""
+    state = {k: np.array(getattr(memory, k)) for k in MEMORY_ARRAYS}
+    state.update({k: int(getattr(memory, k)) for k in MEMORY_COUNTERS})
+    return state
+
+
+def load_memory(memory: Memory, **state) -> Memory:
+    """Put ``memory`` in the state ``memory_state`` read from another
+    Memory (of the same dims); the arrays keep their dtype, the float ones
+    that of ``memory``. Returns ``memory``."""
+    for k in MEMORY_ARRAYS:
+        a = np.asarray(state[k])
+        setattr(memory, k, np.array(a, dtype=memory.dtype if a.dtype.kind == "f" else a.dtype))
+    for k in MEMORY_COUNTERS:
+        setattr(memory, k, int(state[k]))
+    return memory

@@ -14,6 +14,10 @@ synthetic memory drawn from ``numpy.random.default_rng(0)``:
 ``run_steps`` (``start_steps``, then ``plan_step``s) drives the steady state
 as the benchmarks do: one refresh of the cache, then planning steps that
 each append one stored point.
+
+``pendulum_config`` is the pendulum example's controller configuration
+(examples/pendulum/config_pendulum.py), for ``GpMpcController`` on
+``envs.PendulumEnv``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .config import (
+    ActionsConfig,
+    Config,
+    ControllerConfig,
+    MemoryConfig,
+    ModelConfig,
+    ObservationConfig,
+    RewardConfig,
+    TrainingConfig,
+)
 from .controllers.planner import Planner, PlanSpec
 from .mappers.action import ActionMapperSpec
 from .mappers.reward import RewardSpec
@@ -153,3 +167,60 @@ def run_steps(prob: Problem, device, dtype, steps, sync=None):
             sync()
         secs.append(time.perf_counter() - t0)
     return planner, plans, secs
+
+
+def pendulum_config(len_horizon=15, include_time_model=False, num_repeat_actions=1, dtype="float64",
+                    training_frequency=25) -> Config:
+    """The pendulum example's configuration (examples/pendulum/config_pendulum.py:
+    Nh=15, repeat 1, an L-BFGS-B budget of 4, its GP init, bounds and memory
+    thresholds), with its ``dtype`` (``"float32"`` is mixed mode) and
+    ``training_frequency`` (25 there) as arguments."""
+    return Config(
+        observation_config=ObservationConfig(obs_var_norm=[1e-6, 1e-6, 1e-6]),
+        reward_config=RewardConfig(
+            target_state_norm=[1, 0.5, 0.5],
+            weight_state=[1, 0.1, 0.1],
+            weight_state_terminal=[5, 2, 2],
+            target_action_norm=[0.5],
+            weight_action=[1e-3],
+            exploration_factor=1,
+            use_constraints=False,
+            state_min=[-3, -3, -3],
+            state_max=[3, 3, 3],
+            area_multiplier=1,
+            clip_lower_bound_cost_to_0=False,
+        ),
+        actions_config=ActionsConfig(limit_action_change=False, max_change_action_norm=[0.3]),
+        model_config=ModelConfig(
+            gp_init={
+                "noise_covar.noise": [1e-5, 1e-5, 1e-5],
+                "base_kernel.lengthscale": [0.5, 0.5, 0.5],
+                "outputscale": [5e-2, 5e-2, 5e-2],
+            },
+            min_std_noise=1e-3,
+            max_std_noise=1e-2,
+            min_outputscale=1e-2,
+            max_outputscale=0.95,
+            min_lengthscale=4e-3,
+            max_lengthscale=10.0,
+            min_lengthscale_time=10,
+            max_lengthscale_time=10000,
+            init_lengthscale_time=100,
+            include_time_model=include_time_model,
+        ),
+        memory_config=MemoryConfig(
+            check_errors_for_storage=True,
+            min_error_prediction_state_for_memory=[3e-4, 3e-4, 3e-4],
+            min_prediction_state_std_for_memory=[3e-3, 3e-3, 3e-3],
+            points_batch_memory=1500,
+        ),
+        training_config=TrainingConfig(
+            lr_train=7e-3, iter_train=15, training_frequency=training_frequency, clip_grad_value=1e-3
+        ),
+        controller_config=ControllerConfig(
+            len_horizon=len_horizon,
+            actions_optimizer_params={"maxcor": 4, "eps": 1e-2, "maxfun": 4, "maxiter": 4, "maxls": 4},
+            num_repeat_actions=num_repeat_actions,
+        ),
+        dtype=dtype,
+    )

@@ -3,13 +3,16 @@
 Port of ``gpmpc_tpu/mappers/action.py``. The normalization mapping is a
 reshape; the derivative mapping (``limit_action_change``) maps per-step
 deltas to [-max_change, +max_change], cumsums them from the previous action
-and clamps to [0, 1] with a straight-through gradient.
+and clamps to [0, 1] with a straight-through gradient. ``norm_action`` and
+``denorm_action`` map raw env actions to and from the normalized ones on the
+host, in numpy.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -47,3 +50,11 @@ def mpc_to_model_actions(spec: ActionMapperSpec, actions_mpc, action_prev):
     deltas = acts * 2.0 * mc - mc
     deltas = torch.cat([deltas[:1] + action_prev, deltas[1:]], dim=0)
     return ste_clamp(torch.cumsum(deltas, dim=0), 0.0, 1.0)
+
+
+def norm_action(action_raw, action_low, action_high):
+    return (np.asarray(action_raw, dtype=np.asarray(action_low).dtype) - action_low) / (action_high - action_low)
+
+
+def denorm_action(action_model, action_low, action_high):
+    return np.asarray(action_model) * (action_high - action_low) + action_low

@@ -1,3 +1,3 @@
-from .buffer import bucket_size
+from .buffer import Memory, bucket_size
 
-__all__ = ["bucket_size"]
+__all__ = ["Memory", "bucket_size"]

@@ -4,7 +4,9 @@ Port of the parts of ``gpmpc_tpu/models/gp.py`` that one steady-state
 planning step runs: hyperparameter boxes, the masked Cholesky factorization
 (with its padding invariant), the rank-1 append, PILCO moment matching and
 the horizon rollout, in f32/f64 and in mixed mode (an f64 master split into
-a double-float32 cache, ``DFCache``, rolled out by ``moment_match_df``).
+a double-float32 cache, ``DFCache``, rolled out by ``moment_match_df``), and
+the exact marginal log likelihood with its hyperparameter training
+(``negative_mll``, ``train_hyperparams``).
 One stacked model family with a leading Ns axis; the stored points live in a
 fixed-capacity padded buffer with an active mask:
 
@@ -16,7 +18,8 @@ fixed-capacity padded buffer with an active mask:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -499,3 +502,142 @@ def predict_trajectory(cache: FactorizationCache, actions, state_mu, state_var,
         mus.append(mu)
         vars_.append(var)
     return torch.stack(mus), torch.stack(vars_)
+
+
+# ----------------------------------------------------------------------------
+# Marginal log likelihood and hyperparameter training
+# ----------------------------------------------------------------------------
+
+
+def _cholesky_or_nan(K):
+    """Lower Cholesky factor of K, NaN where K is not positive definite (as
+    JAX's cholesky returns), so that a failed factorization makes a NaN loss
+    the line search rejects instead of an exception."""
+    L, info = torch.linalg.cholesky_ex(K)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")), L)
+
+
+def _log2pi(dtype, device):
+    return torch.tensor(math.log(2.0 * math.pi), dtype=dtype, device=device)
+
+
+def negative_mll(params: GPParams, bounds: GPBounds, x, y, mask):
+    """Per-model negative exact marginal log likelihood, normalized by the
+    number of active points (GPyTorch's ExactMarginalLogLikelihood, the
+    reference's training objective, gp_model.py:226-229):
+
+      loss_m = 0.5 * (y^T K^-1 y + logdet(K + s^2 I) + N log 2pi) / N
+
+    Returns (Ns,) losses. Padded rows contribute nothing (unit diagonal,
+    zero targets)."""
+    lengthscales, outputscales, noise = constrained_params(params, bounds)
+    n = x.shape[0]
+    dtype = x.dtype
+    mask_f = mask.to(dtype)
+    mask2 = mask_f[:, None] * mask_f[None, :]
+    n_active = torch.sum(mask_f)
+
+    K = ops.gram_ref(lengthscales, outputscales, x) * mask2[None]
+    eye = torch.eye(n, dtype=dtype, device=x.device)
+    diag_fix = torch.where(mask[None, :], noise[:, None], torch.ones((), dtype=dtype, device=x.device))
+    K = K + torch.einsum("ij,mj->mij", eye, diag_fix)
+    L = _cholesky_or_nan(K)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
+    y_m = (y * mask_f[:, None]).T[:, :, None]
+    alpha = torch.cholesky_solve(y_m, L, upper=False)[..., 0]
+    quad = torch.sum(alpha * y_m[..., 0], dim=-1)
+    return 0.5 * (quad + logdet + n_active * _log2pi(dtype, x.device)) / torch.clamp(n_active, min=1.0)
+
+
+class TrainConfigDevice(NamedTuple):
+    """Training knobs (the JAX package's name): the line search's base step
+    ``lr``, the L-BFGS iterations, the gradient-value clip and the
+    optimizer's history and line-search lengths."""
+
+    lr: float
+    iters: int
+    clip_grad_value: float
+    maxcor: int = 10
+    maxls: int = 12
+
+
+def _single_model_negative_mll(raw, lo, hi, x, y_col, mask):
+    """Negative MLL of ONE output-dim GP from its flat raw vector
+    [raw_lengthscales (D,), raw_outputscale, raw_noise]; lo/hi are the
+    matching constraint bounds in the same layout."""
+    d = x.shape[1]
+    c = constrain(raw, lo, hi)
+    ls, outputscale, noise = c[:d], c[d], c[d + 1]
+    dtype = x.dtype
+    mask_f = mask.to(dtype)
+    mask2 = mask_f[:, None] * mask_f[None, :]
+    n_active = torch.sum(mask_f)
+
+    xs = x / ls[None, :]
+    sq = torch.sum(xs * xs, dim=-1)
+    d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * (xs @ xs.T), min=0.0)
+    K = outputscale * torch.exp(-0.5 * d2) * mask2
+    K = K + torch.diag(torch.where(mask, noise, torch.ones((), dtype=dtype, device=x.device)))
+    L = _cholesky_or_nan(K)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    y_m = y_col * mask_f
+    alpha = torch.cholesky_solve(y_m[:, None], L, upper=False)[:, 0]
+    quad = torch.dot(alpha, y_m)
+    return 0.5 * (quad + logdet + n_active * _log2pi(dtype, x.device)) / torch.clamp(n_active, min=1.0)
+
+
+def train_hyperparams(params: GPParams, bounds: GPBounds, x, y, mask, generator: Optional[torch.Generator],
+                      cfg: TrainConfigDevice, restarts: int = 1, draws=None) -> Tuple[GPParams, torch.Tensor]:
+    """MLL hyperparameter optimization with keep-best semantics (the
+    reference's training process, gp_model.py:193-306): per model, start
+    from a uniform re-init inside the constraint box, run L-BFGS with
+    gradient-value clipping on that model's exact MLL, and keep the best
+    (loss, params) seen, falling back to the incumbent parameters when no
+    run beats them. Each of the ``restarts`` x Ns runs is independent (JAX
+    vmaps them; here they are a loop).
+
+    The re-init fractions are ``draws`` (restarts, Ns, D+2) in [0, 1) when
+    given, else drawn from ``generator``. Everything runs in the dtype and
+    on the device of ``x``. Returns (best_params, best_losses (Ns,))."""
+    from ..controllers.lbfgs import lbfgs_minimize  # local import: controllers import this module
+
+    ns, d = params.raw_lengthscales.shape
+    dtype, device = x.dtype, x.device
+    lo = torch.cat([bounds.min_lengthscale, bounds.min_outputscale[:, None], bounds.min_noise[:, None]], dim=1)
+    hi = torch.cat([bounds.max_lengthscale, bounds.max_outputscale[:, None], bounds.max_noise[:, None]], dim=1)
+    raw0 = torch.cat([params.raw_lengthscales, params.raw_outputscale[:, None], params.raw_noise[:, None]], dim=1)
+    with torch.no_grad():
+        baseline = torch.stack([_single_model_negative_mll(raw0[m], lo[m], hi[m], x, y[:, m], mask)
+                                for m in range(ns)])
+    if draws is None:
+        draws = torch.rand((restarts, ns, d + 2), generator=generator, dtype=dtype)
+    draws = torch.as_tensor(draws, dtype=dtype).to(device)
+    if tuple(draws.shape) != (restarts, ns, d + 2):
+        raise ValueError(f"draws of shape {tuple(draws.shape)}, expected {(restarts, ns, d + 2)}")
+
+    raws, losses = [], []
+    for r in range(restarts):
+        for m in range(ns):
+            init_raw = unconstrain(lo[m] + draws[r, m] * (hi[m] - lo[m]), lo[m], hi[m])
+
+            def loss_fn(raw, m=m):
+                return _single_model_negative_mll(raw, lo[m], hi[m], x, y[:, m], mask)
+
+            best_x, best_f = lbfgs_minimize(loss_fn, init_raw, maxiter=cfg.iters, maxcor=cfg.maxcor,
+                                            maxls=cfg.maxls, clip_grad_value=cfg.clip_grad_value, keep_best=True,
+                                            init_step_scale=cfg.lr)
+            raws.append(best_x)
+            losses.append(best_f)
+    raws = torch.stack(raws).reshape(restarts, ns, d + 2)
+    losses = torch.stack(losses).reshape(restarts, ns)
+
+    models = torch.arange(ns, device=device)
+    ridx = torch.argmin(losses, dim=0)
+    cand_raw = raws[ridx, models]
+    cand_losses = losses[ridx, models]
+    improved = cand_losses < baseline
+    new_raw = torch.where(improved[:, None], cand_raw, raw0)
+    new_params = GPParams(raw_lengthscales=new_raw[:, :d], raw_outputscale=new_raw[:, d],
+                          raw_noise=new_raw[:, d + 1])
+    return new_params, torch.minimum(cand_losses, baseline)
