@@ -39,13 +39,21 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   training they fire (f64, on the controller's CPU thread), then 2 planned
   steps, each held to the card's f64 plan of the same memory and
   parameters; with at most 32 stored points every rollout step runs the
-  whole-step kernels (#12, and #8 and #9 in the backward).
+  whole-step kernels (#12, and #8 and #9 in the backward);
+* the runner (phase 7): the mountain-car example's configuration in mixed
+  mode on ``MountainCarContinuousEnv`` through ``run_env`` itself, 21 steps
+  (20 random, evaluated at every 5th step, then one planned step of two
+  L-BFGS-B restarts at a budget cut to MC_MAXFUN), every rollout step
+  through the whole-step kernels at ns = 2, d = 3; the plan is held to the
+  card's f64 plan of the same memory, parameters and both inits, and the
+  restart each side keeps is printed.
 
 Phase 3 holds the twelve kernels to their plain versions: the f32 Gram and
 cov kernels (forward, row backward, iK gradient) at the flagship's shapes,
 the df cov kernels (lean forward, forward with residuals, stacked backward)
 on the trained-GP flagship's operands and random ones, the whole-step
-kernels at N = 32, 96, 128 and 384 and the split backward (the mean path's
+kernels at N = 32, 96, 128 and 384 (and at ns = 2, d = 3, phase 7's widths,
+on random operands at N = 32 and 100) and the split backward (the mean path's
 and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
 and random ones, each redesigned kernel also for bitwise repeats, the split
 route bit for bit against #9 and its on-card combination against
@@ -59,12 +67,14 @@ in one launch, #11 df_mm_bwd_pair and #10 df_mm_bwd_mean at N = 192 and 384,
 floor) beside unchanged kernels timed in the same run, and the times of #12
 at N = 32 and 96 and of #2 at N = 32. Phase 4 also holds the launch
 counts of #5 and #3 on their paths, phase 5 those of #10 and #11, phase 6
-those of #12, #8 and #9 in each controller step (EXPECTED_LAUNCHES). Phase 5
+those of #12, #8 and #9 in each controller step and phase 7 those of the
+mountain-car episode (EXPECTED_LAUNCHES). Phase 5
 times the blocked planning step of the paths and 15-step rollouts of the
 mixed routes at ROLLOUT_BUCKETS; at 384 the whole-step route's
 value-and-grad rollout runs the split backward, and its gradient is held to
 the df cov route's and to the f64 rollout's. Phase 6 times each controller
-step (blocked) and the training on its thread.
+step (blocked) and the training on its thread, phase 7 the episode, its
+planned step and its random steps (blocked).
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -86,10 +96,12 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from gpmpc_tpu_torch import GpMpcController, ops
+from gpmpc_tpu_torch import GpMpcController, ops, run_env
+from gpmpc_tpu_torch.controllers import planner as planner_mod
 from gpmpc_tpu_torch.controllers.lbfgs import lbfgs_b_minimize
 from gpmpc_tpu_torch.controllers.planner import Planner, _cast_cache, _objective_and_info
-from gpmpc_tpu_torch.envs import PendulumEnv
+from gpmpc_tpu_torch.envs import MountainCarContinuousEnv, PendulumEnv
+from gpmpc_tpu_torch.example_configs import mountain_car_config
 from gpmpc_tpu_torch.flagship import (
     flagship_problem,
     pendulum_config,
@@ -113,6 +125,8 @@ WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 # horizon of the stacked-VJP mixed plan (STACKED_NH) and of the whole-step
 # plan at 128 (FUSED_NH) from 15 to 5. The residual mixed plan keeps the
 # flagship's 15, and phase 6 plans through the whole-step path at 15.
+# Phase 7 (the mountain-car episode through run_env) has one cut of its own,
+# the example's L-BFGS-B budget (MC_MAXFUN).
 PLAN_STEPS = 3
 TIMED_STEPS = 3
 MIXED_STEPS = 1  # trained-GP flagship steps in mixed mode, each checked and timed
@@ -158,12 +172,19 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # forward-only line-search trials and the rollout of its result, the second
 # 3, 3 and 1 (the same counts on the plain twins on the CPU, by the same
 # line-search decisions).
+# Phase 7's mountain-car episode, each rollout 12 steps: the random steps 0,
+# 5, 10 and 15 one forward-only rollout each (48 df_mm_full); the planned
+# step two restarts of 4 value-and-grad evaluations each (MC_MAXFUN = 3 ends
+# a restart after its first evaluation and three accepted line searches; no
+# forward-only trial) and the rollout of its result: 9 x 12 df_mm_full, 8 x
+# 12 df_mm_fwd and df_mm_bwd (the same counts on the plain twins on the CPU).
 EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 75,
                      "df_fwd per stacked mixed plan": 30, "df_mm_bwd_mean per split rollout": 15,
                      "df_mm_bwd_pair per split rollout": 15,
                      "controller warmup step": {"df_mm_full": 15},
                      "controller planned steps": ({"df_mm_full": 135, "df_mm_fwd": 75, "df_mm_bwd": 75},
-                                                  {"df_mm_full": 105, "df_mm_fwd": 45, "df_mm_bwd": 45})}
+                                                  {"df_mm_full": 105, "df_mm_fwd": 45, "df_mm_bwd": 45}),
+                     "mountain-car episode": {"df_mm_full": 156, "df_mm_fwd": 96, "df_mm_bwd": 96}}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -249,6 +270,7 @@ DF_GRAD_TOL = 3e-6
 # output is (by c, or by 1 / sqrt det R).
 DF_MM_SIZES = (32, 96, 128, 384)
 RAGGED_N = 100  # and on random operands at an N with a ragged last tile
+NS2_SIZES = (32, RAGGED_N)  # and at ns = 2, d = 3 (phase 7's widths) on random operands
 # the split backward (#10 mean path, #11 pairs) that serves N > 128, each
 # output against its plain twin to DF_GRAD_TOL of its largest entry, and the
 # combined split route against #9 (#9 is right at any N), timed at both
@@ -299,6 +321,22 @@ MIXED_TOL = {"objective": 1e-4, "gradient": 3e-3, "info": 1e-3, "plan": 1e-2}
 CONTROLLER_WARMUP = 10
 CONTROLLER_PLANNED = 2
 CONTROLLER_TRAINING_FREQUENCY = 10
+
+# The mountain-car example through run_env (phase 7): its configuration in
+# mixed mode (Ns=2, Na=1, horizon 12, repeat 5, two L-BFGS-B restarts, its GP
+# init, bounds and memory thresholds) on MountainCarContinuousEnv(seed=0),
+# run_mountaincar.py's 20 random warmup steps and one more step. With repeat 5
+# the controller evaluates a random sequence at steps 0, 5, 10 and 15 and
+# plans at step 20; the example's training_frequency (60) is past the
+# episode, so no training fires. The one cut: the L-BFGS-B budget, maxfun =
+# maxiter = 8 in the example, is MC_MAXFUN here (each value-and-grad rollout
+# at horizon 12 takes ~1 s of host time on the card, and a planned step of
+# two restarts at the example's budget would take up to 16 of them). At most
+# 4 stored points sit in the 32 bucket, so every rollout step takes the
+# whole-step path (ops.use_df_fused) at ns = 2, d = 3; the episode's launches
+# are held in EXPECTED_LAUNCHES.
+MC_HORIZON, MC_REPEAT, MC_WARMUP, MC_STEPS = 12, 5, 20, 21
+MC_MAXFUN = 3
 
 _T0 = time.perf_counter()
 
@@ -1259,6 +1297,9 @@ def check_df_mm_kernels(dev):
             split_errs.append(check_df_mm_split("random", *rand))
     # a ragged N (not a multiple of the 32-column tiles) on random operands
     errs.append(check_df_mm_operands("random", *random_df_mm_problem(dev, RAGGED_N, seed=RAGGED_N)))
+    # phase 7's state width (the mountain-car example: ns = 2, d = 3) in its bucket and at a ragged N
+    for n in NS2_SIZES:
+        errs.append(check_df_mm_operands("random ns=2", *random_df_mm_problem(dev, n, seed=n + 2, ns=2, d=3)))
     results = {}
     for n, names in ((128, ("df_mm_full", "df_mm_fwd", "df_mm_bwd")), (192, ("df_mm_bwd_mean", "df_mm_bwd_pair")),
                      (384, ("df_mm_bwd_mean", "df_mm_bwd_pair"))):
@@ -1419,7 +1460,7 @@ def f64_reference(dev, steps, **sizes):
     return SimpleNamespace(prob=prob, planner=planner, plans=plans, cache0=cache0, f=f, g=g)
 
 
-def compare_mixed_to_f64(prob, planner, plans, ref, witness=True):
+def compare_mixed_to_f64(prob, planner, plans, ref, witness=True, label="trained-GP"):
     """The gaps of MIXED_TOL against the card's f64 plan ``ref`` of the same
     steps (the plan gap the largest over the steps, each plan's f64
     objective taken on the caches after the last step) and the a_opt gap of
@@ -1447,7 +1488,7 @@ def compare_mixed_to_f64(prob, planner, plans, ref, witness=True):
         info=max(max_err(x, y)[1] for x, y in zip(plans[-1][1], info64)),
         plan=max(plan_gaps),
     )
-    log(f"  trained-GP {prob.n_points} points in the {prob.x.shape[0]} bucket, card mixed vs card f64: "
+    log(f"  {label} {prob.n_points} points in the {prob.x.shape[0]} bucket, card mixed vs card f64: "
         f"objective {f_card:.9g} vs {ref.f:.9g}; gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
     if witness:
         a_opt_witness(prob, ref_prob, ref.cache0, ref.plans[0][0], plans[0][0])
@@ -1622,7 +1663,7 @@ def controller_plan_gaps(ctrl, call, dev):
     f, g = objective_and_grad(ref_prob, ref_planner._cache, ref_prob.inits[0])
     ref = SimpleNamespace(prob=ref_prob, planner=ref_planner, plans=[(a_ref, info_ref)], f=f, g=g)
     gaps, _ = compare_mixed_to_f64(problem(ctrl.plan_spec, state_mu, state_var, inits, action_prev), ctrl.planner,
-                                   [(a_opt, info)], ref, witness=False)
+                                   [(a_opt, info)], ref, witness=False, label="controller")
     return gaps
 
 
@@ -1700,6 +1741,87 @@ def drive_controller(dev, card):
     log(f"phase 6 controller accuracy: {CONTROLLER_PLANNED} planned steps within {MIXED_TOL} of the card's f64 "
         f"plans; launches per warmup step {EXPECTED_LAUNCHES['controller warmup step']}, per planned step "
         f"{EXPECTED_LAUNCHES['controller planned steps']}, no other kernel")
+
+
+def drive_run_env(dev, card):
+    """Phase 7: the mountain-car example in mixed mode through the port's
+    run_env on ``dev`` (see MC_HORIZON), two restarts at its one planned
+    step. Hooks installed for the phase (and removed after it) time each
+    get_action blocked with its launches, record the planned call (as
+    ``record_plans`` does) and the restart each plan keeps. Holds: 21
+    finite costs, the episode's launches (EXPECTED_LAUNCHES, no other
+    kernel), the planner's tensors on the card, and the plan against the
+    card's f64 plan of the same memory, parameters and both inits by
+    MIXED_TOL."""
+    cfg = mountain_car_config(len_horizon=MC_HORIZON, num_repeat_actions=MC_REPEAT, dtype="float32")
+    opt = cfg.controller.actions_optimizer_params
+    cfg.controller.actions_optimizer_params = {**opt, "maxfun": MC_MAXFUN, "maxiter": MC_MAXFUN}
+    steps, calls, chosen = [], [], []
+    get_action, plan, select = GpMpcController.get_action, Planner.plan, planner_mod._select_restart
+
+    def timed_get_action(ctrl, *args, **kwargs):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        out = get_action(ctrl, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        steps.append(SimpleNamespace(ctrl=ctrl, secs=time.perf_counter() - t0,
+                                     launches={k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        return out
+
+    def recorded_plan(planner, *args, **kwargs):
+        out = plan(planner, *args, **kwargs)
+        calls.append((args, out))
+        return out
+
+    def recorded_select(fs):
+        chosen.append((select(fs), fs.tolist()))
+        return chosen[-1][0]
+
+    GpMpcController.get_action, Planner.plan, planner_mod._select_restart = (timed_get_action, recorded_plan,
+                                                                            recorded_select)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        costs = run_env(MountainCarContinuousEnv(seed=0), cfg, None, random_actions_init=MC_WARMUP,
+                        num_steps=MC_STEPS, verbose=False, seed=0, device=dev)
+        torch.cuda.synchronize()
+        episode_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        ctrl = steps[0].ctrl
+        planned = [i for i in range(0, MC_STEPS, MC_REPEAT) if i >= MC_WARMUP]
+        for i, step in enumerate(steps):
+            if step.launches or i in planned:
+                log(f"phase 7 run_env step {i} ({'planned' if i in planned else 'random'}): {step.secs:.3f} s "
+                    f"blocked, launches " + ", ".join(f"{k} {n}" for k, n in step.launches.items()))
+        log(f"phase 7 run_env: {MC_STEPS} mountain-car steps in {episode_s:.3f} s blocked ({ctrl.memory.len_mem_model} "
+            f"stored points in the {ctrl.memory.get_padded()[3]} bucket), launches "
+            + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+        if len(costs) != MC_STEPS or not np.all(np.isfinite(costs)):
+            raise AssertionError(f"run_env returned {len(costs)} costs, finite: {np.isfinite(costs).tolist()}")
+        expected = EXPECTED_LAUNCHES["mountain-car episode"]
+        wrong = {k: n for k, n in launches.items() if n != expected.get(k, 0)}
+        if wrong:
+            raise AssertionError(f"the mountain-car episode launched {wrong}, expected {expected} and no other kernel")
+        if len(calls) != len(planned) or len(chosen) != len(planned):
+            raise AssertionError(f"{len(calls)} plans for the planned steps {planned}")
+        if ctrl.config.controller.restarts_optim != 2 or calls[0][0][7].shape[0] != 2:
+            raise AssertionError("the mountain-car plan did not run two restarts")
+        check_on_card(ctrl)
+        check_plans([(a, info) for _, (a, _, info) in calls], ctrl.plan_spec, finite_info=True)
+        t0 = time.perf_counter()
+        gaps = controller_plan_gaps(ctrl, calls[0], dev)
+        ref_s = time.perf_counter() - t0
+    finally:
+        GpMpcController.get_action, Planner.plan, planner_mod._select_restart = get_action, plan, select
+    (mixed_best, mixed_fs), (f64_best, f64_fs) = chosen
+    log(f"phase 7 run_env restarts: mixed plan kept restart {mixed_best} of objectives {mixed_fs}, the card's f64 "
+        f"plan restart {f64_best} of {f64_fs}")
+    if not all(v <= MIXED_TOL[k] for k, v in gaps.items()):
+        raise AssertionError(f"the mountain-car plan disagrees with the card's f64 plan beyond {MIXED_TOL}: {gaps}")
+    log(f"phase 7 run_env accuracy: the planned step within {MIXED_TOL} of the card's f64 plan (made and compared "
+        f"in {ref_s:.3f} s); episode {episode_s:.3f} s blocked, planned step {steps[planned[0]].secs:.3f} s, random "
+        f"steps median {statistics.median(steps[i].secs for i in range(0, MC_WARMUP, MC_REPEAT)):.3f} s on {card}")
 
 
 def main() -> int:
@@ -1872,6 +1994,7 @@ def _run() -> int:
         + ", ".join(f"{t * 1e3:.2f}" for t in fsecs) + f" ms) on {card}")
     split_launches = time_rollouts(dev, card)
     drive_controller(dev, card)
+    drive_run_env(dev, card)
 
     kernels_of = {  # name: (source, the TPU kernel it replaces, the driven path's launch counts)
         "gram": ("gram.cu", "pallas_gram.py:28", launches),

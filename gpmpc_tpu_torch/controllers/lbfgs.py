@@ -1,7 +1,8 @@
 """L-BFGS, unconstrained and box-constrained (projected), to SciPy
 L-BFGS-B's budget semantics.
 
-Port of ``gpmpc_tpu/controllers/lbfgs.py`` for one restart: the two-loop
+Port of ``gpmpc_tpu/controllers/lbfgs.py`` for one restart (the planner
+runs several one after another, where JAX vmaps them): the two-loop
 recursion over a rolling (s, y) history, the backtracking Armijo line search
 (with box clipping of each trial where there is a box), SciPy's ``maxfun``
 total evaluation budget with its sequential-equivalent ``consumed`` count,

@@ -1,6 +1,6 @@
 """MPC planning step: factorize or extend -> rollout -> cost -> L-BFGS-B.
 
-Port of ``gpmpc_tpu/controllers/planner.py`` for one restart. Objective:
+Port of ``gpmpc_tpu/controllers/planner.py``. Objective:
 
   minimize  -mean(reward_traj + exploration_factor * sqrt(var_traj))
 
@@ -9,6 +9,13 @@ stage, optionally clamping the reward UCB to <= 0 with a straight-through
 clamp. ``Planner`` keeps the factorization cache on the device between
 steps: one new stored point is an O(Ns N^2) extension, anything else a full
 refactorization.
+
+Restarts: the JAX package optimizes all restarts in one vmapped program;
+here they run one after another, each an independent L-BFGS-B from its own
+init, which computes what the vmap computes (a restart under vmap does not
+see the others, and the batched line search the vmap runs accepts the same
+points as the grad-first one here: tests/test_lbfgs.py pins it in JAX). The
+restarts would share one rollout once the kernels take a batch axis.
 """
 
 from __future__ import annotations
@@ -82,11 +89,19 @@ def _cast_cache(cache: FactorizationCache, dtype):
     return FactorizationCache(*(a.to(dtype) if a.is_floating_point() else a for a in cache))
 
 
+def _select_restart(fs) -> int:
+    """The restart to keep, of objectives fs (R,): the least, a NaN counted
+    as +inf; the first when every objective is NaN (the reference falls
+    back to it, gp_mpc_controller.py:146-148)."""
+    nan = torch.isnan(fs)
+    if bool(nan.all()):
+        return 0
+    return int(torch.argmin(torch.where(nan, torch.full_like(fs, float("inf")), fs)))
+
+
 def _plan_from_cache(spec: PlanSpec, cache: FactorizationCache, state_mu, state_var, inits,
                      action_prev, iter_ctrl):
-    """(a_opt, actions_model, info) for ONE restart: inits (1, Nh*Na)."""
-    if inits.shape[0] != 1:
-        raise NotImplementedError("multi-restart planning is not ported; pass one init")
+    """(a_opt, actions_model, info) of the best of R restarts, inits (R, Nh*Na)."""
     cache = _cast_cache(cache, state_mu.dtype)
 
     def objective(a):
@@ -95,11 +110,9 @@ def _plan_from_cache(spec: PlanSpec, cache: FactorizationCache, state_mu, state_
 
     lower = torch.zeros_like(inits[0])
     upper = torch.ones_like(inits[0])
-    a_opt, _ = lbfgs_b_minimize(
-        objective, inits[0], lower, upper, maxiter=spec.maxiter, maxcor=spec.maxcor,
-        maxls=spec.maxls, maxfun=spec.maxfun)
-    # with one restart the NaN fallback of the restart selection (the first
-    # restart) is that restart itself
+    xs, fs = zip(*(lbfgs_b_minimize(objective, a0, lower, upper, maxiter=spec.maxiter, maxcor=spec.maxcor,
+                                    maxls=spec.maxls, maxfun=spec.maxfun) for a0 in inits))
+    a_opt = xs[_select_restart(torch.stack(fs))]
     with torch.no_grad():
         _, info = _objective_and_info(spec, cache, a_opt, state_mu, state_var, action_prev, iter_ctrl)
         actions_model = mpc_to_model_actions(spec.action, a_opt, action_prev)

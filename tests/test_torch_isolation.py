@@ -1,9 +1,10 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
-The card's machine has no JAX, so gpmpc_tpu_torch and chip_smoke.py must
-import neither ``jax`` nor ``gpmpc_tpu`` (numpy-only modules included):
-checked statically over the sources, and dynamically in a subprocess where
-both are blocked. chip_smoke.py must refuse to run without a CUDA card.
+The card's machine has no JAX, so gpmpc_tpu_torch, chip_smoke.py and the
+examples' torch runners (examples/*/*_torch.py) must import neither ``jax``
+nor ``gpmpc_tpu`` (numpy-only modules included): checked statically over the
+sources, and dynamically in a subprocess where both are blocked.
+chip_smoke.py must refuse to run without a CUDA card.
 """
 
 import ast
@@ -17,7 +18,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_SOURCES = sorted((ROOT / "gpmpc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLE_RUNNERS = sorted(ROOT.glob("examples/*/*_torch.py"))
+PORT_SOURCES = sorted((ROOT / "gpmpc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLE_RUNNERS
 BLOCKED = ("jax", "jaxlib", "gpmpc_tpu")
 
 
@@ -64,6 +66,27 @@ def test_smoke_imports_and_cpu_planning_step_with_jax_blocked():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert "PLANNED" in out.stdout
+
+
+def test_example_runners_import_with_jax_blocked():
+    """Each torch example runner loads (not as __main__) with jax and
+    gpmpc_tpu blocked, and none of them is loaded by it."""
+    assert len(EXAMPLE_RUNNERS) == 5
+    code = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import importlib.util
+        for path in {[str(p.relative_to(ROOT)) for p in EXAMPLE_RUNNERS]!r}:
+            spec = importlib.util.spec_from_file_location("example", path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        loaded = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
+        assert not loaded, loaded
+        print("LOADED")
+    """)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED" in out.stdout
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -225,7 +225,9 @@ def test_planner_refactorizes_when_params_change():
 
 def test_planner_refuses_unported_modes():
     """Dtypes other than f32 and f64 (the three regimes f32, f64 and mixed
-    are supported on every device), and more than one restart."""
+    are supported on every device). More than one restart is ported: two
+    equal inits plan exactly as the one init alone (the tie keeps the
+    first restart, as JAX's argmin does)."""
     _, tspec = _specs(4, np.float64)
     with pytest.raises(TypeError):
         tplanner.Planner(tspec, dtype=torch.float16, device="cuda")
@@ -236,9 +238,11 @@ def test_planner_refuses_unported_modes():
         **_np(jgp.masked_cholesky_factorize(params, bounds, jnp.asarray(x), jnp.asarray(y), jnp.asarray(mask))),
         dtype=torch.float64, device=CPU)
     two_inits = torch.tensor(np.concatenate([inits, inits]))
-    with pytest.raises(NotImplementedError):
-        tplanner._plan_from_cache(tspec, cache, torch.tensor(mu), torch.tensor(var), two_inits,
-                                  torch.tensor(prev), 0)
+    args = (torch.tensor(mu), torch.tensor(var))
+    one = tplanner._plan_from_cache(tspec, cache, *args, torch.tensor(inits), torch.tensor(prev), 0)
+    two = tplanner._plan_from_cache(tspec, cache, *args, two_inits, torch.tensor(prev), 0)
+    for o, r in zip(two[:2] + tuple(two[2]), one[:2] + tuple(one[2])):
+        assert torch.equal(o, r)
 
 
 def test_extend_plan_f32_matches_jax_f32_cache():
