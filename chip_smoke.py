@@ -15,8 +15,9 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   maxiter=maxfun=maxls=maxcor=4), held to the port's float64 CPU run at 24
   stored points, where f32 is well conditioned (at 300 points f32 itself
   breaks down, see ACC_TOL, and the f32 objective is printed);
-* the trained-GP flagship in mixed mode (phase 4, mixed): an f64 master
-  refreshed on the card, then steady-state steps whose rollout runs in
+* the trained-GP flagship in mixed mode (phase 4, mixed; horizon
+  MIXED_NH): an f64 master refreshed on the card, then steady-state steps
+  whose rollout runs in
   double-float32 through the df32 cov kernels, held to the card's own
   float64 plan of the same steps (MIXED_TOL); the first step's f64 plan is
   replayed with parts of the mixed objective and optimizer, to show which
@@ -46,7 +47,17 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   L-BFGS-B restarts at a budget cut to MC_MAXFUN), every rollout step
   through the whole-step kernels at ns = 2, d = 3; the plan is held to the
   card's f64 plan of the same memory, parameters and both inits, and the
-  restart each side keeps is printed.
+  restart each side keeps is printed; then the controller is saved to an
+  .npz and restored into a fresh controller on the card, whose tensors and
+  forward-only ``Planner.evaluate`` must equal the original's bit for bit;
+* the on-device episodes (phase 8): a two-seed mixed mountain-car sweep
+  through ``runner.episode.build_episodes_batch_fn`` with the set-up of
+  ``python -m gpmpc_tpu_torch.eval_sample_efficiency --env mountain_car
+  --dtype mixed`` cut to SWEEP_STEPS steps: random evaluations at t = 0, 5,
+  10 and 15, one f64 training on the card at t = 19 and one planned step
+  of two restarts at t = 20, every rollout step through the whole-step
+  kernels at ns = 2, d = 3; each seed's plan is held to the card's f64 plan
+  of the same memory, trained parameters, state and inits.
 
 Phase 3 holds the twelve kernels to their plain versions: the f32 Gram and
 cov kernels (forward, row backward, iK gradient) at the flagship's shapes,
@@ -67,14 +78,15 @@ in one launch, #11 df_mm_bwd_pair and #10 df_mm_bwd_mean at N = 192 and 384,
 floor) beside unchanged kernels timed in the same run, and the times of #12
 at N = 32 and 96 and of #2 at N = 32. Phase 4 also holds the launch
 counts of #5 and #3 on their paths, phase 5 those of #10 and #11, phase 6
-those of #12, #8 and #9 in each controller step and phase 7 those of the
-mountain-car episode (EXPECTED_LAUNCHES). Phase 5
+those of #12, #8 and #9 in each controller step, phase 7 those of the
+mountain-car episode and phase 8 those of the sweep (EXPECTED_LAUNCHES). Phase 5
 times the blocked planning step of the paths and 15-step rollouts of the
 mixed routes at ROLLOUT_BUCKETS; at 384 the whole-step route's
 value-and-grad rollout runs the split backward, and its gradient is held to
 the df cov route's and to the f64 rollout's. Phase 6 times each controller
 step (blocked) and the training on its thread, phase 7 the episode, its
-planned step and its random steps (blocked).
+planned step and its random steps (blocked), phase 8 each seed's episode
+and training (blocked) and the sweep's aggregate env steps per second.
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -87,9 +99,11 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -101,6 +115,7 @@ from gpmpc_tpu_torch.controllers import planner as planner_mod
 from gpmpc_tpu_torch.controllers.lbfgs import lbfgs_b_minimize
 from gpmpc_tpu_torch.controllers.planner import Planner, _cast_cache, _objective_and_info
 from gpmpc_tpu_torch.envs import MountainCarContinuousEnv, PendulumEnv
+from gpmpc_tpu_torch.eval_sample_efficiency import sweep_setup
 from gpmpc_tpu_torch.example_configs import mountain_car_config
 from gpmpc_tpu_torch.flagship import (
     flagship_problem,
@@ -115,6 +130,8 @@ from gpmpc_tpu_torch.models.gp import constrained_params
 from gpmpc_tpu_torch.ops import _build, df_cov, df_mm
 from gpmpc_tpu_torch.ops import gram_rbf as gram_mod
 from gpmpc_tpu_torch.ops import moment_cov
+from gpmpc_tpu_torch.runner import episode as episode_mod
+from gpmpc_tpu_torch.runner.episode import build_episodes_batch_fn
 
 WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 # Depths of the paths. A cold run took 102-160 s on H100 hosts of different
@@ -123,14 +140,19 @@ WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 # The controller (phase 6, ~22 s on the card) took a cold run to ~165 s on
 # one host, so three more depths were cut: TIMED_STEPS from 5 to 3, and the
 # horizon of the stacked-VJP mixed plan (STACKED_NH) and of the whole-step
-# plan at 128 (FUSED_NH) from 15 to 5. The residual mixed plan keeps the
-# flagship's 15, and phase 6 plans through the whole-step path at 15.
+# plan at 128 (FUSED_NH) from 15 to 5. Phase 8 (the sweep) took a cold run on
+# a slow host past the watchdog (phase 7 ended at 174.8 s there), so the
+# residual mixed plan's horizon (MIXED_NH) was cut from 15 to 5 as well
+# (its plan and the a_opt witness took 48.6 s of that run); phase 6 plans
+# through the whole-step path at 15.
 # Phase 7 (the mountain-car episode through run_env) has one cut of its own,
-# the example's L-BFGS-B budget (MC_MAXFUN).
+# the example's L-BFGS-B budget (MC_MAXFUN); phase 8 (the sweep) takes the
+# same cut and those listed at SWEEP_SEEDS.
 PLAN_STEPS = 3
 TIMED_STEPS = 3
 MIXED_STEPS = 1  # trained-GP flagship steps in mixed mode, each checked and timed
 FUSED_STEPS = 1  # whole-step path steps, each checked and timed
+MIXED_NH = 5
 STACKED_NH = 5
 FUSED_NH = 5
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -157,8 +179,10 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # Launches of #5 and #3 on their driven paths (phase 4), held exactly: the
 # f32 refresh + PLAN_STEPS plans run 30 backwards per plan (two
 # value-and-grad objective evaluations of 15 rollout steps), one cov_bwd_row
-# launch each; a mixed plan runs 5 forward-only evaluations of 15 steps
-# through df_fwd. The stacked plan, at horizon STACKED_NH = 5, runs 5
+# launch each; the residual mixed plan, at horizon MIXED_NH = 5, runs 5
+# value-and-grad evaluations through df_fwdres and the forward-only one of
+# its result through df_fwd: 5 (75 at horizon 15, where it took 4 more
+# forward-only trials; the plain twins on the CPU count the same). The stacked plan, at horizon STACKED_NH = 5, runs 5
 # value-and-grad evaluations and the forward-only one of its result, each
 # forward through df_fwd: 30 (150 at horizon 15; the plain twins on the CPU
 # take the same line-search decisions). The plans have run these
@@ -178,13 +202,19 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # a restart after its first evaluation and three accepted line searches; no
 # forward-only trial) and the rollout of its result: 9 x 12 df_mm_full, 8 x
 # 12 df_mm_fwd and df_mm_bwd (the same counts on the plain twins on the CPU).
-EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 75,
+# Phase 8's sweep, each rollout 10 steps, per seed: the random evaluations
+# at t = 0, 5, 10 and 15 (40 df_mm_full; the training at t = 19 runs in f64,
+# no kernel) and the planned step at t = 20 as phase 7's (9 x 10 df_mm_full,
+# 8 x 10 df_mm_fwd and df_mm_bwd), for the two seeds (counted on the plain
+# twins on the CPU with the whole-step dispatch on).
+EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 5,
                      "df_fwd per stacked mixed plan": 30, "df_mm_bwd_mean per split rollout": 15,
                      "df_mm_bwd_pair per split rollout": 15,
                      "controller warmup step": {"df_mm_full": 15},
                      "controller planned steps": ({"df_mm_full": 135, "df_mm_fwd": 75, "df_mm_bwd": 75},
                                                   {"df_mm_full": 105, "df_mm_fwd": 45, "df_mm_bwd": 45}),
-                     "mountain-car episode": {"df_mm_full": 156, "df_mm_fwd": 96, "df_mm_bwd": 96}}
+                     "mountain-car episode": {"df_mm_full": 156, "df_mm_fwd": 96, "df_mm_bwd": 96},
+                     "mountain-car sweep": {"df_mm_full": 260, "df_mm_fwd": 160, "df_mm_bwd": 160}}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -337,6 +367,24 @@ CONTROLLER_TRAINING_FREQUENCY = 10
 # are held in EXPECTED_LAUNCHES.
 MC_HORIZON, MC_REPEAT, MC_WARMUP, MC_STEPS = 12, 5, 20, 21
 MC_MAXFUN = 3
+
+# The mountain-car sweep through runner/episode.py (phase 8): the set-up of
+# ``python -m gpmpc_tpu_torch.eval_sample_efficiency --env mountain_car
+# --dtype mixed`` (eval_sample_efficiency.sweep_setup: the example's
+# configuration at repeat 5 and its default horizon 10, the env in f64, the
+# f64 master and training with a df32 rollout), the episodes of seeds
+# SWEEP_SEEDS run by build_episodes_batch_fn on the card. Random evaluations
+# at t = 0, 5, 10 and 15 (warmup 20), one synchronous f64 training on the
+# card at t = 19, one planned step of two restarts at t = 20 on the trained
+# GP. cap 32 and model_cap 32: every rollout step runs #12 (#8 and #9 in
+# the backward) at ns = 2, d = 3. Cuts: 500 steps to SWEEP_STEPS, 10 seeds
+# to 2, training_frequency 60 to SWEEP_TRAINING_FREQUENCY (so that the
+# training fires inside the cut episode) and the L-BFGS-B budget 8 to
+# MC_MAXFUN, as in phase 7; iter_train keeps its 20 (400 L-BFGS iterations
+# at most per model).
+SWEEP_SEEDS = (0, 1)
+SWEEP_STEPS = 25
+SWEEP_TRAINING_FREQUENCY = 20
 
 _T0 = time.perf_counter()
 
@@ -1640,16 +1688,16 @@ def _as_dtype(tree, dtype):
     return type(tree)(*(a.to(dtype) if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in tree))
 
 
-def controller_plan_gaps(ctrl, call, dev):
-    """MIXED_TOL's gaps (``compare_mixed_to_f64``) of one planned step of a
-    mixed-mode controller, recorded by ``record_plans`` and compared right
-    after it, against a float64 Planner's plan on ``dev`` of the same
-    memory, parameters, state, inits and previous action."""
+def mixed_plan_gaps(plan_spec, master_cache, call, dev, label="controller"):
+    """MIXED_TOL's gaps (``compare_mixed_to_f64``) of one mixed-mode planned
+    step, recorded as ``record_plans`` records it, against a float64
+    Planner's plan on ``dev`` of the same memory, parameters, state, inits and
+    previous action; ``master_cache`` is the f64 factorization the mixed plan
+    rolled out from."""
     args, (a_opt, _, info) = call
     x_pad, y_pad, mask, params, bounds, state_mu, state_var, inits, action_prev, iter_ctrl = args
     f64 = torch.float64
-    spec64 = ctrl.plan_spec._replace(reward=_as_dtype(ctrl.plan_spec.reward, f64),
-                                     action=_as_dtype(ctrl.plan_spec.action, f64))
+    spec64 = plan_spec._replace(reward=_as_dtype(plan_spec.reward, f64), action=_as_dtype(plan_spec.action, f64))
     ref_planner = Planner(spec64, dtype=f64, device=dev)
     ref_args = [a.to(f64) for a in (state_mu, state_var, inits, action_prev)]
     a_ref, _, info_ref = ref_planner.plan(x_pad, y_pad, mask, _as_dtype(params, f64), _as_dtype(bounds, f64),
@@ -1662,9 +1710,16 @@ def controller_plan_gaps(ctrl, call, dev):
     ref_prob = problem(spec64, *ref_args)
     f, g = objective_and_grad(ref_prob, ref_planner._cache, ref_prob.inits[0])
     ref = SimpleNamespace(prob=ref_prob, planner=ref_planner, plans=[(a_ref, info_ref)], f=f, g=g)
-    gaps, _ = compare_mixed_to_f64(problem(ctrl.plan_spec, state_mu, state_var, inits, action_prev), ctrl.planner,
-                                   [(a_opt, info)], ref, witness=False, label="controller")
+    gaps, _ = compare_mixed_to_f64(problem(plan_spec, state_mu, state_var, inits, action_prev),
+                                   SimpleNamespace(_cache=master_cache), [(a_opt, info)], ref, witness=False,
+                                   label=label)
     return gaps
+
+
+def controller_plan_gaps(ctrl, call, dev):
+    """``mixed_plan_gaps`` of a planned step of a mixed-mode controller, compared
+    right after it (its planner's cache is the step's master)."""
+    return mixed_plan_gaps(ctrl.plan_spec, ctrl.planner._cache, call, dev)
 
 
 def check_controller_launches(kind, i, launches):
@@ -1677,12 +1732,16 @@ def check_controller_launches(kind, i, launches):
         raise AssertionError(f"controller {kind} step {i} launched {wrong}, expected {expected} and no other kernel")
 
 
-def check_on_card(ctrl):
-    """The controller's GP parameters and its planner's cache are on the card."""
-    tensors = list(ctrl.planner._cache) + list(ctrl.gp_params) + list(ctrl.bounds)
+def check_tensors_on_card(what, tensors):
     off = {str(t.device) for t in tensors if isinstance(t, torch.Tensor) and t.device.type != "cuda"}
     if off:
-        raise AssertionError(f"the controller's planner holds tensors on {off}")
+        raise AssertionError(f"{what} holds tensors on {off}")
+
+
+def check_on_card(ctrl):
+    """The controller's GP parameters and its planner's cache are on the card."""
+    check_tensors_on_card("the controller's planner",
+                          list(ctrl.planner._cache) + list(ctrl.gp_params) + list(ctrl.bounds))
 
 
 def drive_controller(dev, card):
@@ -1822,6 +1881,174 @@ def drive_run_env(dev, card):
     log(f"phase 7 run_env accuracy: the planned step within {MIXED_TOL} of the card's f64 plan (made and compared "
         f"in {ref_s:.3f} s); episode {episode_s:.3f} s blocked, planned step {steps[planned[0]].secs:.3f} s, random "
         f"steps median {statistics.median(steps[i].secs for i in range(0, MC_WARMUP, MC_REPEAT)):.3f} s on {card}")
+    check_checkpoint_round_trip(ctrl, cfg, dev)
+
+
+def check_checkpoint_round_trip(ctrl, cfg, dev):
+    """Phase 7's controller saved to an .npz and restored into a fresh
+    controller on ``dev``: every restored tensor equal to the saved one and
+    on the card, the memory and the warm-start state equal, and a
+    forward-only ``Planner.evaluate`` of both at the saved previous actions
+    equal bit for bit (both planners refactorize: the original's cache is
+    dropped first, as the restore drops the fresh one's)."""
+    env = MountainCarContinuousEnv(seed=0)
+    box = (env.observation_space.low, env.observation_space.high, env.action_space.low, env.action_space.high)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ctrl.save_checkpoint(os.path.join(tmp, "controller.npz"))
+        size = os.path.getsize(path)
+        fresh = GpMpcController(*box, cfg, seed=1, device=dev)
+        fresh.restore_checkpoint(path)
+    fresh.close()
+    for name, saved, restored in zip(ctrl.gp_params._fields, ctrl.gp_params, fresh.gp_params):
+        if not torch.equal(saved, restored):
+            raise AssertionError(f"the restored {name} differs from the saved one")
+    check_tensors_on_card("the restored controller", fresh.gp_params)
+    for name in ("inputs", "states_next", "model_inputs", "model_targets"):
+        if not np.array_equal(getattr(ctrl.memory, name), getattr(fresh.memory, name)):
+            raise AssertionError(f"the restored memory's {name} differs")
+    if (fresh.seed, fresh.iter_ctrl) != (ctrl.seed, ctrl.iter_ctrl) or not np.array_equal(
+            fresh.actions_mpc_previous_iter, ctrl.actions_mpc_previous_iter):
+        raise AssertionError("the restored controller's seed, step or warm start differs")
+
+    def evaluate(c):
+        x_pad, y_pad, mask, _ = c.memory.get_padded()
+        n = c.memory.len_mem
+        state_var = np.diag(np.asarray(cfg.observation.obs_var_norm, dtype=c.dtype))
+        c.planner.invalidate_cache()
+        return c.planner.evaluate(x_pad, y_pad, mask, c.gp_params, c.bounds, c._tensor(c.memory.states_next[n - 1]),
+                                  c._tensor(state_var), c._tensor(c.actions_mpc_previous_iter),
+                                  c._tensor(c.action_model_previous_iter), c.iter_ctrl)
+
+    t1 = time.perf_counter()
+    (saved_actions, saved_info), (restored_actions, restored_info) = evaluate(ctrl), evaluate(fresh)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    for name, a, b in zip(("actions",) + saved_info._fields, (saved_actions,) + saved_info,
+                          (restored_actions,) + restored_info):
+        if not torch.equal(a, b):
+            raise AssertionError(f"Planner.evaluate of the restored controller differs in {name}")
+    log(f"phase 7 checkpoint: saved ({size} bytes) and restored into a fresh controller on the card in "
+        f"{t1 - t0:.3f} s; parameters, memory and warm start equal, Planner.evaluate of both at the saved previous "
+        f"actions bit for bit equal ({eval_s * 1e3:.1f} ms for the two)")
+
+
+def _to_cpu(tree):
+    """Tensors (also inside NamedTuples) moved to the CPU, anything else kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_cpu(a) for a in tree))
+    return tree
+
+
+def drive_sweep(dev, card):
+    """Phase 8: the mixed mountain-car sweep of SWEEP_SEEDS through
+    runner/episode.py's build_episodes_batch_fn on ``dev`` (see
+    SWEEP_SEEDS). Hooks installed for the phase (and removed after it) time
+    each seed's episode steps (blocked), record each planned step's f64
+    master, state, inits and result, and time each training (blocked) with
+    its inputs. Holds: finite costs, seeds that
+    differ, every output tensor on the card, the sweep's launches
+    (EXPECTED_LAUNCHES, no other kernel) and each seed's planned step against
+    the card's f64 plan of the same memory, trained parameters, state and
+    inits by MIXED_TOL. Prints each seed's seconds, each training's seconds
+    and the gap of its parameters to an f64 CPU training of the same inputs
+    and draws, and the sweep's aggregate env steps per second."""
+
+    def edit(cfg):
+        cfg.training.training_frequency = SWEEP_TRAINING_FREQUENCY
+        opt = cfg.controller.actions_optimizer_params
+        cfg.controller.actions_optimizer_params = {**opt, "maxfun": MC_MAXFUN, "maxiter": MC_MAXFUN}
+
+    setup = sweep_setup("mountain_car", "mixed", device=dev, steps=SWEEP_STEPS, edit_config=edit)
+    spec = setup.spec
+    seed_s, plans, trainings = dict.fromkeys(SWEEP_SEEDS, 0.0), [], []
+    run_steps_of, plan_from_cache, train = episode_mod._Episode.run, episode_mod._plan_from_cache, \
+        episode_mod.train_hyperparams
+
+    def timed_run(episode, carry, ts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_steps_of(episode, carry, ts)
+        torch.cuda.synchronize()
+        seed_s[carry.draws.seed] += time.perf_counter() - t0
+        return out
+
+    def recorded_plan(*args):
+        out = plan_from_cache(*args)
+        plans.append((args, out))
+        return out
+
+    def timed_train(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(*args, **kwargs)
+        torch.cuda.synchronize()
+        trainings.append(SimpleNamespace(secs=time.perf_counter() - t0, args=args, kwargs=kwargs, out=out))
+        return out
+
+    episode_mod._Episode.run, episode_mod._plan_from_cache, episode_mod.train_hyperparams = (
+        timed_run, recorded_plan, timed_train)
+    try:
+        batch = build_episodes_batch_fn(spec)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = batch(SWEEP_SEEDS, setup.params0)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+    finally:
+        episode_mod._Episode.run, episode_mod._plan_from_cache, episode_mod.train_hyperparams = (
+            run_steps_of, plan_from_cache, train)
+    seed_s = list(seed_s.values())
+    log(f"phase 8 sweep: {len(SWEEP_SEEDS)} mixed mountain-car episodes of {SWEEP_STEPS} steps in {sweep_s:.3f} s "
+        f"blocked (" + ", ".join(f"seed {s} {t:.3f} s" for s, t in zip(SWEEP_SEEDS, seed_s)) + "), "
+        f"{out['final_mem'].len_model.tolist()} GP points of model_cap {spec.model_cap}, launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+    if not bool(torch.isfinite(out["cost"]).all()) or tuple(out["cost"].shape) != (len(SWEEP_SEEDS), SWEEP_STEPS):
+        raise AssertionError(f"the sweep's costs {tuple(out['cost'].shape)} are not all finite")
+    if torch.equal(out["obs"][0], out["obs"][1]):
+        raise AssertionError("the two seeds' trajectories are equal")
+    check_tensors_on_card("the sweep's outputs", [v for k, v in out.items() if isinstance(v, torch.Tensor)]
+                          + list(out["final_params"]) + list(out["final_mem"]))
+    expected = EXPECTED_LAUNCHES["mountain-car sweep"]
+    wrong = {k: n for k, n in launches.items() if n != expected.get(k, 0)}
+    if wrong:
+        raise AssertionError(f"the mountain-car sweep launched {wrong}, expected {expected} and no other kernel")
+    if len(plans) != len(SWEEP_SEEDS) or len(trainings) != len(SWEEP_SEEDS):
+        raise AssertionError(f"{len(plans)} plans and {len(trainings)} trainings for {len(SWEEP_SEEDS)} seeds")
+
+    for i, tr in enumerate(trainings):
+        new_card = tr.out[0]
+        new_cpu = train(*(_to_cpu(a) for a in tr.args), **{k: _to_cpu(v) for k, v in tr.kwargs.items()})[0]
+        gap = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(new_card, new_cpu))
+        log(f"phase 8 training, seed {SWEEP_SEEDS[i]}: {tr.secs:.3f} s blocked in f64 on the card "
+            f"({int(tr.args[4].sum())} points, {spec.train_cfg.iters} L-BFGS iterations at most per model); raw "
+            f"parameters {gap:.3e} of their largest entry from an f64 CPU training of the same inputs and draws "
+            f"(printed only)")
+
+    gaps_all = []
+    t0 = time.perf_counter()
+    for i, ((plan_spec, cache, state_mu, state_var, inits, action_prev, t), result) in enumerate(plans):
+        # the planned step at t = 20 plans with the parameters of the
+        # training at t = 19, the episode's last: its final_params
+        params = type(out["final_params"])(*(f[i] for f in out["final_params"]))
+        args = (cache.x_mem.cpu().numpy(), cache.y_mem.cpu().numpy(), cache.mask.cpu().numpy(), params, spec.bounds,
+                state_mu, state_var, inits, action_prev, t)
+        gaps = mixed_plan_gaps(plan_spec, cache, (args, result), dev, label=f"sweep seed {SWEEP_SEEDS[i]}")
+        gaps_all.append(gaps)
+        if not all(v <= MIXED_TOL[k] for k, v in gaps.items()):
+            raise AssertionError(f"seed {SWEEP_SEEDS[i]}'s planned step disagrees with the card's f64 plan beyond "
+                                 f"{MIXED_TOL}: {gaps}")
+    ref_s = time.perf_counter() - t0
+    log(f"phase 8 sweep accuracy: each seed's planned step (t = {plans[0][0][6]}, two restarts) within {MIXED_TOL} "
+        f"of the card's f64 plan (made and compared in {ref_s:.3f} s): "
+        + "; ".join(", ".join(f"{k} {v:.3e}" for k, v in g.items()) for g in gaps_all))
+    log(f"phase 8 sweep: aggregate_env_steps_per_sec {len(SWEEP_SEEDS) * SWEEP_STEPS / sweep_s:.3f}, seeds "
+        + ", ".join(f"{t:.3f}" for t in seed_s) + " s, trainings " + ", ".join(f"{tr.secs:.3f}" for tr in trainings)
+        + f" s on {card}")
 
 
 def main() -> int:
@@ -1900,7 +2127,7 @@ def _run() -> int:
     if not gk_gap <= ACC_TOL:
         raise AssertionError(f"card iK gradient disagrees with CPU f64 beyond {ACC_TOL}: {gk_gap:.3e}")
 
-    mprob = trained_gp_problem(dev)
+    mprob = trained_gp_problem(dev, nh=MIXED_NH)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     mplanner, mplans, msecs = run_steps(mprob, dev, torch.float32, MIXED_STEPS, sync=torch.cuda.synchronize)
@@ -1908,11 +2135,11 @@ def _run() -> int:
     mixed_launches = ops.launch_counts()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     log(f"phase 4 main path mixed: f64 refresh + {MIXED_STEPS} trained-GP flagship plans "
-        f"(300 points in the {mprob.x.shape[0]} bucket), launches {mixed_launches}")
+        f"(300 points in the {mprob.x.shape[0]} bucket, horizon {MIXED_NH}), launches {mixed_launches}")
     check_plans(mplans, mprob.spec, finite_info=True)
     # accuracy before the launch check, so that a path which skips a kernel
     # shows what it does to the plan
-    ref64 = f64_reference(dev, MIXED_STEPS)
+    ref64 = f64_reference(dev, MIXED_STEPS, nh=MIXED_NH)
     mgaps, _ = compare_mixed_to_f64(mprob, mplanner, mplans, ref64)
     if not all(v <= MIXED_TOL[k] for k, v in mgaps.items()):  # plan: a signed excess
         raise AssertionError(f"card mixed mode disagrees with card f64 beyond {MIXED_TOL}: {mgaps}")
@@ -1995,6 +2222,7 @@ def _run() -> int:
     split_launches = time_rollouts(dev, card)
     drive_controller(dev, card)
     drive_run_env(dev, card)
+    drive_sweep(dev, card)
 
     kernels_of = {  # name: (source, the TPU kernel it replaces, the driven path's launch counts)
         "gram": ("gram.cu", "pallas_gram.py:28", launches),

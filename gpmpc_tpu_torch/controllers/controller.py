@@ -28,8 +28,9 @@ GpMpcController, gp_mpc_controller.py:21-317): ``get_action``,
   from (seed, TRAIN_KEY_TAG, iter_ctrl), the JAX key schedule's inputs.
 * The warmup actions and the restart inits use numpy's
   ``default_rng(seed)`` exactly as the JAX controller does.
-
-Checkpointing (``save_state`` and the rest) is not ported yet.
+* Checkpointing: ``save_state`` / ``restore_state`` (a dict of numpy
+  arrays) and ``save_checkpoint`` / ``restore_checkpoint`` (.npz), see
+  ``utils/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from ..mappers.reward import RewardSpec, reward_single
 from ..memory.buffer import Memory
 from ..models.gp import GPBounds, GPParams, TrainConfigDevice, constrained_params, params_from_constrained, \
     train_hyperparams
+from ..utils import checkpoint as _checkpoint
 from .planner import Planner, PlanSpec
 
 NUM_DECIMALS_REPR = 3
@@ -86,6 +88,18 @@ class IterationInformation:
                 rep = str(np.round(item, NUM_DECIMALS_REPR))
             parts.append(f"{key}: {rep}\n")
         return "".join(parts)
+
+
+def training_draws(seed: int, iter_ctrl: int, restarts: int, ns: int, d: int) -> torch.Tensor:
+    """The uniform re-init draws (restarts, Ns, D+2), f64 on the CPU, of a
+    training dispatched at ``iter_ctrl``, from a generator seeded from (seed,
+    TRAIN_KEY_TAG, iter_ctrl), as JAX folds the same three into its key. The
+    controller and the on-device episode (runner/episode.py, whose training
+    at step t is dispatched at iter_ctrl t + 1) both draw here, so that they
+    train alike given a seed."""
+    state = np.random.SeedSequence([seed, TRAIN_KEY_TAG, iter_ctrl]).generate_state(2, np.uint32)
+    generator = torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+    return torch.rand((restarts, ns, d + 2), generator=generator, dtype=torch.float64)
 
 
 def _numpy(t) -> np.ndarray:
@@ -306,12 +320,9 @@ class GpMpcController:
 
     def train_draws(self, iter_ctrl: int) -> torch.Tensor:
         """The uniform re-init draws (restarts, Ns, D+2) of the training
-        dispatched at ``iter_ctrl``, from a generator seeded from (seed,
-        TRAIN_KEY_TAG, iter_ctrl), as JAX folds the same three into its key."""
-        state = np.random.SeedSequence([self.seed, TRAIN_KEY_TAG, iter_ctrl]).generate_state(2, np.uint32)
-        generator = torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
-        shape = (max(1, int(self.config.training.restarts_train)), self.dim_state, self.dim_input + 2)
-        return torch.rand(shape, generator=generator, dtype=torch.float64)
+        dispatched at ``iter_ctrl`` (``training_draws``)."""
+        return training_draws(self.seed, iter_ctrl, max(1, int(self.config.training.restarts_train)),
+                              self.dim_state, self.dim_input)
 
     def start_training_process(self):
         """Dispatch MLL training to the worker thread (replaces the
@@ -380,6 +391,22 @@ class GpMpcController:
     def store_iter_info(self, iter_info: IterationInformation) -> None:
         for key, val in iter_info.__dict__.items():
             self.info_iters.setdefault(key, []).append(copy.deepcopy(val))
+
+    def save_state(self):
+        """Controller state snapshot (the reference's save_state,
+        gp_model.py:308-315, extended to the whole controller for exact
+        resume)."""
+        return _checkpoint.controller_state_dict(self)
+
+    def restore_state(self, state) -> None:
+        _checkpoint.load_controller_state(self, state)
+
+    def save_checkpoint(self, path: str) -> str:
+        """Persist to disk (.npz)."""
+        return _checkpoint.save_checkpoint(self, path)
+
+    def restore_checkpoint(self, path: str) -> None:
+        _checkpoint.restore_checkpoint(self, path)
 
     def get_hyperparameters(self):
         """Constrained (lengthscales, outputscales, noise variances) as numpy."""

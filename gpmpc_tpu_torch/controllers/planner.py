@@ -168,6 +168,11 @@ class Planner:
         self._extend_safe = True
         self._extend_safe_params = None
 
+    def invalidate_cache(self) -> None:
+        """Drop the factorization cache: the next step refactorizes (after
+        the memory was replaced other than by appends, e.g. a restore)."""
+        self._cache = None
+
     def _check_state(self, state_mu):
         if state_mu.dtype != self.dtype:
             raise TypeError(f"this Planner rolls out in {self.dtype}; got a {state_mu.dtype} state")

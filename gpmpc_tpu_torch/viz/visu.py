@@ -6,8 +6,9 @@ optionally drives a live 2D plot, and on save() writes the static 2D history
 plot and 3D model plots into a timestamped run folder
 (visu_objects/utils.py:13-19 folder layout).
 
-Port of ``gpmpc_tpu/viz/visu.py``. The live 2D plot (``viz/live2d.py``) is
-not ported yet: ``render_live_plot_2d=True`` raises NotImplementedError.
+Port of ``gpmpc_tpu/viz/visu.py``. ``render_live_plot_2d=True`` starts the
+live 2D plot (``viz/live2d.py``, a spawned child process fed by a queue),
+which ``close()`` stops.
 """
 
 from __future__ import annotations
@@ -44,10 +45,24 @@ class ControlVisualizations:
         self._frames: List[np.ndarray] = []
         self._capture_video = bool(visu_config.save_render_env)
 
+        self._live = None
         if visu_config.render_live_plot_2d:
-            raise NotImplementedError(
-                "render_live_plot_2d: the live 2D plot (gpmpc_tpu/viz/live2d.py) is not ported yet "
-                "(ROADMAP queue A item 7); pass VisuConfig(render_live_plot_2d=False)")
+            try:
+                from .live2d import LivePlotProcess
+
+                self._live = LivePlotProcess(
+                    num_steps=num_steps,
+                    dim_state=len(np.asarray(env.observation_space.low)),
+                    dim_action=len(np.asarray(env.action_space.low)),
+                    use_constraints=bool(control_config.reward.use_constraints),
+                    state_min=np.asarray(control_config.reward.state_min, dtype=float),
+                    state_max=np.asarray(control_config.reward.state_max, dtype=float),
+                    save_animation=visu_config.save_live_plot_2d,
+                    folder_save=self.folder_save,
+                )
+            except Exception as exc:  # pragma: no cover - headless fallback
+                print(f"live plot disabled: {exc}")
+                self._live = None
 
     # ------------------------------------------------------------------
     def update(self, obs, reward, action, env=None, iter_info=None) -> None:
@@ -65,6 +80,9 @@ class ControlVisualizations:
         self.actions.append(action_norm)
         self.rewards.append(float(reward))
         self.iter_infos.append(copy.deepcopy(iter_info))
+
+        if self._live is not None and iter_info is not None:
+            self._live.push(state_norm, action_norm, -float(reward), iter_info)
 
         if self.visu_config.render_env and hasattr(self.env, "render"):
             try:
@@ -150,5 +168,5 @@ class ControlVisualizations:
                 print(f"3d model plot failed: {exc}")
 
     def close(self) -> None:
-        """Nothing to release without the live plot (kept for the JAX
-        package's interface)."""
+        if self._live is not None:
+            self._live.close()

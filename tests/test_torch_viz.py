@@ -1,5 +1,5 @@
 """The port's visualizations (headless Agg backend): the four cases of
-tests/test_viz.py on the port, the live plot's refusal, and the 3D plot's
+tests/test_viz.py on the port, the live plot's wiring, and the 3D plot's
 GP posterior against the JAX package's on the same controller state.
 
 The posterior mean is held to TOL = 1e-9 relative to each output's largest
@@ -127,9 +127,16 @@ def test_posterior_mean_std_matches_jax(training):
 
 
 def test_live_plot_is_not_ported(tmp_path):
+    """The live plot is ported now; the test keeps its earlier name. With
+    render_live_plot_2d=True the visualization no longer raises: it starts
+    the live plot's child process, feeds it and stops it at close, alone
+    and through run_env (whose default VisuConfig turns it on)."""
     env = PendulumEnv(seed=0)
     cfg = small_pendulum_config(gpmpc_tpu_torch, len_horizon=3)
-    with pytest.raises(NotImplementedError, match="live2d"):
-        ControlVisualizations(env, 4, cfg, _visu(tmp_path, render_live_plot_2d=True))
-    with pytest.raises(NotImplementedError, match="live2d"):
-        run_env(env, cfg, VisuConfig(folder_save=str(tmp_path)), num_steps=2, verbose=False, device="cpu")
+    visu = ControlVisualizations(env, 4, cfg, _visu(tmp_path, render_live_plot_2d=True))
+    assert visu._live is not None and visu._live.proc.is_alive()
+    visu._live.close(timeout=120)  # the child's start-up takes seconds, more on a loaded machine
+    assert visu._live.proc.exitcode == 0
+    visu.close()  # after the child: returns at once
+    costs = run_env(env, cfg, VisuConfig(folder_save=str(tmp_path)), num_steps=2, verbose=False, device="cpu")
+    assert len(costs) == 2
