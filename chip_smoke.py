@@ -19,9 +19,10 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   MIXED_NH): an f64 master refreshed on the card, then steady-state steps
   whose rollout runs in
   double-float32 through the df32 cov kernels, held to the card's own
-  float64 plan of the same steps (MIXED_TOL); the first step's f64 plan is
-  replayed with parts of the mixed objective and optimizer, to show which
-  of them moves a_opt (``a_opt_witness``);
+  float64 plan of the same steps (MIXED_TOL); where the first step's a_opt
+  differs from the f64 plan's, its f64 plan is replayed with parts of the
+  mixed objective and optimizer, to show which of them moves a_opt
+  (``a_opt_witness``);
 * the trained-GP problem at 100 points in the 128 bucket in mixed mode
   (phase 4, whole-step; horizon FUSED_NH): the same, with every rollout step
   through the whole-step df32 kernels (#12 forward, #8 and #9 in the
@@ -57,7 +58,16 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   10 and 15, one f64 training on the card at t = 19 and one planned step
   of two restarts at t = 20, every rollout step through the whole-step
   kernels at ns = 2, d = 3; each seed's plan is held to the card's f64 plan
-  of the same memory, trained parameters, state and inits.
+  of the same memory, trained parameters, state and inits;
+* the multi-device path (phase 9): a one-rank NCCL group on the card (an
+  in-process HashStore, destroyed at the end of the phase), the port's
+  ``parallel.sharding.dryrun_training_step`` on it, then the N-sharded mixed
+  plan (``build_nsharded_plan_fn``: the f64 master factorized whole, iK cut
+  to the rank's row slab, the df32 cov kernels run through the shard-mapped
+  core, the Gram and whole-step kernels off) of phase 4's trained-GP step,
+  held to phase 4's card f64 plan by MIXED_TOL and to phase 4's residual
+  plan's launch counts, its gap to phase 4's own mixed plan printed. One
+  card runs no multi-rank collective: NCCL refuses two ranks on one card.
 
 Phase 3 holds the twelve kernels to their plain versions: the f32 Gram and
 cov kernels (forward, row backward, iK gradient) at the flagship's shapes,
@@ -69,7 +79,10 @@ and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
 and random ones, each redesigned kernel also for bitwise repeats, the split
 route bit for bit against #9 and its on-card combination against
 ``combine_split``, the Gram also at a ragged N and the iK gradient on
-rectangular slabs; it also reports the launch floor (an empty kernel,
+rectangular slabs, and #2, #3, #5, #6 and #7 on the N-sharded cores' row
+slabs (RECT_SPLITS), each slab against the plain twins and the slabs'
+combined outputs and gradients against the square launch's, with #3's and
+#7's rectangular backwards timed beside their square launches; it also reports the launch floor (an empty kernel,
 plainly and as a programmatic dependent), and the launch shape, time and
 bound of the ten kernels redesigned for the H100 (#9 df_mm_bwd, #6
 df_fwdres, #12 df_mm_full, #2 cov_fwd, #5 df_fwd, #3 cov_bwd_row, both sides
@@ -130,6 +143,7 @@ from gpmpc_tpu_torch.models.gp import constrained_params
 from gpmpc_tpu_torch.ops import _build, df_cov, df_mm
 from gpmpc_tpu_torch.ops import gram_rbf as gram_mod
 from gpmpc_tpu_torch.ops import moment_cov
+from gpmpc_tpu_torch.parallel import sharding
 from gpmpc_tpu_torch.runner import episode as episode_mod
 from gpmpc_tpu_torch.runner.episode import build_episodes_batch_fn
 
@@ -144,7 +158,11 @@ WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 # a slow host past the watchdog (phase 7 ended at 174.8 s there), so the
 # residual mixed plan's horizon (MIXED_NH) was cut from 15 to 5 as well
 # (its plan and the a_opt witness took 48.6 s of that run); phase 6 plans
-# through the whole-step path at 15.
+# through the whole-step path at 15. Phase 9 (the N-sharded plan) and the
+# row-slab checks of phase 3 added ~10 s, which would have put a cold run on
+# that slow host at ~160-164 s, so the a_opt witness, a printed diagnostic,
+# now runs only where the mixed a_opt differs from the f64 plan's (at
+# horizon 5 it does not; the witness took 6.6 s of a 134 s cold run).
 # Phase 7 (the mountain-car episode through run_env) has one cut of its own,
 # the example's L-BFGS-B budget (MC_MAXFUN); phase 8 (the sweep) takes the
 # same cut and those listed at SWEEP_SEEDS.
@@ -181,8 +199,10 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # value-and-grad objective evaluations of 15 rollout steps), one cov_bwd_row
 # launch each; the residual mixed plan, at horizon MIXED_NH = 5, runs 5
 # value-and-grad evaluations through df_fwdres and the forward-only one of
-# its result through df_fwd: 5 (75 at horizon 15, where it took 4 more
-# forward-only trials; the plain twins on the CPU count the same). The stacked plan, at horizon STACKED_NH = 5, runs 5
+# its result through df_fwd: 5, and df_fwdres 25 (75 and 75 at horizon 15,
+# where it took 4 more forward-only trials; the plain twins on the CPU count
+# the same); phase 9's N-sharded plan of the same step launches the same. The
+# stacked plan, at horizon STACKED_NH = 5, runs 5
 # value-and-grad evaluations and the forward-only one of its result, each
 # forward through df_fwd: 30 (150 at horizon 15; the plain twins on the CPU
 # take the same line-search decisions). The plans have run these
@@ -208,6 +228,7 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # 8 x 10 df_mm_fwd and df_mm_bwd), for the two seeds (counted on the plain
 # twins on the CPU with the whole-step dispatch on).
 EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 5,
+                     "df_fwdres per residual mixed plan": 25,
                      "df_fwd per stacked mixed plan": 30, "df_mm_bwd_mean per split rollout": 15,
                      "df_mm_bwd_pair per split rollout": 15,
                      "controller warmup step": {"df_mm_full": 15},
@@ -686,19 +707,13 @@ def flagship_cov_operands(device):
     cache = Planner(prob.spec, dtype=torch.float64, device=cpu).refresh_cache(
         prob.x, prob.y, prob.mask, prob.params, prob.bounds)
     seen = []
-    dispatch = gp_mod._cov_core
 
     def record(*args):
         seen.append(args)
-        return dispatch(*args)
+        return moment_cov.cov_core_ref(*args)
 
-    gp_mod._cov_core = record
-    try:
-        with torch.no_grad():
-            _objective_and_info(prob.spec, cache, prob.inits[0], prob.state_mu,
-                                prob.state_var, prob.action_prev, 0)
-    finally:
-        gp_mod._cov_core = dispatch
+    with ops.override_cov_core(record), torch.no_grad():
+        _objective_and_info(prob.spec, cache, prob.inits[0], prob.state_mu, prob.state_var, prob.action_prev, 0)
     *tensors, diag_pos = seen[-1]
     return [t.to(device=device, dtype=torch.float32).contiguous() for t in tensors], tuple(diag_pos)
 
@@ -763,9 +778,7 @@ def check_kernels(dev):
     g_corr = torch.linspace(1.0, 3.0, nd, device=dev)
     ms, host = cuda_ms(lambda: moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos))
     plain, _ = cuda_ms(lambda: moment_cov.cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos))
-    # both sides: the operands and iK read once, the six gradients written once
-    b, by = bound_ms(4 * (p + nd + 4 * p * n + 2 * p * n * ns_ + nd * n * n + 4 * p * n + 2 * p * n * ns_),
-                     2 * (p * n * n * (4 * ns_ + 8) + nd * n * n * 3))
+    b, by = cov_bwd_bound(p, n, n, ns_, nd)
     log(f"kernel cov_bwd_row (both sides, one launch): kernel {ms:.4f} ms plain {plain:.4f} ms "
         f"bound {b:.5f} ms ({by}); host {host:.4f} ms per call")
     results["cov_bwd_row"] = dict(err=err_bwd, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
@@ -795,6 +808,16 @@ def check_kernels(dev):
     log(f"kernel cov_bwd then cov_gik (CovCore.backward with an iK gradient): {both:.4f} ms (device) against "
         f"{results['cov_bwd_row']['ms']:.4f} + {ms:.4f} apart; the programmatic-dependent launch floor "
         f"{floor_dep:.5f} ms")
+
+    # the N-sharded core's row slabs: #2 and #3 on them, their partials and
+    # gradients combined as the sharded core combines them, and #3 timed
+    for label, operands in (("flagship", cov_flag), ("random", cov_rand)):
+        for name, e in zip(("cov_fwd", "cov_bwd_row"), check_cov_rect(label, operands, diag_pos)):
+            results[name]["err"] = max(results[name]["err"], e)
+    log(f"kernel cov_bwd_row rectangular slabs (both sides, one launch each; P={p}, ns={ns_}): " + ", ".join(
+        rect_time(lambda o: moment_cov.cov_bwd(g, *o, g_corr, diag_pos), cov_flag, ROW_ARGS_COV, IK_ARGS_COV, k,
+                  lambda nr: cov_bwd_bound(p, nr, n, ns_, nd)) for k in RECT_SPLITS)
+        + f"; square {n} x {n} {results['cov_bwd_row']['ms']:.4f} ms (bound {results['cov_bwd_row']['bound_ms']:.5f})")
     return results
 
 
@@ -1132,6 +1155,22 @@ def check_df_kernels(dev):
         f"bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 instructions per element of each side "
         f"over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
     results["df_bwd"] = dict(err=err_bwd, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
+
+    # the N-sharded core's row slabs: #5, #6 and #7 on them, their partials
+    # and gradients combined as the sharded core combines them, #7 timed
+    for label, args in (("flagship", flag), ("random", rand)):
+        e_fwd, e_res, e_bwd = check_df_rect(label, args, diag_pos)
+        for name, e in (("df_fwd", e_fwd), ("df_fwdres", e_res), ("df_bwd", e_bwd)):
+            results[name]["err"] = max(results[name]["err"], e)
+
+    def df_bwd_bound(nr):
+        in_r = 4 * 2 * (2 * p * (nr + n) + p * (nr + n) * ns + nd * nr * n)
+        return bound_ms(in_r + 4 * 2 * p + 4 * p * (nr + n) * (1 + ns), 2 * (p * per + nd * per_diag) * nr * n,
+                        H100_F32_INSTR_PER_S)
+
+    log(f"kernel df_bwd rectangular slabs (one launch per side; P={p}, ns={ns}): " + ", ".join(
+        rect_time(lambda o: df_cov.df_cov_bwd(*o, gs, gco, diag_pos), flag, ROW_ARGS_DF, IK_ARGS_DF, k, df_bwd_bound)
+        for k in RECT_SPLITS) + f"; square {n} x {n} {ms:.4f} ms (one launch, bound {b:.5f})")
     return results
 
 
@@ -1159,13 +1198,155 @@ def check_df_bwd(label, args, diag_pos) -> float:
     return max(errs)
 
 
-def hold_grad(what, label, out, ref) -> float:
-    """Hold a gradient to DF_GRAD_TOL of its largest entry."""
-    abs_e, rel_e = max_err(out, ref)
+def hold_grad(what, label, out, ref, scale=None) -> float:
+    """Hold a gradient to DF_GRAD_TOL of its largest entry (or of the
+    largest entry of ``scale``)."""
+    abs_e, rel_e = max_err(out, ref, scale)
     log(f"kernel {what} [{label}]: max abs err {abs_e:.3e} = {rel_e:.3e} of max |grad| (tol {DF_GRAD_TOL})")
     if not rel_e <= DF_GRAD_TOL:
         raise AssertionError(f"{what} [{label}] disagrees")
     return abs_e
+
+
+# The N-sharded cores' row slabs (phase 3): the rows of a 2- and a 4-way
+# split of the 384 bucket, 192 x 384 and 96 x 384, on the flagship's
+# operands and random ones. Each slab is held to the plain twins by the
+# square kernels' tolerances; the slabs' partials, combined as the sharded
+# cores combine them (S_p and corr summed over the slabs in rank order, the
+# df ones by the df tree of parallel/sharding.py), and their gradients (the
+# row side's concatenated, the column side's summed) to the square launch's
+# outputs. A column-side gradient summed over slabs in f32 rounds by eps32
+# of the sum of the slabs' |partials|, which on the flagship's cancelling
+# operands exceeds the output itself: the df ones are held to DF_GRAD_TOL
+# of the larger of the two.
+RECT_SPLITS = (2, 4)
+ROW_ARGS_COV, IK_ARGS_COV = (0, 2, 4), (6,)
+ROW_ARGS_DF, IK_ARGS_DF = (0, 1, 4, 5, 8, 9), (12, 13)
+
+
+def row_slab(operands, k, r, row_args, ik_args):
+    """Rank r's operands of a k-way split of the stored points: the row
+    operands' and iK's rows r N / k .. (r + 1) N / k, the column operands
+    whole."""
+    n = operands[row_args[0]].shape[1]
+    rows = slice(r * n // k, (r + 1) * n // k)
+    return [t[:, rows].contiguous() if i in row_args or i in ik_args else t for i, t in enumerate(operands)]
+
+
+def cov_bwd_bound(p, nr, nc, ns, nd) -> tuple[float, str]:
+    """#3 on Nr rows against Nc columns, both sides: the operands and iK
+    read once, the six gradients written once; E, its two products and the
+    ns-contraction's FMAs for each element of each side."""
+    io = 4 * (p + nd + 2 * p * (nr + nc) + p * (nr + nc) * ns + nd * nr * nc + 2 * p * (nr + nc) + p * (nr + nc) * ns)
+    return bound_ms(io, 2 * (p * nr * nc * (4 * ns + 8) + nd * nr * nc * 3))
+
+
+def rect_time(call, operands, row_args, ik_args, k, bound) -> str:
+    """``call`` on rank 0's slab of a k-way split, timed: 'Nr x Nc t ms
+    (bound b ms)'."""
+    slab = row_slab(operands, k, 0, row_args, ik_args)
+    nr, nc = slab[row_args[0]].shape[1], operands[row_args[0]].shape[1]
+    ms, _ = cuda_ms(lambda: call(slab))
+    return f"{nr} x {nc} {ms:.4f} ms (bound {bound(nr)[0]:.5f})"
+
+
+def check_cov_rect(label, operands, diag_pos) -> tuple[float, float]:
+    """#2 and #3 on each slab of each split against their plain twins
+    (check_cov_fwd, check_cov_bwd), then the split's combined S_p, corr and
+    gradients against the square launch's, each to COV_TOL of the square
+    output's sum of |terms|. Returns the largest errors of (#2, #3) against
+    their plain twins on the slabs."""
+    a, c, u, xj, bi, bj, ik = operands
+    p, n = a.shape
+    w_s = torch.linspace(1.0, 2.0, p, device=a.device)
+    w_c = torch.linspace(1.0, 3.0, len(diag_pos), device=a.device)
+    gco = _scatter_diag(w_c, p, diag_pos)
+    s_abs, co_abs = moment_cov.cov_fwd_abs_terms(*operands, diag_pos)
+    row = moment_cov.cov_bwd_row_abs_terms(w_s, a, c, u, xj, bi, bj, ik, gco, diag_pos)
+    col = moment_cov.cov_bwd_row_abs_terms(w_s, c, a, xj, u, bj, bi, ik.transpose(1, 2), gco, diag_pos)
+    fwd = moment_cov.cov_fwd(*operands, diag_pos)
+    bwd = moment_cov.cov_bwd(w_s, *operands, w_c, diag_pos)
+    e_fwd = e_bwd = 0.0
+    for k in RECT_SPLITS:
+        slabs = [row_slab(operands, k, r, ROW_ARGS_COV, IK_ARGS_COV) for r in range(k)]
+        tag = f"{label} {n // k}x{n}"
+        for r, slab in enumerate(slabs):
+            e_fwd = max(e_fwd, check_cov_fwd(f"{tag} slab {r}", slab, diag_pos))
+            ops.reset_launch_counts()
+            e_bwd = max(e_bwd, check_cov_bwd(f"{tag} slab {r}", slab, diag_pos))
+            # the kernel's call, its repeat and CovCore's backward: one launch each, both sides
+            if ops.launch_counts()["cov_bwd_row"] != 3:
+                raise AssertionError(f"cov_bwd_row on a slab launched {ops.launch_counts()['cov_bwd_row']} times, "
+                                     f"expected 3")
+        parts = [moment_cov.cov_fwd(*slab, diag_pos) for slab in slabs]
+        grads = [moment_cov.cov_bwd(w_s, *slab, w_c, diag_pos) for slab in slabs]
+        combined = (sum(q[0] for q in parts), sum(q[1] for q in parts))
+        for what, out, ref, scale in zip(("S_p", "corr"), combined, fwd, (s_abs, co_abs)):
+            hold_cov(f"cov_fwd {what}, {k} slabs summed, against the square launch", label, out, ref, scale)
+        names = ("ga", "gc", "gU", "gXj", "gbi", "gbj")
+        for i, (name, ref, scale) in enumerate(zip(names, bwd, (row[0], col[0], row[1], col[1], row[2], col[2]))):
+            # even outputs: the row side's, concatenated; odd: the column side's, summed
+            out = torch.cat([q[i] for q in grads], dim=1) if i % 2 == 0 else sum(q[i] for q in grads)
+            hold_cov(f"cov_bwd_row {name}, {k} slabs combined, against the square launch", label, out, ref, scale)
+    return e_fwd, e_bwd
+
+
+def check_df_rect(label, args, diag_pos) -> tuple[float, float, float]:
+    """#5, #6 and #7 on each slab of each split against their plain twins
+    (check_df_operands, check_df_bwd: two launches a slab, one a side), then
+    the split's df partials combined by the sharded core's df tree
+    (``sharding.df_tree_axis0``) against the square launch's S_p and corr,
+    its residuals (the row side's concatenated, the column side's df-summed
+    in rank order) against the square's, each to DF_TOL of the square
+    output's sum of |terms|, and its stacked-backward gradients (the row
+    side's concatenated, the column side's summed) to DF_GRAD_TOL. Returns
+    the largest errors of (#5, #6, #7) against their plain twins on the
+    slabs."""
+    p, n = args[0].shape
+    dev = args[0].device
+    w = torch.linspace(1.0, 2.0, p, device=dev)
+    gco = _scatter_diag(torch.linspace(1.0, 3.0, len(diag_pos), device=dev), p, diag_pos)
+    (s_abs, co_abs), (row_abs, col_abs) = df_cov.df_cov_abs_terms(*args, diag_pos)
+    fwd = df_cov.df_cov_fwd(*args, diag_pos)
+    rows_sq, cols_sq = df_cov.df_cov_fwdres(*args, diag_pos)
+    bwd = df_cov.df_cov_bwd(*args, w, gco, diag_pos)
+    e_fwd = e_res = e_bwd = 0.0
+    for k in RECT_SPLITS:
+        slabs = [row_slab(args, k, r, ROW_ARGS_DF, IK_ARGS_DF) for r in range(k)]
+        tag = f"{label} {n // k}x{n}"
+        for r, slab in enumerate(slabs):
+            ef, er = check_df_operands(f"{tag} slab {r}", slab, diag_pos)
+            ops.reset_launch_counts()
+            e_bwd = max(e_bwd, check_df_bwd(f"{tag} slab {r}", slab, diag_pos))
+            # one launch per side, for the kernel's call and the stacked composite's backward
+            if ops.launch_counts()["df_bwd"] != 4:
+                raise AssertionError(f"df_bwd on a slab launched {ops.launch_counts()['df_bwd']} times, expected 4")
+            e_fwd, e_res = max(e_fwd, ef), max(e_res, er)
+        parts = [df_cov.df_cov_fwd(*slab, diag_pos) for slab in slabs]
+        sh, sl = sharding.df_tree_axis0(torch.stack([q[0] for q in parts]), torch.stack([q[1] for q in parts]))
+        ch, cl = sharding.df_tree_axis0(torch.stack([q[2] for q in parts]), torch.stack([q[3] for q in parts]))
+        hold_df(f"df_fwd S_p, {k} slabs by the df tree, against the square launch", label, sh, sl, fwd[0], fwd[1],
+                s_abs)
+        hold_df(f"df_fwd corr, {k} slabs by the df tree, against the square launch", label, ch, cl, fwd[2], fwd[3],
+                co_abs)
+        res = [df_cov.df_cov_fwdres(*slab, diag_pos) for slab in slabs]
+        for j in range(0, len(rows_sq), 2):
+            rh, rl = (torch.cat([q[0][j + h] for q in res], dim=1) for h in (0, 1))
+            chh, cll = sharding.df_tree_axis0(torch.stack([q[1][j] for q in res]),
+                                               torch.stack([q[1][j + 1] for q in res]))
+            hold_df(f"df_fwdres row residual {j // 2}, {k} slabs, against the square launch", label, rh, rl,
+                    rows_sq[j], rows_sq[j + 1], row_abs[j] + 1e-300)
+            hold_df(f"df_fwdres column residual {j // 2}, {k} slabs, against the square launch", label, chh, cll,
+                    cols_sq[j], cols_sq[j + 1], col_abs[j] + 1e-300)
+        grads = [df_cov.df_cov_bwd(*slab, w, gco, diag_pos) for slab in slabs]
+        for i, (name, ref) in enumerate(zip(("ga", "gc", "gU", "gXj"), bwd)):
+            if i % 2 == 0:
+                out, scale = torch.cat([q[i] for q in grads], dim=1), None
+            else:
+                out = sum(q[i] for q in grads)
+                scale = torch.maximum(ref.abs().max(), sum(q[i].abs() for q in grads).max()).expand_as(ref)
+            hold_grad(f"df_bwd {name}, {k} slabs combined, against the square launch", label, out, ref, scale)
+    return e_fwd, e_res, e_bwd
 
 
 def trained_gp_step_inputs(dev, n):
@@ -1512,8 +1693,10 @@ def compare_mixed_to_f64(prob, planner, plans, ref, witness=True, label="trained
     """The gaps of MIXED_TOL against the card's f64 plan ``ref`` of the same
     steps (the plan gap the largest over the steps, each plan's f64
     objective taken on the caches after the last step) and the a_opt gap of
-    each step (printed only); then ``a_opt_witness`` on the first step.
-    Returns the gaps and the mixed gradient at the initial actions."""
+    each step (printed only); then ``a_opt_witness`` on the first step
+    where its a_opt gap is not 0 (at 0 it has nothing to explain, and its
+    four replays took 6.6 s of a cold run). Returns the gaps and the mixed
+    gradient at the initial actions."""
     ref_prob, ref_planner = ref.prob, ref.planner
     f_card, g_card = objective_and_grad(prob, planner._cache, prob.inits[0])
 
@@ -1538,8 +1721,10 @@ def compare_mixed_to_f64(prob, planner, plans, ref, witness=True, label="trained
     )
     log(f"  {label} {prob.n_points} points in the {prob.x.shape[0]} bucket, card mixed vs card f64: "
         f"objective {f_card:.9g} vs {ref.f:.9g}; gaps " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
-    if witness:
+    if witness and a_gaps[0] > 0:
         a_opt_witness(prob, ref_prob, ref.cache0, ref.plans[0][0], plans[0][0])
+    elif witness:
+        log("  a_opt witness skipped: the mixed plan's a_opt is the f64 plan's, there is no gap to explain")
     return gaps, g_card
 
 
@@ -1933,6 +2118,66 @@ def check_checkpoint_round_trip(ctrl, cfg, dev):
         f"actions bit for bit equal ({eval_s * 1e3:.1f} ms for the two)")
 
 
+def drive_sharding(dev, card, mprob, mplans, ref64):
+    """Phase 9: the multi-device path on a one-rank NCCL group (a HashStore,
+    destroyed at the end): the port's ``dryrun_training_step`` on the card,
+    then the N-sharded mixed plan (``build_nsharded_plan_fn``) of phase 4's
+    trained-GP flagship step (its memory after the step's append, its
+    parameters, state and init, horizon MIXED_NH), held to phase 4's card
+    f64 plan ``ref64`` by MIXED_TOL (objective and gradient at the initial
+    actions through the shard-mapped cores) and to phase 4's launch counts;
+    the gap to phase 4's own mixed plan is printed."""
+    t0 = time.perf_counter()
+    sharding.init_group(dev)
+    try:
+        sharding.dryrun_training_step(1, device=dev)
+        t_dry = time.perf_counter() - t0
+        mesh = sharding.make_mesh(1, device=dev)
+        md = mprob.master_dtype
+        args = (torch.tensor(mprob.x, dtype=md, device=dev), torch.tensor(mprob.y, dtype=md, device=dev),
+                torch.tensor(mprob.mask, device=dev), mprob.params, mprob.bounds, mprob.state_mu, mprob.state_var,
+                mprob.inits, mprob.action_prev, 0)
+        plan = sharding.build_nsharded_plan_fn(mprob.spec, mesh)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        a_opt, _, info = plan(*args)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        log(f"phase 9 main path N-sharded mixed: one rank (NCCL), {int(mprob.mask.sum())} points in the "
+            f"{mprob.x.shape[0]} bucket, horizon {MIXED_NH}: {t_plan:.3f} s (blocked), launches {launches}")
+        check_plans([(a_opt, info)], mprob.spec, finite_info=True)
+        expected = {"df_fwd": EXPECTED_LAUNCHES["df_fwd per residual mixed plan"],
+                    "df_fwdres": EXPECTED_LAUNCHES["df_fwdres per residual mixed plan"]}
+        for name, count in launches.items():
+            want = expected.get(name, 0)
+            if count != want:
+                raise AssertionError(f"kernel {name} launched {count} times on the N-sharded mixed plan, "
+                                     f"expected {want} (phase 4's residual plan)")
+        cov = sharding.make_shardmapped_cov_core(mesh)
+        df_core = sharding.make_shardmapped_df_cov_core(mesh)
+        x, y, mask = args[:3]
+        with ops.disable_pallas(), ops.override_cov_core(cov), ops.override_df_cov_core(df_core):
+            scache = sharding.shard_cache_n(gp_mod.masked_cholesky_factorize(mprob.params, mprob.bounds, x, y, mask),
+                                            mesh)
+            gaps, _ = compare_mixed_to_f64(mprob, SimpleNamespace(_cache=scache), [(a_opt, info)], ref64,
+                                           witness=False, label="N-sharded")
+        if not all(v <= MIXED_TOL[k] for k, v in gaps.items()):
+            raise AssertionError(f"the N-sharded mixed plan disagrees with the card's f64 plan beyond {MIXED_TOL}: "
+                                 f"{gaps}")
+        a4, info4 = mplans[0]
+        same = torch.equal(a_opt, a4) and all(torch.equal(u, v) for u, v in zip(info, info4))
+        log(f"phase 9 N-sharded accuracy: within {MIXED_TOL} of the card's f64 plan; against phase 4's mixed plan: "
+            f"a_opt gap {max_err(a_opt, a4)[0]:.3e}, TrajectoryInfo gap "
+            f"{max(max_err(u, v)[1] for u, v in zip(info, info4)):.3e} (" + ("bit for bit)" if same else
+            f"not bit for bit: phase 4 appended the step's point to its f64 cache by the rank-1 extension, this plan "
+            f"factorizes the {int(mprob.mask.sum())} points afresh)"))
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"phase 9 sharding: dryrun_training_step(1) on the card {t_dry:.3f} s, the phase {time.perf_counter() - t0:.3f} s "
+        f"on {card}; one rank shows the path and the kernels on its slab, no multi-rank collective and no speed-up")
+
+
 def _to_cpu(tree):
     """Tensors (also inside NamedTuples) moved to the CPU, anything else kept."""
     if isinstance(tree, torch.Tensor):
@@ -2150,6 +2395,7 @@ def _run() -> int:
         if mixed_launches[name] != 0:
             raise AssertionError(f"kernel {name} was launched on the mixed main path")
     check_launches("df_fwd", mixed_launches, EXPECTED_LAUNCHES["df_fwd per residual mixed plan"] * MIXED_STEPS)
+    check_launches("df_fwdres", mixed_launches, EXPECTED_LAUNCHES["df_fwdres per residual mixed plan"] * MIXED_STEPS)
     log(f"phase 4 mixed accuracy: within {MIXED_TOL} of the card's f64 plan")
 
     df_cov.VJP_MODE = "stacked"
@@ -2223,6 +2469,7 @@ def _run() -> int:
     drive_controller(dev, card)
     drive_run_env(dev, card)
     drive_sweep(dev, card)
+    drive_sharding(dev, card, mprob, mplans, ref64)
 
     kernels_of = {  # name: (source, the TPU kernel it replaces, the driven path's launch counts)
         "gram": ("gram.cu", "pallas_gram.py:28", launches),

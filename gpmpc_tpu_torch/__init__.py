@@ -7,7 +7,9 @@ mixed mode (``Config(dtype="float32")``: an f64 master with a double-float32
 rollout) or in f32, and trains its GP hyperparameters in a worker thread.
 ``run_env`` and ``run_env_multiple`` run online-learning episodes of it on
 a gym-style env (``envs``), ``ControlVisualizations`` plots them, and
-``example_configs`` holds the three shipped examples' configurations.
+``example_configs`` holds the three shipped examples' configurations, and
+``parallel`` splits planning and training across the ranks of a
+``torch.distributed`` group.
 The moment-matching covariance core (f32 and df32), the whole df32 step and
 the Gram matrix run in hand-written CUDA kernels (``ops``). Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``, where every kernel is

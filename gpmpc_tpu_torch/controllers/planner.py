@@ -99,24 +99,39 @@ def _select_restart(fs) -> int:
     return int(torch.argmin(torch.where(nan, torch.full_like(fs, float("inf")), fs)))
 
 
-def _plan_from_cache(spec: PlanSpec, cache: FactorizationCache, state_mu, state_var, inits,
-                     action_prev, iter_ctrl):
-    """(a_opt, actions_model, info) of the best of R restarts, inits (R, Nh*Na)."""
-    cache = _cast_cache(cache, state_mu.dtype)
+def _run_restarts(spec: PlanSpec, cache, state_mu, state_var, inits, action_prev, iter_ctrl):
+    """Each restart's box L-BFGS-B from its init, inits (R, Nh*Na), on a
+    cache already in the rollout's dtype: (xs (R, Nh*Na), fs (R,))."""
 
     def objective(a):
         cost, _ = _objective_and_info(spec, cache, a, state_mu, state_var, action_prev, iter_ctrl)
         return cost
 
+    if inits.shape[0] == 0:  # a rank's empty chunk of the restarts
+        return inits, inits[:, 0]
     lower = torch.zeros_like(inits[0])
     upper = torch.ones_like(inits[0])
     xs, fs = zip(*(lbfgs_b_minimize(objective, a0, lower, upper, maxiter=spec.maxiter, maxcor=spec.maxcor,
                                     maxls=spec.maxls, maxfun=spec.maxfun) for a0 in inits))
-    a_opt = xs[_select_restart(torch.stack(fs))]
+    return torch.stack(xs), torch.stack(fs)
+
+
+def _best_restart(spec: PlanSpec, cache, xs, fs, state_mu, state_var, action_prev, iter_ctrl):
+    """(a_opt, actions_model, info) of the restart ``_select_restart`` keeps,
+    the info recomputed at a_opt."""
+    a_opt = xs[_select_restart(fs)]
     with torch.no_grad():
         _, info = _objective_and_info(spec, cache, a_opt, state_mu, state_var, action_prev, iter_ctrl)
         actions_model = mpc_to_model_actions(spec.action, a_opt, action_prev)
     return a_opt, actions_model, info
+
+
+def _plan_from_cache(spec: PlanSpec, cache: FactorizationCache, state_mu, state_var, inits,
+                     action_prev, iter_ctrl):
+    """(a_opt, actions_model, info) of the best of R restarts, inits (R, Nh*Na)."""
+    cache = _cast_cache(cache, state_mu.dtype)
+    xs, fs = _run_restarts(spec, cache, state_mu, state_var, inits, action_prev, iter_ctrl)
+    return _best_restart(spec, cache, xs, fs, state_mu, state_var, action_prev, iter_ctrl)
 
 
 def extend_plan(spec: PlanSpec, cache: FactorizationCache, x_new, y_new, state_mu, state_var,

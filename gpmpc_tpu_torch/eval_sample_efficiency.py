@@ -16,8 +16,10 @@ Usage (from the repository root):
 ``--dtype``: float64 (parity), float32 (everything in f32) or mixed (an f64
 master factorization and f64 training with a double-float32 rollout, the
 env in f64). ``--device`` defaults to ``cuda``; without a CUDA device the
-sweep raises unless given ``--device cpu``. The JAX script's
-``--no-pallas`` has no counterpart yet (ROADMAP).
+sweep raises unless given ``--device cpu``. ``--no-pallas`` runs both
+sweeps under ``ops.disable_pallas()``: the Gram, the cov cores and the
+whole-step path take their plain PyTorch forms (the JAX script's flag, whose
+"pallas" means the hand-written CUDA kernels here).
 
 Prints one JSON line: the mean cost curve's summary, the
 interactions-to-solve metric (the first step after which the mean cost over
@@ -29,6 +31,7 @@ sweep (which builds the kernels on first use) and of a second one
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from types import SimpleNamespace
@@ -36,6 +39,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from . import ops
 from .envs import torch_dynamics
 from .example_configs import mountain_car_config, pendulum_config, process_control_config
 from .runner.episode import build_episodes_batch_fn, episode_spec_from_config
@@ -89,6 +93,8 @@ def main(argv=None) -> None:
     p.add_argument("--dtype", default="float32", choices=["float32", "float64", "mixed"],
                    help="float64 (parity) solves reliably; float32 degrades once training sharpens the GP; "
                         "mixed = f64 master factorization and training + df32 rollout")
+    p.add_argument("--no-pallas", action="store_true",
+                   help="run with the CUDA kernels' dispatch disabled (ops.disable_pallas: the plain forms)")
     p.add_argument("--steps-per-call", type=int, default=None,
                    help="run the episodes in segments of this many steps, every seed's in turn (the carry stays "
                         "on the device)")
@@ -100,15 +106,16 @@ def main(argv=None) -> None:
     batch_fn = build_episodes_batch_fn(setup.spec, steps_per_call=args.steps_per_call)
     seeds = list(range(args.seeds))
 
-    t0 = time.perf_counter()
-    out = batch_fn(seeds, setup.params0)
-    block_until_ready(out)
-    compile_and_run_s = time.perf_counter() - t0
+    with ops.disable_pallas() if args.no_pallas else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        out = batch_fn(seeds, setup.params0)
+        block_until_ready(out)
+        compile_and_run_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    out = batch_fn(seeds, setup.params0)
-    block_until_ready(out)
-    steady_run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = batch_fn(seeds, setup.params0)
+        block_until_ready(out)
+        steady_run_s = time.perf_counter() - t0
 
     costs = out["cost"].double().cpu().numpy()  # (seeds, steps)
     mean = costs.mean(axis=0)

@@ -102,9 +102,13 @@ def _gram(lengthscales, outputscales, x):
 
 
 def _cov_core(*args):
-    """The cov core by the same dtype rule as ``_gram``."""
+    """The cov core by the same dtype rule as ``_gram``: f32 through
+    ``ops.cov_core``; f64 through it under ``ops.disable_pallas``, so that
+    it takes the plain core, or an installed override first (the N-sharded
+    planner's core takes f64 calls too, as in the JAX package)."""
     if args[0].dtype == torch.float64:
-        return ops.cov_core_ref(*args)
+        with ops.disable_pallas():
+            return ops.cov_core(*args)
     return ops.cov_core(*args)
 
 
@@ -221,6 +225,26 @@ def _small_spd_inv_det(M) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(rows, dim=-2), det
 
 
+# Above this state dimension the unrolled Cholesky's O(Ns^3) op count stops
+# paying for itself against the batched linalg routines (the JAX package's
+# limit and rule).
+_UNROLL_MAX_DIM = 8
+
+
+def _spd_inv_det(M) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse and determinant of SPD matrices (..., k, k): the unrolled,
+    pivot-guarded ``_small_spd_inv_det`` up to ``_UNROLL_MAX_DIM``, past it a
+    Cholesky factorization and solve, NaN where M is not positive definite
+    (as JAX's ``cholesky`` and ``_cho_solve`` give)."""
+    k = M.shape[-1]
+    if k <= _UNROLL_MAX_DIM:
+        return _small_spd_inv_det(M)
+    L = _cholesky_or_nan(M)
+    eye = torch.eye(k, dtype=M.dtype, device=M.device).expand_as(M)
+    det = torch.prod(torch.diagonal(L, dim1=-2, dim2=-1), dim=-1) ** 2
+    return torch.cholesky_solve(eye, L, upper=False), det
+
+
 class DFCache(NamedTuple):
     """Double-float32 split of an f64 master FactorizationCache: the cache of
     the mixed-mode rollout. Every cancellation-sensitive master quantity is
@@ -293,7 +317,7 @@ def moment_match(cache: FactorizationCache, input_mu, input_var):
     # --- mean and input-output covariance ------------------------------
     iN = inp[None, :, :] * inv_ls[:, None, :]  # (Ns, N, D)
     B_ss = inv_ls[:, :ns, None] * sv[None, :, :] * inv_ls[:, None, :ns] + eye_ns
-    B_inv, det_B = _small_spd_inv_det(B_ss)
+    B_inv, det_B = _spd_inv_det(B_ss)
     t_s = torch.einsum("mnk,mkj->mnj", iN[..., :ns], B_inv)
     t = torch.cat([t_s, iN[..., ns:]], dim=-1)
     lb = torch.exp(-0.5 * torch.sum(iN * t, dim=-1)) * beta  # (Ns, N)
@@ -310,7 +334,7 @@ def moment_match(cache: FactorizationCache, input_mu, input_var):
     scale_sum = inv_ls2[ii, :ns] + inv_ls2[jj, :ns]  # (P, ns)
     d_inv_s = 1.0 / scale_sum
     A_ss = sv[None, :, :] + torch.diag_embed(d_inv_s)
-    A_inv, det_A = _small_spd_inv_det(A_ss)
+    A_inv, det_A = _spd_inv_det(A_ss)
     AinvS = torch.einsum("pkl,lm->pkm", A_inv, sv)
     Q = d_inv_s[..., :, None] * AinvS * 0.5
     sqrt_det_R = torch.sqrt(det_A * torch.prod(scale_sum, dim=-1))
@@ -587,37 +611,38 @@ def _single_model_negative_mll(raw, lo, hi, x, y_col, mask):
     return 0.5 * (quad + logdet + n_active * _log2pi(dtype, x.device)) / torch.clamp(n_active, min=1.0)
 
 
-def train_hyperparams(params: GPParams, bounds: GPBounds, x, y, mask, generator: Optional[torch.Generator],
-                      cfg: TrainConfigDevice, restarts: int = 1, draws=None) -> Tuple[GPParams, torch.Tensor]:
-    """MLL hyperparameter optimization with keep-best semantics (the
-    reference's training process, gp_model.py:193-306): per model, start
-    from a uniform re-init inside the constraint box, run L-BFGS with
-    gradient-value clipping on that model's exact MLL, and keep the best
-    (loss, params) seen, falling back to the incumbent parameters when no
-    run beats them. Each of the ``restarts`` x Ns runs is independent (JAX
-    vmaps them; here they are a loop).
-
-    The re-init fractions are ``draws`` (restarts, Ns, D+2) in [0, 1) when
-    given, else drawn from ``generator``. Everything runs in the dtype and
-    on the device of ``x``. Returns (best_params, best_losses (Ns,))."""
-    from ..controllers.lbfgs import lbfgs_minimize  # local import: controllers import this module
-
-    ns, d = params.raw_lengthscales.shape
-    dtype, device = x.dtype, x.device
+def _flat_boxes(params: GPParams, bounds: GPBounds):
+    """(lo, hi, raw0) (Ns, D+2) in the flat per-model layout
+    [lengthscales (D,), outputscale, noise]."""
     lo = torch.cat([bounds.min_lengthscale, bounds.min_outputscale[:, None], bounds.min_noise[:, None]], dim=1)
     hi = torch.cat([bounds.max_lengthscale, bounds.max_outputscale[:, None], bounds.max_noise[:, None]], dim=1)
     raw0 = torch.cat([params.raw_lengthscales, params.raw_outputscale[:, None], params.raw_noise[:, None]], dim=1)
-    with torch.no_grad():
-        baseline = torch.stack([_single_model_negative_mll(raw0[m], lo[m], hi[m], x, y[:, m], mask)
-                                for m in range(ns)])
+    return lo, hi, raw0
+
+
+def training_draws(params: GPParams, x, generator: Optional[torch.Generator], restarts: int, draws=None):
+    """The re-init fractions (restarts, Ns, D+2) in [0, 1): ``draws`` when
+    given, else drawn from ``generator``; in the dtype and on the device of
+    ``x``."""
+    ns, d = params.raw_lengthscales.shape
     if draws is None:
-        draws = torch.rand((restarts, ns, d + 2), generator=generator, dtype=dtype)
-    draws = torch.as_tensor(draws, dtype=dtype).to(device)
+        draws = torch.rand((restarts, ns, d + 2), generator=generator, dtype=x.dtype)
+    draws = torch.as_tensor(draws, dtype=x.dtype).to(x.device)
     if tuple(draws.shape) != (restarts, ns, d + 2):
         raise ValueError(f"draws of shape {tuple(draws.shape)}, expected {(restarts, ns, d + 2)}")
+    return draws
 
+
+def train_restarts(params: GPParams, bounds: GPBounds, x, y, mask, cfg: TrainConfigDevice, draws):
+    """The L-BFGS runs of ``train_hyperparams``, one per restart and model,
+    from the re-inits ``draws`` (R, Ns, D+2): the best raw vector and loss
+    each run saw, (R, Ns, D+2) and (R, Ns)."""
+    from ..controllers.lbfgs import lbfgs_minimize  # local import: controllers import this module
+
+    ns = params.raw_lengthscales.shape[0]
+    lo, hi, _ = _flat_boxes(params, bounds)
     raws, losses = [], []
-    for r in range(restarts):
+    for r in range(draws.shape[0]):
         for m in range(ns):
             init_raw = unconstrain(lo[m] + draws[r, m] * (hi[m] - lo[m]), lo[m], hi[m])
 
@@ -629,10 +654,19 @@ def train_hyperparams(params: GPParams, bounds: GPBounds, x, y, mask, generator:
                                             init_step_scale=cfg.lr)
             raws.append(best_x)
             losses.append(best_f)
-    raws = torch.stack(raws).reshape(restarts, ns, d + 2)
-    losses = torch.stack(losses).reshape(restarts, ns)
+    return torch.stack(raws).reshape(draws.shape), torch.stack(losses).reshape(draws.shape[:2])
 
-    models = torch.arange(ns, device=device)
+
+def keep_best(params: GPParams, bounds: GPBounds, x, y, mask, raws, losses) -> Tuple[GPParams, torch.Tensor]:
+    """Per model, the restart of least loss (the first on a tie) if it beats
+    the incumbent parameters' loss, else the incumbent: (best_params,
+    best_losses (Ns,))."""
+    ns, d = params.raw_lengthscales.shape
+    lo, hi, raw0 = _flat_boxes(params, bounds)
+    with torch.no_grad():
+        baseline = torch.stack([_single_model_negative_mll(raw0[m], lo[m], hi[m], x, y[:, m], mask)
+                                for m in range(ns)])
+    models = torch.arange(ns, device=x.device)
     ridx = torch.argmin(losses, dim=0)
     cand_raw = raws[ridx, models]
     cand_losses = losses[ridx, models]
@@ -641,3 +675,22 @@ def train_hyperparams(params: GPParams, bounds: GPBounds, x, y, mask, generator:
     new_params = GPParams(raw_lengthscales=new_raw[:, :d], raw_outputscale=new_raw[:, d],
                           raw_noise=new_raw[:, d + 1])
     return new_params, torch.minimum(cand_losses, baseline)
+
+
+def train_hyperparams(params: GPParams, bounds: GPBounds, x, y, mask, generator: Optional[torch.Generator],
+                      cfg: TrainConfigDevice, restarts: int = 1, draws=None) -> Tuple[GPParams, torch.Tensor]:
+    """MLL hyperparameter optimization with keep-best semantics (the
+    reference's training process, gp_model.py:193-306): per model, start
+    from a uniform re-init inside the constraint box, run L-BFGS with
+    gradient-value clipping on that model's exact MLL, and keep the best
+    (loss, params) seen, falling back to the incumbent parameters when no
+    run beats them. Each of the ``restarts`` x Ns runs is independent (JAX
+    vmaps them; here they are a loop, ``train_restarts``; the restart-sharded
+    trainer splits them across ranks, parallel/sharding.py).
+
+    The re-init fractions are ``draws`` (restarts, Ns, D+2) in [0, 1) when
+    given, else drawn from ``generator``. Everything runs in the dtype and
+    on the device of ``x``. Returns (best_params, best_losses (Ns,))."""
+    draws = training_draws(params, x, generator, restarts, draws)
+    raws, losses = train_restarts(params, bounds, x, y, mask, cfg, draws)
+    return keep_best(params, bounds, x, y, mask, raws, losses)

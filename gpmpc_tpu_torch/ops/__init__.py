@@ -10,9 +10,11 @@ fallback that hides the card or the kernel. Shapes the kernels do not take
 go to the plain forms by explicit shape rules, as the JAX package sends them
 to its XLA twins:
 
-* float64 is routed to the plain forms before these entry points
-  (``models.gp``), by the JAX package's rule that its Pallas kernels take
-  f32 only;
+* float64 is routed to the plain forms by the callers (``models.gp``:
+  the Gram before this module, the cov core under ``disable_pallas``, so
+  that an installed override still takes it; the N-sharded cores of
+  ``parallel.sharding`` on each rank's slab), by the JAX package's rule
+  that its Pallas kernels take f32 only;
 * more than ``COV_MAX_NS`` (8) state dims: the f32 cov core takes the plain
   core (its kernels hold a row's ns values in fixed arrays);
 * more than ``DF_COV_MAX_NS`` (3) state dims: the df32 cov core takes the
@@ -30,9 +32,21 @@ import, or the attribute set by the program) ``DfCovCoreStacked`` (the lean
 forward, then the stacked backward kernel; their twins on the CPU).
 Differentiating the plain core by autograd sums each cotangent-weighted E
 term in plain f32, which cancels at cond(K) ~ 1e6 (ROADMAP C1).
+
+Three switches, under the reference's names (gpmpc_tpu/ops/__init__.py),
+change the dispatch for the calls made inside them; "pallas" there means
+the hand-written CUDA kernels here. ``disable_pallas`` sends ``gram``,
+``cov_core`` and ``df_cov_core`` to their plain forms and turns the
+whole-step path off (``use_df_fused``); ``override_cov_core`` and
+``override_df_cov_core`` install another core, which the two cores call
+before any other rule. The N-sharded planner installs all three
+(``parallel.sharding.build_nsharded_plan_fn``). Nothing turns them on but
+a caller's ``with``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -41,18 +55,81 @@ from . import df_mm
 from . import gram_rbf as _gram_mod
 from . import moment_cov as _cov_mod
 from .df_cov import DfCovCore, DfCovCoreStacked, df_cov_core_ref, df_cov_fwd
-from .gram_rbf import gram, gram_ref
+from .gram_rbf import gram_ref
 from .moment_cov import CovCore, cov_core_ref
 
 COV_MAX_NS = _cov_mod.MAX_NS
 DF_COV_MAX_NS = _df_mod.MAX_NS
 
 
+_PALLAS_DISABLED = False
+_COV_CORE_OVERRIDE = None
+_DF_COV_CORE_OVERRIDE = None
+
+
+@contextlib.contextmanager
+def disable_pallas():
+    """Inside: the Gram and both cov cores take their plain forms and the
+    whole-step path is off (the cores' overrides still apply first)."""
+    global _PALLAS_DISABLED
+    prev = _PALLAS_DISABLED
+    _PALLAS_DISABLED = True
+    try:
+        yield
+    finally:
+        _PALLAS_DISABLED = prev
+
+
+@contextlib.contextmanager
+def override_cov_core(fn):
+    """Install fn(a, c, u, xj, bi, bj, ik, diag_pos) -> (s_p, corr) as the
+    cov core for the calls made inside the context."""
+    global _COV_CORE_OVERRIDE
+    prev = _COV_CORE_OVERRIDE
+    _COV_CORE_OVERRIDE = fn
+    try:
+        yield
+    finally:
+        _COV_CORE_OVERRIDE = prev
+
+
+@contextlib.contextmanager
+def override_df_cov_core(fn):
+    """Install fn(*df_operands, diag_pos) -> (Sp_h, Sp_l, corr_h, corr_l) as
+    the df32 cov core for the calls made inside the context."""
+    global _DF_COV_CORE_OVERRIDE
+    prev = _DF_COV_CORE_OVERRIDE
+    _DF_COV_CORE_OVERRIDE = fn
+    try:
+        yield
+    finally:
+        _DF_COV_CORE_OVERRIDE = prev
+
+
+def gram(lengthscales, outputscales, x):
+    """The ARD-RBF Gram (see gram_rbf): the kernel on a CUDA tensor, the
+    plain form on the CPU and under ``disable_pallas``."""
+    if _PALLAS_DISABLED:
+        return gram_ref(lengthscales, outputscales, x)
+    return _gram_mod.gram(lengthscales, outputscales, x)
+
+
 def cov_core(a, c, u, xj, bi, bj, ik, diag_pos):
-    """(S_p, corr) of the moment-matching covariance (see moment_cov). On
-    the CPU, and on the card past COV_MAX_NS state dims, the plain core,
-    differentiable in every argument; otherwise CovCore, whose kernels take
-    float32 only."""
+    """(S_p, corr) of the moment-matching covariance (see moment_cov). An
+    installed override first, in every dtype; under ``disable_pallas`` the
+    plain core; otherwise ``_cov_core_by_device``."""
+    if _COV_CORE_OVERRIDE is not None:
+        return _COV_CORE_OVERRIDE(a, c, u, xj, bi, bj, ik, diag_pos)
+    if _PALLAS_DISABLED:
+        return cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos)
+    return _cov_core_by_device(a, c, u, xj, bi, bj, ik, diag_pos)
+
+
+def _cov_core_by_device(a, c, u, xj, bi, bj, ik, diag_pos):
+    """``cov_core``'s rules without the switches (what the N-sharded core
+    runs on each rank's slab): the plain core, differentiable in every
+    argument, on the CPU and on the card past COV_MAX_NS state dims;
+    otherwise CovCore, whose kernels take float32 only."""
     if a.device.type == "cpu" or u.shape[-1] > COV_MAX_NS:
         return cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos)
     return CovCore.apply(a, c, u, xj, bi, bj, ik, tuple(diag_pos))
@@ -60,13 +137,27 @@ def cov_core(a, c, u, xj, bi, bj, ik, diag_pos):
 
 def df_cov_core(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
     """df32 (S_p h, l, corr h, l) of the moment-matching covariance (see
-    df_cov). Under autograd (grad mode on and an operand requiring a
-    gradient) DfCovCore, which takes the forward-with-residuals kernel on
-    the card and its plain twin on the CPU, or DfCovCoreStacked when
-    ``df_cov.VJP_MODE`` is "stacked" (read at each call); otherwise the
-    lean forward kernel on the card (as the JAX core runs its primal kernel
-    outside value_and_grad) and the plain core on the CPU. On the card past
-    DF_COV_MAX_NS state dims, the plain core, differentiable by autograd."""
+    df_cov). An installed override first; under ``disable_pallas`` the
+    plain core, differentiable by autograd; otherwise
+    ``_df_cov_core_by_device``."""
+    args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
+    if _DF_COV_CORE_OVERRIDE is not None:
+        return _DF_COV_CORE_OVERRIDE(*args, diag_pos)
+    if _PALLAS_DISABLED:
+        return df_cov_core_ref(*args, diag_pos)
+    return _df_cov_core_by_device(*args, diag_pos)
+
+
+def _df_cov_core_by_device(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    """``df_cov_core``'s rules without the switches (what the N-sharded df
+    core runs on each rank's slab). Under autograd (grad mode on and an
+    operand requiring a gradient) DfCovCore, which takes the
+    forward-with-residuals kernel on the card and its plain twin on the
+    CPU, or DfCovCoreStacked when ``df_cov.VJP_MODE`` is "stacked" (read at
+    each call); otherwise the lean forward kernel on the card (as the JAX
+    core runs its primal kernel outside value_and_grad) and the plain core
+    on the CPU. On the card past DF_COV_MAX_NS state dims, the plain core,
+    differentiable by autograd."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
     if ah.device.type != "cpu" and uh.shape[-1] > DF_COV_MAX_NS:
         return df_cov_core_ref(*args, diag_pos)
@@ -82,8 +173,9 @@ def use_df_fused(n: int, ns: int, d: int, device) -> bool:
     """Whether a mixed-mode step at N stored points runs the whole-step df32
     path (``models.gp.moment_match_df_fused``): on a CUDA device within the
     reference's range ``df_mm.supported``, as the reference's
-    ``use_df_pallas`` takes it on the TPU only, never on the CPU."""
-    return torch.device(device).type == "cuda" and df_mm.supported(n, ns, d)
+    ``use_df_pallas`` takes it on the TPU only, never on the CPU, and never
+    under ``disable_pallas``."""
+    return torch.device(device).type == "cuda" and df_mm.supported(n, ns, d) and not _PALLAS_DISABLED
 
 
 _COUNTS = (_gram_mod.LAUNCHES, _cov_mod.LAUNCHES, _df_mod.LAUNCHES, df_mm.LAUNCHES)
@@ -101,4 +193,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["cov_core", "cov_core_ref", "CovCore", "df_cov_core", "df_cov_core_ref", "DfCovCore", "DfCovCoreStacked",
-           "df_mm", "gram", "gram_ref", "launch_counts", "reset_launch_counts", "use_df_fused"]
+           "df_mm", "disable_pallas", "gram", "gram_ref", "launch_counts", "override_cov_core", "override_df_cov_core",
+           "reset_launch_counts", "use_df_fused"]

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gpmpc_cov_fwd_f32": (_P,) * 8 + (_I,) + (_P,) * 2 + (_I,) * 6 + (_P,),
     "gpmpc_cov_fwd_info": (_I,) * 5 + (_P,),
-    "gpmpc_cov_bwd_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
+    "gpmpc_cov_bwd_f32": (_P,) * 10 + (_I,) + (_P,) * 3 + (_I,) * 5 + (_P,),
     "gpmpc_cov_bwd_info": (_I,) * 3 + (_P,),
     "gpmpc_cov_gik_f32": (_P,) * 6 + (_I,) + (_P,) + (_I,) * 6 + (_P,),
     "gpmpc_cov_gik_info": (_I,) * 6 + (_P,),
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
     "gpmpc_df_fwdres_info": (_I,) * 4 + (_P,),
     "gpmpc_df_bwd_f32": (_P,) * 17 + (_I,) + (_P,) * 2 + (_I,) * 3 + (_P,),
+    "gpmpc_df_bwd_side_f32": (_P,) * 17 + (_I,) + (_P,) * 2 + (_I,) * 5 + (_P,),
     "gpmpc_df_mm_tile": (),
     "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 4 + (_P,),
     "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 4 + (_P,),

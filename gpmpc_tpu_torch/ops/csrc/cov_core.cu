@@ -217,22 +217,29 @@ cov_fwd_sum_kernel(const float* __restrict__ part, const int* __restrict__ diag_
 // W = g[p] wr wc E + g_corr[slot] iK_slot E (g_corr, the corr cotangent in
 // diag_pos order, read through the pair's slot on diagonal pairs only), each
 // stacked row writes gA = sum W, gU = sum W Xj (the column operand's) and
-// gw = g[p] sum E wc into planes [2 sides][P][N](...). The column side reads
-// iK's row slab at its own row index: iK is symmetric and the slabs square.
-// grid (ceil(N / kBwdWarps), 2P), block 32 kBwdWarps: warp w of block
-// (x, s) owns the stacked row x kBwdWarps + w, its lanes the columns
-// lane + 32 j, summed in that order. Per batch of kBwdBatch columns a lane's
+// gw = g[p] sum E wc: the row side's Nr rows into [P][Nr](...), then the
+// column side's Nc rows into [P][Nc](...). On square slabs the column side
+// reads iK's row slab at its own row index (iK is symmetric); on rectangular
+// ones (a row slab of Nr rows against all Nc columns, the N-sharded core's)
+// it reads the untransposed slab down a column, at stride Nc: iK^T without
+// a transposed copy. A block's 8 warps take 8 consecutive rows, so there the
+// 8 reads of one column's entries share a 32-byte sector.
+// grid (ceil(max(Nr, Nc) / kBwdWarps), 2P), block 32 kBwdWarps: warp w of
+// block (x, s) owns the stacked row x kBwdWarps + w (past its side's rows it
+// idles), its lanes the columns lane + 32 j, summed in that order. Per batch of kBwdBatch columns a lane's
 // iK entries go out first, then the block stages the batch's column
 // operands in shared memory, so no load waits on an E; the lane's columns
 // are unrolled. The same f32 operations per element and the same order of
 // sums as one launch per side.
-template <int NS>
+// RECT: the rectangular instantiation; the square one (Nr = Nc) keeps the
+// index arithmetic of a single N.
+template <int NS, bool RECT>
 __global__ void __launch_bounds__(32 * kBwdWarps)
 cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const float* __restrict__ c,
                const float* __restrict__ u, const float* __restrict__ xj, const float* __restrict__ wr,
                const float* __restrict__ wc, const float* __restrict__ ik, const float* __restrict__ g_corr,
                const int* __restrict__ diag_pos, int n_diag, float* __restrict__ ga, float* __restrict__ gu,
-               float* __restrict__ gw, int np, int n) {
+               float* __restrict__ gw, int np, int nr, int nc) {
   gpmpc_pdl::release_dependents();
   gpmpc_pdl::wait_for_prerequisite();  // this launch is a programmatic dependent of the kernel before it
   extern __shared__ float s_cols[];    // the batch's c [kBwdBatch], wc [kBwdBatch], Xj [NS][kBwdBatch]
@@ -248,6 +255,8 @@ cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const f
   const float* c_a = col_side ? a : c;
   const float* c_u = col_side ? u : xj;
   const float* c_w = col_side ? wr : wc;
+  const int n = RECT && col_side ? nc : nr;  // this side's rows
+  const int m = RECT && col_side ? nr : nc;  // and columns
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * kBwdWarps + warp;
   const bool live = row < n;  // warp-uniform; every warp stays for the barriers
@@ -255,7 +264,12 @@ cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const f
   const int slot = ik_slot(p, diag_pos, n_diag);
   const float gp = g[p];
   const float gcp = slot >= 0 ? g_corr[slot] : 0.f;
-  const float* ik_row = slot >= 0 && live ? ik + ((size_t)slot * n + row) * n : nullptr;
+  // this row's iK entries: entry k at ik_row[k * ik_step]
+  const bool down_column = RECT && col_side;
+  const size_t ik_step = down_column ? (size_t)nc : 1;
+  const float* ik_row = slot >= 0 && live
+                            ? ik + (size_t)slot * nr * nc + (down_column ? (size_t)row : (size_t)row * m)
+                            : nullptr;
   const size_t ri = (size_t)p * n + (live ? row : 0);
   const float an = r_a[ri];
   const float g_wr = gp * r_w[ri];
@@ -268,16 +282,16 @@ cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const f
 
   float s_w = 0.f;
   float s_ewc = 0.f;
-  for (int k0 = 0; k0 < n; k0 += kBwdBatch) {
+  for (int k0 = 0; k0 < m; k0 += kBwdBatch) {
     float ikv[kBwdCols];
 #pragma unroll
     for (int j = 0; j < kBwdCols; ++j) {
       const int k = k0 + lane + 32 * j;
-      ikv[j] = ik_row && k < n ? ik_row[k] : 0.f;
+      ikv[j] = ik_row && k < m ? ik_row[k * ik_step] : 0.f;
     }
     if (k0 > 0) __syncthreads();  // every warp is done with the batch before
-    for (int t = threadIdx.x; t < kBwdBatch && k0 + t < n; t += blockDim.x) {
-      const size_t ci = (size_t)p * n + k0 + t;
+    for (int t = threadIdx.x; t < kBwdBatch && k0 + t < m; t += blockDim.x) {
+      const size_t ci = (size_t)p * m + k0 + t;
       s_c[t] = c_a[ci];
       s_wc[t] = c_w[ci];
 #pragma unroll
@@ -289,7 +303,7 @@ cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const f
     // past the last column the terms are an exact 0
 #pragma unroll
     for (int j = 0; j < kBwdCols; ++j) {
-      const bool kv = k0 + lane + 32 * j < n;
+      const bool kv = k0 + lane + 32 * j < m;
       const int t = kv ? lane + 32 * j : 0;
       float xk[NS];
 #pragma unroll
@@ -310,7 +324,7 @@ cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const f
 #pragma unroll
   for (int e = 0; e < NS; ++e) s_gu[e] = gpmpc_warp_sum(s_gu[e]);
   if (live && lane == 0) {
-    const size_t r = (size_t)s * n + row;
+    const size_t r = RECT ? (col_side ? (size_t)np * nr : 0) + ri : (size_t)s * n + row;
     ga[r] = s_w;
     gw[r] = gp * s_ewc;
 #pragma unroll
@@ -318,11 +332,13 @@ cov_bwd_kernel(const float* __restrict__ g, const float* __restrict__ a, const f
   }
 }
 
-// cov_bwd_kernel at each state width 1..GPMPC_MAX_NS
-using BwdKernel = decltype(&cov_bwd_kernel<1>);
-const BwdKernel kBwdKernels[GPMPC_MAX_NS] = {cov_bwd_kernel<1>, cov_bwd_kernel<2>, cov_bwd_kernel<3>,
-                                             cov_bwd_kernel<4>, cov_bwd_kernel<5>, cov_bwd_kernel<6>,
-                                             cov_bwd_kernel<7>, cov_bwd_kernel<8>};
+// cov_bwd_kernel at each state width 1..GPMPC_MAX_NS, square [0] and rectangular [1]
+using BwdKernel = decltype(&cov_bwd_kernel<1, false>);
+const BwdKernel kBwdKernels[2][GPMPC_MAX_NS] = {
+    {cov_bwd_kernel<1, false>, cov_bwd_kernel<2, false>, cov_bwd_kernel<3, false>, cov_bwd_kernel<4, false>,
+     cov_bwd_kernel<5, false>, cov_bwd_kernel<6, false>, cov_bwd_kernel<7, false>, cov_bwd_kernel<8, false>},
+    {cov_bwd_kernel<1, true>, cov_bwd_kernel<2, true>, cov_bwd_kernel<3, true>, cov_bwd_kernel<4, true>,
+     cov_bwd_kernel<5, true>, cov_bwd_kernel<6, true>, cov_bwd_kernel<7, true>, cov_bwd_kernel<8, true>}};
 static_assert(GPMPC_MAX_NS == 8, "one backward instantiation per state width");
 
 // the backward's dynamic shared memory: a batch's column operands
@@ -464,17 +480,20 @@ int gpmpc_cov_fwd_info(int p, int nr, int ns, int rows, int bands, int* info) {
 }
 
 // both sides' backward on the grid the wrapper planned
-// (moment_cov.bwd_launch_plan: row_blocks = ceil(N / kBwdWarps) blocks of
-// stacked rows per stacked pair); ga, gw [2][P][N], gu [2][P][N][ns]
+// (moment_cov.bwd_launch_plan: row_blocks = ceil(max(Nr, Nc) / kBwdWarps)
+// blocks of stacked rows per stacked pair); ga, gw [P Nr + P Nc] (the row
+// side's [P][Nr], then the column side's [P][Nc]), gu the same with [ns]
 int gpmpc_cov_bwd_f32(const float* g, const float* a, const float* c, const float* u, const float* xj,
                       const float* wr, const float* wc, const float* ik, const float* g_corr,
-                      const int* diag_pos, int n_diag, float* ga, float* gu, float* gw, int p, int n,
+                      const int* diag_pos, int n_diag, float* ga, float* gu, float* gw, int p, int nr, int nc,
                       int ns, int row_blocks, void* stream) {
-  if (p < 1 || n < 1 || 2 * p > 65535 || ns < 1 || ns > GPMPC_MAX_NS || row_blocks != (n + kBwdWarps - 1) / kBwdWarps)
+  const int n = nr > nc ? nr : nc;
+  if (p < 1 || nr < 1 || nc < 1 || 2 * p > 65535 || ns < 1 || ns > GPMPC_MAX_NS ||
+      row_blocks != (n + kBwdWarps - 1) / kBwdWarps)
     return (int)cudaErrorInvalidValue;
-  return gpmpc_pdl::launch_dependent(kBwdKernels[ns - 1], dim3(row_blocks, 2 * p), 32 * kBwdWarps, bwd_smem(ns),
-                                     (cudaStream_t)stream, g, a, c, u, xj, wr, wc, ik, g_corr, diag_pos, n_diag, ga,
-                                     gu, gw, p, n);
+  return gpmpc_pdl::launch_dependent(kBwdKernels[nr != nc][ns - 1], dim3(row_blocks, 2 * p), 32 * kBwdWarps,
+                                     bwd_smem(ns), (cudaStream_t)stream, g, a, c, u, xj, wr, wc, ik, g_corr, diag_pos,
+                                     n_diag, ga, gu, gw, p, nr, nc);
 }
 
 // #3's registers, spill bytes, threads, resident blocks per SM, grid, SMs
@@ -482,10 +501,11 @@ int gpmpc_cov_bwd_f32(const float* g, const float* a, const float* c, const floa
 int gpmpc_cov_bwd_info(int p, int n, int ns, int* info) {
   if (p < 1 || n < 1 || ns < 1 || ns > GPMPC_MAX_NS) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes fa;
-  int rc = (int)cudaFuncGetAttributes(&fa, kBwdKernels[ns - 1]);
+  int rc = (int)cudaFuncGetAttributes(&fa, kBwdKernels[0][ns - 1]);
   if (rc != 0) return rc;
   int per_sm = 0, dev = 0, sms = 0;
-  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kBwdKernels[ns - 1], 32 * kBwdWarps, bwd_smem(ns));
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kBwdKernels[0][ns - 1], 32 * kBwdWarps,
+                                                          bwd_smem(ns));
   if (rc != 0) return rc;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -18,7 +18,8 @@
 // Replaces gpmpc_tpu/ops/pallas_df_cov.py: _fwd_kernel (lean forward, body
 // _fwd_cell), _fwdres_kernel (forward with residuals, body _fwdres_cell) and
 // _bwd_kernel (stacked backward, body _bwd_cell, launched by _build_bwd with
-// sides=2; the reference's GPMPC_DF_COV_VJP=stacked scheme).
+// sides=2 on square slabs and sides=1, once per side, on rectangular ones;
+// the reference's GPMPC_DF_COV_VJP=stacked scheme).
 // The TPU kernels walk (pair, 128-row tile) grid steps over whole-N rows in
 // VMEM; E never leaves registers here either.
 //
@@ -64,9 +65,12 @@
 // The stacked backward gives each warp one whole stacked row: its lanes
 // stride the N columns, each lane sums its columns sequentially in df, and a
 // shuffle tree finishes the row. N = 384 columns is 12 per lane, so every
-// sum ends inside its warp: one launch, no partials, no second pass. The
-// column side reads iK's row slab at its own row index, as the reference
-// does: that is iK's column slab because iK is symmetric (square slabs only).
+// sum ends inside its warp: one launch, no partials, no second pass. On
+// square slabs the column side reads iK's row slab at its own row index, as
+// the reference does: that is iK's column slab because iK is symmetric. On
+// rectangular ones (the N-sharded core's row slabs) the reference's sides=1
+// variant: one launch per side, the column side reading iK's transpose
+// down the untransposed slab's columns.
 //
 // Bound: arithmetic. One E element is ~700 f32 add/multiply instructions, a
 // row-side and column-side residual element another ~500 on a diagonal pair,
@@ -456,10 +460,60 @@ df_fwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int n
   }
 }
 
-// grid (ceil(N / kWarps), 2P), block kThreads. Warp w of block (x, b) owns
-// stacked row n = x kWarps + w of stacked pair b: pair b on the row side
-// (b < P), pair b - P with the roles swapped on the column side. gs and gco
-// are (P,), gco zero off the diagonal pairs; ga (2P, N), gu (2P, N, NS).
+// One stacked row of the backward: row `row` of pair p of the operands s
+// (the column side's with the roles swapped) against its m columns, n rows
+// a side. Its iK entry k is ikh/ikl[ik_row + k ik_step] on a diagonal pair
+// (slot >= 0). The lanes take the columns lane + 32 j, each summing its own
+// in order in df; a warp tree finishes the row and lane 0 collapses ga[r]
+// and gu[r][NS] to f32.
+template <int NS>
+__device__ __forceinline__ void bwd_row(const Operands& s, const float* __restrict__ ikh,
+                                        const float* __restrict__ ikl, int slot, float g_s, float g_c, int p, int n,
+                                        int m, int row, size_t ik_row, size_t ik_step, float* __restrict__ ga,
+                                        float* __restrict__ gu, size_t r) {
+  const int lane = threadIdx.x & 31;
+  Row<NS> rw;
+  rw.load(s, p, n, row);
+  df sa = {0.f, 0.f}, su[NS];
+#pragma unroll
+  for (int e = 0; e < NS; ++e) su[e] = {0.f, 0.f};
+  for (int k = lane; k < m; k += 32) {
+    const size_t i = (size_t)p * m + k;
+    const df c = {s.ch[i], s.cl[i]};
+    df xj[NS];
+#pragma unroll
+    for (int e = 0; e < NS; ++e) xj[e] = {s.xjh[i * NS + e], s.xjl[i * NS + e]};
+    df w = df_mul_f32(df_mul(rw.bi, {s.bjh[i], s.bjl[i]}), g_s);
+    if (slot >= 0) {
+      const size_t q = ik_row + k * ik_step;
+      w = df_add(w, df_mul_f32({ikh[q], ikl[q]}, g_c));
+    }
+    const df ge = df_mul(w, e_elem<NS>(rw.a, rw.u, c, xj));
+    sa = df_add(sa, ge);
+#pragma unroll
+    for (int e = 0; e < NS; ++e) su[e] = df_add(su[e], df_mul(ge, xj[e]));
+  }
+  sa = warp_df_sum(sa);
+#pragma unroll
+  for (int e = 0; e < NS; ++e) su[e] = warp_df_sum(su[e]);
+  if (lane == 0) {
+    ga[r] = df_collapse(sa);
+#pragma unroll
+    for (int e = 0; e < NS; ++e) gu[r * NS + e] = df_collapse(su[e]);
+  }
+}
+
+// the column side's operands: (a, U, bi) and (c, Xj, bj) swapped
+__device__ __forceinline__ Operands swap_sides(const Operands& o) {
+  return Operands{o.ch, o.cl, o.ah, o.al, o.xjh, o.xjl, o.uh, o.ul, o.bjh, o.bjl, o.bih, o.bil, o.ikh, o.ikl};
+}
+
+// Square slabs, both sides in one launch. grid (ceil(N / kWarps), 2P),
+// block kThreads. Warp w of block (x, b) owns stacked row n = x kWarps + w
+// of stacked pair b: pair b on the row side (b < P), pair b - P with the
+// roles swapped on the column side, which reads iK's row slab (iK is
+// symmetric). gs and gco are (P,), gco zero off the diagonal pairs; ga
+// (2P, N), gu (2P, N, NS).
 template <int NS>
 __global__ void __launch_bounds__(kThreads)
 df_bwd_kernel(Operands o, const float* __restrict__ gs, const float* __restrict__ gco,
@@ -469,44 +523,36 @@ df_bwd_kernel(Operands o, const float* __restrict__ gs, const float* __restrict_
   const int b = blockIdx.y;
   const bool col_side = b >= np;
   const int p = col_side ? b - np : b;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row_n = blockIdx.x * kWarps + warp;
+  const int row_n = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row_n >= n) return;  // warp-uniform; no block-wide sync follows
-  const Operands s = col_side ? Operands{o.ch, o.cl, o.ah, o.al, o.xjh, o.xjl, o.uh, o.ul,
-                                         o.bjh, o.bjl, o.bih, o.bil, o.ikh, o.ikl}
-                              : o;
   const int slot = ik_slot(p, diag_pos, n_diag);
-  const float g_s = gs[p];
-  const float g_c = slot >= 0 ? gco[p] : 0.f;
   const size_t ik_row = ((size_t)(slot < 0 ? 0 : slot) * n + row_n) * n;
+  bwd_row<NS>(col_side ? swap_sides(o) : o, o.ikh, o.ikl, slot, gs[p], slot >= 0 ? gco[p] : 0.f, p, n, n, row_n,
+              ik_row, 1, ga, gu, (size_t)b * n + row_n);
+}
 
-  Row<NS> row;
-  row.load(s, p, n, row_n);
-  df sa = {0.f, 0.f}, su[NS];
-#pragma unroll
-  for (int e = 0; e < NS; ++e) su[e] = {0.f, 0.f};
-  for (int k = lane; k < n; k += 32) {
-    const size_t i = (size_t)p * n + k;
-    const df c = {s.ch[i], s.cl[i]};
-    df xj[NS];
-#pragma unroll
-    for (int e = 0; e < NS; ++e) xj[e] = {s.xjh[i * NS + e], s.xjl[i * NS + e]};
-    df w = df_mul_f32(df_mul(row.bi, {s.bjh[i], s.bjl[i]}), g_s);
-    if (slot >= 0) w = df_add(w, df_mul_f32({o.ikh[ik_row + k], o.ikl[ik_row + k]}, g_c));
-    const df ge = df_mul(w, e_elem<NS>(row.a, row.u, c, xj));
-    sa = df_add(sa, ge);
-#pragma unroll
-    for (int e = 0; e < NS; ++e) su[e] = df_add(su[e], df_mul(ge, xj[e]));
-  }
-  sa = warp_df_sum(sa);
-#pragma unroll
-  for (int e = 0; e < NS; ++e) su[e] = warp_df_sum(su[e]);
-  if (lane == 0) {
-    const size_t r = (size_t)b * n + row_n;
-    ga[r] = df_collapse(sa);
-#pragma unroll
-    for (int e = 0; e < NS; ++e) gu[r * NS + e] = df_collapse(su[e]);
-  }
+// Rectangular slabs (Nr rows against Nc columns, the N-sharded core's), one
+// side per launch, the reference's sides=1 variant: grid (ceil(rows /
+// kWarps), P), warp w of block (x, p) the side's row x kWarps + w of pair p.
+// side 0: the Nr rows of (a, U, bi) against (c, Xj, bj), iK's rows. side 1:
+// the Nc rows with the roles swapped, on iK's transpose, read down the
+// columns of the untransposed slab at stride Nc (no transposed copy; a
+// block's 8 warps read 8 consecutive entries of a column's sector). ga
+// (P, rows), gu (P, rows, NS) of the side.
+template <int NS>
+__global__ void __launch_bounds__(kThreads)
+df_bwd_side_kernel(Operands o, const float* __restrict__ gs, const float* __restrict__ gco,
+                   const int* __restrict__ diag_pos, int n_diag, float* __restrict__ ga,
+                   float* __restrict__ gu, int nr, int nc, int side) {
+  const int p = blockIdx.y;
+  const int n = side ? nc : nr, m = side ? nr : nc;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // warp-uniform; no block-wide sync follows
+  const int slot = ik_slot(p, diag_pos, n_diag);
+  const size_t slab = (size_t)(slot < 0 ? 0 : slot) * nr * nc;
+  const size_t ik_row = side ? slab + row : slab + (size_t)row * nc;
+  bwd_row<NS>(side ? swap_sides(o) : o, o.ikh, o.ikl, slot, gs[p], slot >= 0 ? gco[p] : 0.f, p, n, m, row, ik_row,
+              side ? (size_t)nc : 1, ga, gu, (size_t)p * n + row);
 }
 
 int fwd_threads(const FwdPlan& plan) { return 32 * (plan.rows_d > plan.rows_o ? plan.rows_d : plan.rows_o); }
@@ -617,6 +663,15 @@ int launch_bwd(const Operands& o, const float* gs, const float* gco, const int* 
   return (int)cudaGetLastError();
 }
 
+template <int NS>
+int launch_bwd_side(const Operands& o, const float* gs, const float* gco, const int* diag_pos, int n_diag,
+                    float* ga, float* gu, int p, int nr, int nc, int side, cudaStream_t stream) {
+  const int rows = side ? nc : nr;
+  const dim3 grid((rows + kWarps - 1) / kWarps, p);
+  df_bwd_side_kernel<NS><<<grid, kThreads, 0, stream>>>(o, gs, gco, diag_pos, n_diag, ga, gu, nr, nc, side);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -698,6 +753,26 @@ int gpmpc_df_bwd_f32(const float* ah, const float* al, const float* ch, const fl
     case 1: return launch_bwd<1>(o, gs, gco, diag_pos, n_diag, ga, gu, p, n, s);
     case 2: return launch_bwd<2>(o, gs, gco, diag_pos, n_diag, ga, gu, p, n, s);
     case 3: return launch_bwd<3>(o, gs, gco, diag_pos, n_diag, ga, gu, p, n, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// one side of the stacked backward on a rectangular slab (Nr rows against
+// Nc columns; side 0 the row side, 1 the column side): ga (P, rows), gu
+// (P, rows, ns) of that side
+int gpmpc_df_bwd_side_f32(const float* ah, const float* al, const float* ch, const float* cl,
+                          const float* uh, const float* ul, const float* xjh, const float* xjl,
+                          const float* bih, const float* bil, const float* bjh, const float* bjl,
+                          const float* ikh, const float* ikl, const float* gs, const float* gco,
+                          const int* diag_pos, int n_diag, float* ga, float* gu, int p, int nr, int nc, int ns,
+                          int side, void* stream) {
+  if (p < 1 || nr < 1 || nc < 1 || p > 65535 || (side != 0 && side != 1)) return (int)cudaErrorInvalidValue;
+  const Operands o{ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (ns) {
+    case 1: return launch_bwd_side<1>(o, gs, gco, diag_pos, n_diag, ga, gu, p, nr, nc, side, s);
+    case 2: return launch_bwd_side<2>(o, gs, gco, diag_pos, n_diag, ga, gu, p, nr, nc, side, s);
+    case 3: return launch_bwd_side<3>(o, gs, gco, diag_pos, n_diag, ga, gu, p, nr, nc, side, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -35,11 +35,15 @@ and S_p and corr cancel from ~1e3 terms to ~1e-2, so plain f32 drowns both
   (a, U, bi) against (c, Xj, bj), then the column side with the roles
   swapped), with w = gs bi bj (+) gco iK and gE = w E in df: ga = sum_k gE
   and gU_e = sum_k gE Xj_e, summed in df and collapsed to f32 at the end.
-  Both sides read iK's row slab at their own row index, which is iK's
-  column slab because iK is symmetric (square slabs only). A warp owns one
-  whole stacked row (N = 384 columns is 12 per lane), so every sum ends
-  inside its warp: one launch, no partials. ``DfCovCoreStacked`` pairs it
-  with the lean forward.
+  On square slabs both sides read iK's row slab at their own row index,
+  which is iK's column slab because iK is symmetric: one launch. On
+  rectangular ones (Nr rows against Nc columns, a rank's slab of the
+  N-sharded core) the reference's ``sides=1`` variant: one launch over the
+  P row-side rows, one over the P column-side rows with the roles swapped
+  and iK transposed, which the kernel reads down the untransposed slab's
+  columns. A warp owns one whole stacked row (N = 384 columns is 12 per
+  lane), so every sum ends inside its warp: no partials.
+  ``DfCovCoreStacked`` pairs it with the lean forward.
 
 The VJP scheme is read once, at import, from ``GPMPC_DF_COV_VJP`` into
 ``VJP_MODE``, as the reference reads it (``pallas_df_cov._VJP_MODE``):
@@ -174,34 +178,34 @@ def df_cov_fwdres_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ik
     return [t for pair in row for t in pair], [t for pair in col for t in pair]
 
 
-def _stacked_sides(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl):
-    """The 12 non-iK operands of the 2P stacked rows: the row side, then the
-    column side with (a, U, bi) and (c, Xj, bj) swapped."""
-    def cat(x, y):
-        return torch.cat([x, y])
-
-    return (cat(ah, ch), cat(al, cl), cat(ch, ah), cat(cl, al), cat(uh, xjh), cat(ul, xjl), cat(xjh, uh),
-            cat(xjl, ul), cat(bih, bjh), cat(bil, bjl), cat(bjh, bih), cat(bjl, bil))
+def _bwd_side_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikph, ikpl, gs, gco):
+    """One side of the stacked backward (``_bwd_cell`` over whole slabs):
+    rows (a, U, bi) against columns (c, Xj, bj), iK (P, rows, columns) per
+    pair (zero off the diagonal). ga (P, rows), gU (P, rows, ns) in f32."""
+    gs, gco = gs[:, None, None], gco[:, None, None]
+    eh, el = _e_slab_df(ah, al, ch, cl, uh, ul, xjh, xjl)
+    wh, wl = df_mul_f32(*df_mul(bih[:, :, None], bil[:, :, None], bjh[:, None, :], bjl[:, None, :]), gs)
+    wh, wl = df_add(wh, wl, *df_mul_f32(ikph, ikpl, gco))
+    geh, gel = df_mul(wh, wl, eh, el)
+    ga = (lambda s: s[0] + s[1])(df_sum(geh, gel, axis=-1))
+    gu = [(lambda s: s[0] + s[1])(df_sum(*df_mul(geh, gel, xjh[:, None, :, e], xjl[:, None, :, e]), axis=-1))
+          for e in range(uh.shape[-1])]
+    return ga, torch.stack(gu, dim=-1)
 
 
 def df_cov_bwd_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, gs, gco, diag_pos):
     """What ``df_cov_bwd`` computes (``_bwd_cell`` over both sides' whole
-    slabs): ga (2P, N) and gU (2P, N, ns) in f32 at the cotangents gs (P,)
-    and gco (P,), gco zero off the diagonal pairs."""
-    p = ah.shape[0]
-    sah, sal, sch, scl, suh, sul, sxh, sxl, sbih, sbil, sbjh, sbjl = _stacked_sides(
-        ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl)
-    ikph, ikpl = _ik_pairs(ikh, ikl, p, diag_pos)  # both sides read the row slab (iK symmetric)
-    ikph, ikpl = torch.cat([ikph, ikph]), torch.cat([ikpl, ikpl])
-    gs2, gco2 = torch.cat([gs, gs])[:, None, None], torch.cat([gco, gco])[:, None, None]
-    eh, el = _e_slab_df(sah, sal, sch, scl, suh, sul, sxh, sxl)
-    wh, wl = df_mul_f32(*df_mul(sbih[:, :, None], sbil[:, :, None], sbjh[:, None, :], sbjl[:, None, :]), gs2)
-    wh, wl = df_add(wh, wl, *df_mul_f32(ikph, ikpl, gco2))
-    geh, gel = df_mul(wh, wl, eh, el)
-    ga = (lambda s: s[0] + s[1])(df_sum(geh, gel, axis=-1))
-    gu = [(lambda s: s[0] + s[1])(df_sum(*df_mul(geh, gel, sxh[:, None, :, e], sxl[:, None, :, e]), axis=-1))
-          for e in range(uh.shape[-1])]
-    return ga, torch.stack(gu, dim=-1)
+    slabs): (ga (P, Nr), gc (P, Nc), gU (P, Nr, ns), gXj (P, Nc, ns)) in f32
+    at the cotangents gs (P,) and gco (P,), gco zero off the diagonal pairs.
+    The column side runs with the roles swapped, on iK's row slab where the
+    slabs are square (iK is symmetric there, as the kernel reads it) and on
+    its transpose where they are not."""
+    ikph, ikpl = _ik_pairs(ikh, ikl, ah.shape[0], diag_pos)
+    ga, gu = _bwd_side_plain(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikph, ikpl, gs, gco)
+    if ah.shape[1] != ch.shape[1]:
+        ikph, ikpl = ikph.transpose(1, 2), ikpl.transpose(1, 2)
+    gc, gxj = _bwd_side_plain(ch, cl, ah, al, xjh, xjl, uh, ul, bjh, bjl, bih, bil, ikph, ikpl, gs, gco)
+    return ga, gc, gu, gxj
 
 
 def df_cov_abs_terms(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
@@ -384,29 +388,38 @@ def fwdres_launch_info(p: int, nr: int, n_diag: int, ns: int) -> dict:
 
 
 def df_cov_bwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, gs, gco, diag_pos):
-    """(ga (2P, N), gU (2P, N, ns)) of the stacked backward, as in
-    ``df_cov_bwd_plain``, square slabs only. A CPU tensor takes the plain
+    """(ga (P, Nr), gc (P, Nc), gU (P, Nr, ns), gXj (P, Nc, ns)) of the
+    stacked backward, as in ``df_cov_bwd_plain``: one launch on square
+    slabs, one per side on rectangular ones. A CPU tensor takes the plain
     twin; a CUDA tensor launches the kernel or raises."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
     if ah.device.type == "cpu":
         return df_cov_bwd_plain(*args, gs, gco, diag_pos)
     p, nr, nc, ns = _check("df_cov_bwd", args, diag_pos)
-    if nr != nc:
-        raise NotImplementedError("df_cov_bwd: the stacked backward takes square slabs only (nr == nc)")
     for arg, t in (("gs", gs), ("gco", gco)):
         if t.dtype != torch.float32:
             raise TypeError(f"df_cov_bwd: {arg} is {t.dtype}; the kernel takes float32 only")
         if t.device != ah.device or tuple(t.shape) != (p,) or not t.is_contiguous():
             raise ValueError(f"df_cov_bwd: {arg} must be a contiguous ({p},) tensor on {ah.device}")
     lib = _build.load()
-    ga = torch.empty((2 * p, nr), dtype=torch.float32, device=ah.device)
-    gu = torch.empty((2 * p, nr, ns), dtype=torch.float32, device=ah.device)
-    rc = lib.gpmpc_df_bwd_f32(*_ptrs(args), gs.data_ptr(), gco.data_ptr(),
-                              _index(diag_pos, ah.device, torch.int32).data_ptr(), len(diag_pos),
-                              ga.data_ptr(), gu.data_ptr(), p, nr, ns, torch.cuda.current_stream(ah.device).cuda_stream)
-    _build.check(rc, "df_cov_bwd")
-    LAUNCHES["df_bwd"] += 1
-    return ga, gu
+    dev = ah.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    diag = _index(diag_pos, dev, torch.int32).data_ptr()
+    ga = torch.empty(p * (nr + nc), dtype=torch.float32, device=dev)  # the row side's rows, then the column side's
+    gu = torch.empty((p * (nr + nc), ns), dtype=torch.float32, device=dev)
+    if nr == nc:
+        rc = lib.gpmpc_df_bwd_f32(*_ptrs(args), gs.data_ptr(), gco.data_ptr(), diag, len(diag_pos),
+                                  ga.data_ptr(), gu.data_ptr(), p, nr, ns, stream)
+        _build.check(rc, "df_cov_bwd")
+        LAUNCHES["df_bwd"] += 1
+    else:
+        for side, off in ((0, 0), (1, p * nr)):
+            rc = lib.gpmpc_df_bwd_side_f32(*_ptrs(args), gs.data_ptr(), gco.data_ptr(), diag, len(diag_pos),
+                                           ga[off:].data_ptr(), gu[off:].data_ptr(), p, nr, nc, ns, side, stream)
+            _build.check(rc, "df_cov_bwd")
+            LAUNCHES["df_bwd"] += 1
+    r = p * nr
+    return ga[:r].view(p, nr), ga[r:].view(p, nc), gu[:r].view(p, nr, ns), gu[r:].view(p, nc, ns)
 
 
 # ---------------------------------------------------------------------------
@@ -471,10 +484,10 @@ class DfCovCoreStacked(torch.autograd.Function):
     """df (S_p, corr) whose backward is the stacked scheme of ``_make_core``
     (gpmpc_tpu/ops/pallas_df_cov.py:643-700, ``GPMPC_DF_COV_VJP=stacked``):
     the forward is the lean forward (``df_cov_fwd``) and saves the operands;
-    the backward is one ``df_cov_bwd`` launch over the row side and the
-    role-swapped column side, with the hi cotangents only (see DfCovCore).
-    It returns gradients for a, c, U and Xj. Square slabs only: the
-    rectangular (sharded) variant is not ported."""
+    the backward is ``df_cov_bwd`` over the row side and the role-swapped
+    column side (one launch on square slabs, one per side on rectangular
+    ones), with the hi cotangents only (see DfCovCore). It returns
+    gradients for a, c, U and Xj."""
 
     @staticmethod
     def forward(ctx, ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
@@ -485,11 +498,9 @@ class DfCovCoreStacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_sh, ct_sl, ct_ch, ct_cl):
         args = ctx.saved_tensors
-        p, nr = args[0].shape
-        if args[2].shape[1] != nr:
-            raise NotImplementedError("DfCovCoreStacked: rectangular (sharded) slabs are not ported")
+        p = args[0].shape[0]
         gs = ct_sh.contiguous()  # hi cotangent only
         gco = torch.zeros(p, dtype=ct_ch.dtype, device=ct_ch.device).index_copy(
             0, _index(ctx.diag_pos, ct_ch.device, torch.long), ct_ch)
-        ga, gu = df_cov_bwd(*args, gs, gco, ctx.diag_pos)
-        return (ga[:p], None, ga[p:], None, gu[:p], None, gu[p:], None, None, None, None, None, None, None, None)
+        ga, gc, gu, gxj = df_cov_bwd(*args, gs, gco, ctx.diag_pos)
+        return (ga, None, gc, None, gu, None, gxj, None, None, None, None, None, None, None, None)

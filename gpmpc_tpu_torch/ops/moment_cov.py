@@ -28,7 +28,12 @@ Kernels (``csrc/cov_core.cu``), each replacing a Pallas TPU kernel of
   the reference launches once per side. One launch runs both sides on 2P
   stacked rows (``bwd_launch_plan``): rows P..2P-1 are the column side, with
   (a, U, wr) and (c, Xj, wc) swapped, and read iK's row slab at their own
-  row index (iK is symmetric in the square case). One warp per stacked row
+  row index (iK is symmetric in the square case). On a rectangular slab (Nr
+  rows against Nc columns, a rank's slab of the N-sharded core) the same
+  launch runs the column side's Nc rows on iK's transpose, which it reads
+  down the untransposed slab's columns at stride Nc (the reference's second
+  launch on ``swapaxes(ik)``, pallas_moment_cov.py:271, without the copy).
+  One warp per stacked row
   reducing over its columns: with W = g wr wc^T E + g_corr iK E it writes
   ga = rowsum W, gU = W Xj and g_wr = g (E wc). A lane's iK entries and the
   block's column operands (staged in shared memory) are loaded before any
@@ -196,12 +201,16 @@ BWD_WARPS = 8  # kBwdWarps of csrc/cov_core.cu: stacked rows of a block, a warp 
 BWD_LANE_COLS = 12  # kBwdCols of csrc/cov_core.cu: a lane's columns per batch of 32 BWD_LANE_COLS
 
 
-def bwd_launch_plan(p: int, n: int) -> dict:
-    """The grid of ``cov_bwd`` for P pairs of N rows: block (x, s), x <
-    ``row_blocks``, s < 2P, owns the stacked rows x BWD_WARPS + w, w <
-    BWD_WARPS (a warp each; rows past N idle), of stacked pair s: the row
-    side of pair s for s < P, the column side of pair s - P otherwise. A
-    lane takes the columns lane + 32 j of each batch of 32 BWD_LANE_COLS."""
+def bwd_launch_plan(p: int, nr: int, nc: int = None) -> dict:
+    """The grid of ``cov_bwd`` for P pairs of Nr rows against Nc columns (Nc
+    = Nr unless given): block (x, s), x < ``row_blocks``, s < 2P, owns the
+    stacked rows x BWD_WARPS + w, w < BWD_WARPS (a warp each; rows past its
+    side's idle), of stacked pair s: the row side of pair s (Nr rows, Nc
+    columns) for s < P, the column side of pair s - P (Nc rows, Nr columns)
+    otherwise. A lane takes the columns lane + 32 j of each batch of 32
+    BWD_LANE_COLS; ``batches`` is the most a side has."""
+    nc = nr if nc is None else nc
+    n = max(nr, nc)
     return dict(row_blocks=-(-n // BWD_WARPS), stacked_pairs=2 * p, threads=32 * BWD_WARPS,
                 batches=-(-n // (32 * BWD_LANE_COLS)))
 
@@ -224,12 +233,15 @@ def cov_bwd_row_plain(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
 
 def cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos):
     """What ``cov_bwd`` computes, in plain PyTorch (the CPU path): the two
-    one-side calls, the corr cotangent scattered to the pair axis.
-    (ga, gc, gU, gXj, gbi, gbj)."""
+    one-side calls, the corr cotangent scattered to the pair axis; the
+    column side on iK's row slab where the slabs are square (iK is
+    symmetric there, as the kernel reads it), on its transpose (Nc, Nr)
+    where they are not. (ga, gc, gU, gXj, gbi, gbj)."""
     gco = torch.zeros(a.shape[0], dtype=g_corr.dtype, device=g_corr.device).index_copy(
         0, _index(diag_pos, g_corr.device, torch.long), g_corr)
+    ik_col = ik if a.shape[1] == c.shape[1] else ik.transpose(1, 2)
     ga, gu, gbi = cov_bwd_row_plain(g, a, c, u, xj, bi, bj, ik, gco, diag_pos)
-    gc, gxj, gbj = cov_bwd_row_plain(g, c, a, xj, u, bj, bi, ik, gco, diag_pos)
+    gc, gxj, gbj = cov_bwd_row_plain(g, c, a, xj, u, bj, bi, ik_col, gco, diag_pos)
     return ga, gc, gu, gxj, gbi, gbj
 
 
@@ -256,37 +268,40 @@ def cov_bwd_row_abs_terms(g, a, c, u, xj, wr, wc, ik, gco, diag_pos):
 
 
 def cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos):
-    """(ga, gc (P, N), gU, gXj (P, N, ns), gbi, gbj (P, N)): the cov core's
-    backward on both sides at the S_p cotangent g (P,) and the corr
-    cotangent g_corr (n_diag,), in diag_pos order; square slabs. A CPU
-    tensor takes the plain twin; a CUDA tensor launches the kernel once or
-    raises."""
+    """(ga (P, Nr), gc (P, Nc), gU (P, Nr, ns), gXj (P, Nc, ns), gbi (P, Nr),
+    gbj (P, Nc)): the cov core's backward on both sides at the S_p
+    cotangent g (P,) and the corr cotangent g_corr (n_diag,), in diag_pos
+    order, on square or rectangular (Nr != Nc) slabs. A CPU tensor takes
+    the plain twin; a CUDA tensor launches the kernel once or raises."""
     if a.device.type == "cpu":
         return cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, diag_pos)
     _check_cuda_f32("cov_bwd", g=g, a=a, c=c, u=u, xj=xj, bi=bi, bj=bj, ik=ik, g_corr=g_corr)
-    p, n = a.shape
+    p, nr = a.shape
+    nc = c.shape[1]
     ns = u.shape[2]
-    if g.shape != (p,) or g_corr.shape != (len(diag_pos),) or c.shape != (p, n) or u.shape != (p, n, ns) \
-            or xj.shape != (p, n, ns) or bi.shape != (p, n) or bj.shape != (p, n) \
-            or ik.shape != (len(diag_pos), n, n):
-        raise ValueError("cov_bwd: inconsistent shapes (square slabs only)")
+    if g.shape != (p,) or g_corr.shape != (len(diag_pos),) or c.shape != (p, nc) or u.shape != (p, nr, ns) \
+            or xj.shape != (p, nc, ns) or bi.shape != (p, nr) or bj.shape != (p, nc) \
+            or ik.shape != (len(diag_pos), nr, nc):
+        raise ValueError("cov_bwd: inconsistent shapes")
     _check_ns("cov_bwd", ns)
     if not all(0 <= q < p for q in diag_pos):  # a diagonal pair reads its slot's iK slab and cotangent
         raise ValueError(f"cov_bwd: diag_pos {tuple(diag_pos)} outside the {p} pairs")
     lib = _build.load()
-    plan = bwd_launch_plan(p, n)
-    ga = torch.empty((2, p, n), dtype=torch.float32, device=a.device)
-    gu = torch.empty((2, p, n, ns), dtype=torch.float32, device=a.device)
-    gw = torch.empty((2, p, n), dtype=torch.float32, device=a.device)
+    plan = bwd_launch_plan(p, nr, nc)
+    ga = torch.empty(p * (nr + nc), dtype=torch.float32, device=a.device)
+    gu = torch.empty((p * (nr + nc), ns), dtype=torch.float32, device=a.device)
+    gw = torch.empty(p * (nr + nc), dtype=torch.float32, device=a.device)
     rc = lib.gpmpc_cov_bwd_f32(
         g.data_ptr(), a.data_ptr(), c.data_ptr(), u.data_ptr(), xj.data_ptr(), bi.data_ptr(), bj.data_ptr(),
         ik.data_ptr(), g_corr.data_ptr(), _index(diag_pos, a.device, torch.int32).data_ptr(), len(diag_pos),
-        ga.data_ptr(), gu.data_ptr(), gw.data_ptr(), p, n, ns, plan["row_blocks"],
+        ga.data_ptr(), gu.data_ptr(), gw.data_ptr(), p, nr, nc, ns, plan["row_blocks"],
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     _build.check(rc, "cov_bwd")
     LAUNCHES["cov_bwd_row"] += 1
-    return ga[0], ga[1], gu[0], gu[1], gw[0], gw[1]
+    r = p * nr  # the row side's rows, then the column side's
+    return (ga[:r].view(p, nr), ga[r:].view(p, nc), gu[:r].view(p, nr, ns), gu[r:].view(p, nc, ns),
+            gw[:r].view(p, nr), gw[r:].view(p, nc))
 
 
 def bwd_launch_info(p: int, n: int, ns: int) -> dict:
@@ -384,9 +399,9 @@ def gik_launch_info(n_diag: int, nr: int, nc: int, ns: int) -> dict:
 
 class CovCore(torch.autograd.Function):
     """(S_p, corr) with the kernel backward; mirrors _make_cov_core
-    (gpmpc_tpu/ops/pallas_moment_cov.py:241-285) for the square case. The
-    backward of both sides is one ``cov_bwd`` launch; the iK gradient is its
-    own launch (``cov_gik``), made only when iK needs one."""
+    (gpmpc_tpu/ops/pallas_moment_cov.py:241-285) on square and rectangular
+    slabs. The backward of both sides is one ``cov_bwd`` launch; the iK
+    gradient is its own launch (``cov_gik``), made only when iK needs one."""
 
     @staticmethod
     def forward(ctx, a, c, u, xj, bi, bj, ik, diag_pos):
@@ -398,8 +413,6 @@ class CovCore(torch.autograd.Function):
     def backward(ctx, g_s, g_corr):
         a, c, u, xj, bi, bj, ik = ctx.saved_tensors
         diag_pos = ctx.diag_pos
-        if a.shape[1] != c.shape[1]:
-            raise NotImplementedError("CovCore: rectangular (sharded) slabs are not ported")
         p = a.shape[0]
         g_s = torch.zeros(p, dtype=a.dtype, device=a.device) if g_s is None else g_s.contiguous()
         g_corr = torch.zeros(len(diag_pos), dtype=a.dtype, device=a.device) if g_corr is None \

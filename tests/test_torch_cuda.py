@@ -39,6 +39,10 @@ split route bit for bit with #9 and its on-card combination with
 combine_split, and the cov core's iK gradient elementwise
 within GIK_RTOL (1 + the sum of the exponent's |terms|) of itself (the
 exponent's rounding in another order, see chip_smoke.py).
+The N-sharded cores' kernels on rectangular row slabs (Nr of 96, 128 and
+192 rows against Nc of 384 and 768 columns): #2, #3, #5, #6 and #7 against
+their plain twins, by the same tolerances, #3 and #7 with their launch
+counts (one and two).
 """
 
 import numpy as np
@@ -679,3 +683,97 @@ def test_df_fwdres_bands_match_plain(dev, n, ns):
             _df_within(out[k], out[k + 1], ref[k], ref[k + 1], scale[k] + 1e-300)
     again = df_cov.df_cov_fwdres(*args, diag)
     assert all(torch.equal(a, b) for a, b in zip(again[0] + again[1], rows + cols))
+
+
+# rectangular slabs: a rank's rows of the N-sharded cores (2- and 4-way
+# splits of the 384 and 768 buckets, and 128 rows) against all columns
+RECT = [(nr, nc) for nr in (96, 128, 192) for nc in (384, 768)]
+
+
+def _rect_arrays(rng, nr, nc, p, ns, m):
+    """(a, c, U, Xj, bi, bj, iK) of Nr rows against Nc columns, drawn as
+    _cov_problem draws them, and the slab's rows of a symmetric iK."""
+    ik = rng.normal(0, 0.1, (m, nc, nc))
+    return (rng.normal(-2, 0.5, (p, nr)), rng.normal(-2, 0.5, (p, nc)), rng.normal(0, 0.3, (p, nr, ns)),
+            rng.normal(0, 0.3, (p, nc, ns)), rng.normal(0, 1, (p, nr)), rng.normal(0, 1, (p, nc)),
+            ((ik + ik.transpose(0, 2, 1)) / 2)[:, nc - nr:])
+
+
+@pytest.mark.parametrize("nr,nc", RECT)
+def test_cov_kernels_match_plain_on_rectangular_slabs(dev, nr, nc):
+    """#2 and #3 on a row slab: each output within COV_RTOL of its sum of
+    |terms| (the column side's on iK's transpose), bitwise repeatable, one
+    cov_bwd_row launch for both sides, and CovCore's autograd against
+    autograd of the plain core."""
+    a, c, u, xj, bi, bj, ik = (torch.tensor(x, dtype=torch.float32, device=dev)
+                               for x in _rect_arrays(np.random.default_rng(nr + nc), nr, nc, 6, 3, 3))
+    s, co = moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, DIAG)
+    s_r, co_r = moment_cov.cov_core_ref(a, c, u, xj, bi, bj, ik, DIAG)
+    s_abs, co_abs = moment_cov.cov_fwd_abs_terms(a, c, u, xj, bi, bj, ik, DIAG)
+    assert torch.all((s - s_r).abs() <= COV_RTOL * s_abs) and torch.all((co - co_r).abs() <= COV_RTOL * co_abs)
+    g = torch.linspace(1.0, 2.0, 6, device=dev)
+    g_corr = torch.tensor([1.0, -2.0, 3.0], device=dev)
+    gco = torch.zeros(6, device=dev).index_copy(0, torch.tensor(DIAG, device=dev), g_corr)
+    ops.reset_launch_counts()
+    out = moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, DIAG)
+    assert ops.launch_counts()["cov_bwd_row"] == 1
+    ref = moment_cov.cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, DIAG)
+    row = moment_cov.cov_bwd_row_abs_terms(g, a, c, u, xj, bi, bj, ik, gco, DIAG)
+    col = moment_cov.cov_bwd_row_abs_terms(g, c, a, xj, u, bj, bi, ik.transpose(1, 2), gco, DIAG)
+    for o, r, sc in zip(out, ref, (row[0], col[0], row[1], col[1], row[2], col[2])):
+        assert o.shape == r.shape
+        assert torch.all((o - r).abs() <= COV_RTOL * sc + 1e-30)
+    again = moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, DIAG)
+    assert all(torch.equal(x, y) for x, y in zip(again, out))
+
+    def grads(core):
+        leaves = [t.clone().requires_grad_(True) for t in (a, c, u, xj, bi, bj)]
+        s_, co_ = core(*leaves, ik, DIAG)
+        return torch.autograd.grad((s_ * g).sum() + (co_ * g_corr).sum(), leaves)
+
+    for o, r in zip(grads(moment_cov.CovCore.apply), grads(moment_cov.cov_core_ref)):
+        torch.testing.assert_close(o, r, rtol=0, atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("nr,nc", RECT)
+def test_df_kernels_match_plain_on_rectangular_slabs(dev, nr, nc):
+    """#5, #6 and #7 on a row slab: the lean forward and the residuals within
+    DF_COV_RTOL of their sums of |terms|, the stacked backward (two
+    launches, one per side) within DF_GRAD_RTOL of each output's largest
+    entry and bitwise repeatable, and DfCovCoreStacked's gradients against
+    DfCovCore's."""
+    args = []
+    for x in _rect_arrays(np.random.default_rng(nr * nc), nr, nc, 6, 3, 3):
+        hi = x.astype(np.float32)
+        args += [torch.tensor(hi, device=dev), torch.tensor((x - hi.astype(np.float64)).astype(np.float32),
+                                                            device=dev)]
+    out = df_cov.df_cov_fwd(*args, DIAG)
+    ref = df_cov.df_cov_fwd_plain(*args, DIAG)
+    (s_abs, co_abs), (row_abs, col_abs) = df_cov.df_cov_abs_terms(*args, DIAG)
+    _df_within(out[0], out[1], ref[0], ref[1], s_abs)
+    _df_within(out[2], out[3], ref[2], ref[3], co_abs)
+    rows, cols = df_cov.df_cov_fwdres(*args, DIAG)
+    rows_r, cols_r = df_cov.df_cov_fwdres_plain(*args, DIAG)
+    for o, r, scale in ((rows, rows_r, row_abs), (cols, cols_r, col_abs)):
+        for k in range(0, 16, 2):
+            _df_within(o[k], o[k + 1], r[k], r[k + 1], scale[k] + 1e-300)
+    gs = torch.linspace(1.0, 2.0, 6, device=dev)
+    gco = torch.zeros(6, device=dev).index_copy(0, torch.tensor(DIAG, device=dev),
+                                                 torch.tensor([1.0, -2.0, 3.0], device=dev))
+    ops.reset_launch_counts()
+    out = df_cov.df_cov_bwd(*args, gs, gco, DIAG)
+    assert ops.launch_counts()["df_bwd"] == 2
+    for o, r in zip(out, df_cov.df_cov_bwd_plain(*args, gs, gco, DIAG)):
+        _within_largest(o, r)
+    assert all(torch.equal(x, y) for x, y in zip(df_cov.df_cov_bwd(*args, gs, gco, DIAG), out))
+    w = torch.linspace(1.0, 2.0, 6, device=dev)
+    wc = torch.tensor([1.0, 2.0, 3.0], device=dev)
+
+    def grads(core):
+        a = [t.clone() for t in args]
+        leaves = [a[i].requires_grad_(True) for i in (0, 2, 4, 6)]
+        sh, sl, ch, cl = core(*a, DIAG)
+        return torch.autograd.grad((w * (sh + sl)).sum() + (wc * (ch + cl)).sum(), leaves)
+
+    for o, r in zip(grads(df_cov.DfCovCoreStacked.apply), grads(df_cov.DfCovCore.apply)):
+        _within_largest(o, r)

@@ -273,7 +273,7 @@ def test_df_bwd_twin_matches_pallas_bwd_cell():
     gs = np.linspace(1.0, 2.0, p).astype(np.float32)
     gco = np.zeros(p, np.float32)
     gco[list(diag_pos)] = [1.0, -2.0, 3.0]
-    ga, gu = df_cov.df_cov_bwd_plain(*_t(*flat), *_t(gs, gco), diag_pos)
+    ga, gc, gu, gxj = df_cov.df_cov_bwd_plain(*_t(*flat), *_t(gs, gco), diag_pos)
     ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl = _j(*flat)
     zero = jnp.zeros((n, n), jnp.float32)
     v = [_v(flat[2 * i], flat[2 * i + 1]) for i in range(7)]  # a, c, U, Xj, bi, bj, iK in f64
@@ -293,7 +293,7 @@ def test_df_bwd_twin_matches_pallas_bwd_cell():
             ik_abs = np.abs(v[6][slot]) * abs(gco[b]) if slot is not None else 0.0
             w = (abs(gs[b]) * np.abs(b_r[b])[:, None] * np.abs(b_c[b])[None, :] + ik_abs) * e
             scales = [w.sum(-1)] + [(w * np.abs(x_c[b][:, q])[None, :]).sum(-1) for q in range(ns)]
-            outs = [ga[side * p + b]] + [gu[side * p + b, :, q] for q in range(ns)]
+            outs = [(ga, gc)[side][b]] + [(gu, gxj)[side][b, :, q] for q in range(ns)]
             refs = [ga_j[:, 0]] + [gu_j[q][:, 0] for q in range(ns)]
             for o, r, sc in zip(outs, refs, scales):
                 err = np.abs(o.numpy().astype(np.float64) - np.asarray(r, np.float64))

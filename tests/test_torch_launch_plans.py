@@ -12,8 +12,9 @@ every element exactly once.
   one pair against all columns, a warp a row, shorter bands on the diagonal
   pairs, sized for the busiest warp scheduler of an SM.
 * ``moment_cov.bwd_launch_plan`` (#3 ``cov_bwd``, csrc/cov_core.cu): 2P
-  stacked rows (the row side, then the column side), a warp a row. Its grid
-  does not depend on the SM count.
+  stacked rows (the row side, then the column side), a warp a row, on
+  square and on rectangular (Nr != Nc) slabs. Its grid does not depend on
+  the SM count.
 * ``df_mm.pair_launch_plan`` (#11 ``df_mm_bwd_pair``, csrc/df_mm_bwd.cu):
   32 x 32 pair tiles, then the chain rule on (side, pair, 32-point) units,
   1 + ns warps a unit, spread over the SMs.
@@ -187,19 +188,28 @@ def test_df_fwd_plan_costs_are_the_smokes_instruction_counts(ns):
     assert (df_cov.fwd_elem_cost(ns, False), df_cov.fwd_elem_cost(ns, True)) == (per, per + per_diag)
 
 
-def _cov_bwd_counts(p, n, plan):
-    """(side, pair, row, column) counts of #3's grid: block (x, s) the
-    stacked rows x BWD_WARPS + w of stacked pair s (s < P the row side of
-    pair s, else the column side of pair s - P, whose rows are the pair's
-    columns), a lane the columns lane + 32 j of each batch."""
-    counts = np.zeros((2, p, n, n), dtype=np.int64)
-    cols = _lane_columns(n, moment_cov.BWD_LANE_COLS)
+def _cov_bwd_counts(p, n, plan, nc=None):
+    """(side, pair, row, column) counts of #3's grid on Nr = n rows against
+    Nc columns (Nc = n unless given), each side's (row, column) in the
+    slab's own (Nr, Nc) frame: block (x, s) the stacked rows x BWD_WARPS + w
+    of stacked pair s (s < P the row side of pair s, its Nr rows against Nc
+    columns; else the column side of pair s - P, whose Nc rows are the
+    pair's columns, against its Nr rows), a lane the columns lane + 32 j of
+    each batch; rows past a side's idle."""
+    nc = n if nc is None else nc
+    counts = np.zeros((2, p, n, nc), dtype=np.int64)
     for s in range(plan["stacked_pairs"]):
+        side = s // p
+        rows, cols = (n, nc) if side == 0 else (nc, n)
+        lanes = _lane_columns(cols, moment_cov.BWD_LANE_COLS)
         for x in range(plan["row_blocks"]):
             for w in range(plan["threads"] // 32):
                 row = x * moment_cov.BWD_WARPS + w
-                if row < n:
-                    np.add.at(counts[s // p, s % p, row], cols, 1)
+                if row < rows:
+                    if side == 0:
+                        np.add.at(counts[0, s % p, row], lanes, 1)
+                    else:
+                        np.add.at(counts[1, s % p, :, row], lanes, 1)
     return counts
 
 
@@ -211,6 +221,17 @@ def test_cov_bwd_plan_covers_every_element_once(n, p):
     assert plan["batches"] == -(-n // (32 * moment_cov.BWD_LANE_COLS))
     counts = _cov_bwd_counts(p, n, plan)
     assert np.all(counts == 1), (int(counts.min()), int(counts.max()))  # every element once on each side
+
+
+@pytest.mark.parametrize("p", [1, 6])
+@pytest.mark.parametrize("nr,nc", [(96, 384), (128, 768), (192, 384), (384, 96), (37, 100)])
+def test_cov_bwd_plan_covers_every_element_once_on_rectangular_slabs(nr, nc, p):
+    """The same launch on a rank's row slab (Nr != Nc): both sides reach
+    every element of the slab once."""
+    plan = moment_cov.bwd_launch_plan(p, nr, nc)
+    assert plan["row_blocks"] == -(-max(nr, nc) // moment_cov.BWD_WARPS)
+    counts = _cov_bwd_counts(p, nr, plan, nc)
+    assert np.all(counts == 1), (int(counts.min()), int(counts.max()))
 
 
 def _cov_args(seed, dtype, p=6, n=40, ns=3):

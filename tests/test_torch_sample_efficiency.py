@@ -59,3 +59,28 @@ def test_sweep_defaults_to_cuda():
         pytest.skip("a CUDA device is present: the default runs there")
     with pytest.raises(RuntimeError, match="no CUDA"):
         sweep.main(["--steps", "2", "--seeds", "1"])
+
+
+def test_no_pallas_flag_runs_the_sweep_under_disable_pallas(monkeypatch, capsys):
+    """``--no-pallas`` parses, runs a 2-step sweep with the dispatch switch
+    on (both sweeps), and leaves it off afterwards."""
+    from gpmpc_tpu_torch import ops
+
+    seen = []
+    real = sweep.build_episodes_batch_fn
+
+    def build(spec, steps_per_call=None):
+        fn = real(spec, steps_per_call=steps_per_call)
+
+        def run(*args):
+            seen.append(ops._PALLAS_DISABLED)
+            return fn(*args)
+
+        return run
+
+    monkeypatch.setattr(sweep, "build_episodes_batch_fn", build)
+    sweep.main(["--env", "mountain_car", "--dtype", "mixed", "--seeds", "1", "--steps", "2", "--device", "cpu",
+                "--no-pallas"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["steps"] == 2 and line["device"] == "cpu"
+    assert seen == [True, True] and ops._PALLAS_DISABLED is False
