@@ -67,7 +67,15 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   core, the Gram and whole-step kernels off) of phase 4's trained-GP step,
   held to phase 4's card f64 plan by MIXED_TOL and to phase 4's residual
   plan's launch counts, its gap to phase 4's own mixed plan printed. One
-  card runs no multi-rank collective: NCCL refuses two ranks on one card.
+  card runs no multi-rank collective: NCCL refuses two ranks on one card;
+* the time-varying process-control example (phase 10): its env and
+  configuration in mixed mode through ``run_env_multiple``, two runs of
+  PC_STEPS steps (a random step, the plant's parameters redrawn, an MLL
+  training waited for, one planned step of two restarts on the trained
+  parameters), every rollout step through the whole-step kernels at ns = 2,
+  d = 5 with the raw step index as the time input; each run's plan is held
+  to the card's f64 plan of the same memory, parameters, state and inits,
+  and its launches exactly.
 
 Phase 3 holds the twelve kernels to their plain versions: the f32 Gram and
 cov kernels (forward, row backward, iK gradient) at the flagship's shapes,
@@ -82,7 +90,10 @@ route bit for bit against #9 and its on-card combination against
 rectangular slabs, and #2, #3, #5, #6 and #7 on the N-sharded cores' row
 slabs (RECT_SPLITS), each slab against the plain twins and the slabs'
 combined outputs and gradients against the square launch's, with #3's and
-#7's rectangular backwards timed beside their square launches; it also reports the launch floor (an empty kernel,
+#7's rectangular backwards timed beside their square launches, and the
+process-control path's ns = 2 instances (check_ns2_kernels: #12, #8 and #9
+at d = 5 with a raw time column, #2, #3, #5, #6 and #7 at P = 3 in the 192
+bucket), each timed beside its bound; it also reports the launch floor (an empty kernel,
 plainly and as a programmatic dependent), and the launch shape, time and
 bound of the ten kernels redesigned for the H100 (#9 df_mm_bwd, #6
 df_fwdres, #12 df_mm_full, #2 cov_fwd, #5 df_fwd, #3 cov_bwd_row, both sides
@@ -92,14 +103,16 @@ floor) beside unchanged kernels timed in the same run, and the times of #12
 at N = 32 and 96 and of #2 at N = 32. Phase 4 also holds the launch
 counts of #5 and #3 on their paths, phase 5 those of #10 and #11, phase 6
 those of #12, #8 and #9 in each controller step, phase 7 those of the
-mountain-car episode and phase 8 those of the sweep (EXPECTED_LAUNCHES). Phase 5
+mountain-car episode, phase 8 those of the sweep and phase 10 those of each
+process-control run and its planned step (EXPECTED_LAUNCHES). Phase 5
 times the blocked planning step of the paths and 15-step rollouts of the
 mixed routes at ROLLOUT_BUCKETS; at 384 the whole-step route's
 value-and-grad rollout runs the split backward, and its gradient is held to
 the df cov route's and to the f64 rollout's. Phase 6 times each controller
 step (blocked) and the training on its thread, phase 7 the episode, its
 planned step and its random steps (blocked), phase 8 each seed's episode
-and training (blocked) and the sweep's aggregate env steps per second.
+and training (blocked) and the sweep's aggregate env steps per second,
+phase 10 each run, its planned step and its training (blocked).
 
 Output: one line per phase with its elapsed seconds; then the card's name and
 power limit, a ``{"kernels": [...]}`` JSON line, and as the last line
@@ -110,7 +123,9 @@ with a traceback after ``WATCHDOG_S`` seconds.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
+import importlib.util
 import json
 import os
 import statistics
@@ -118,12 +133,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from gpmpc_tpu_torch import GpMpcController, ops, run_env
+from gpmpc_tpu_torch import GpMpcController, ops, run_env, run_env_multiple
 from gpmpc_tpu_torch.controllers import planner as planner_mod
 from gpmpc_tpu_torch.controllers.lbfgs import lbfgs_b_minimize
 from gpmpc_tpu_torch.controllers.planner import Planner, _cast_cache, _objective_and_info
@@ -165,9 +181,17 @@ WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 # horizon 5 it does not; the witness took 6.6 s of a 134 s cold run).
 # Phase 7 (the mountain-car episode through run_env) has one cut of its own,
 # the example's L-BFGS-B budget (MC_MAXFUN); phase 8 (the sweep) takes the
-# same cut and those listed at SWEEP_SEEDS.
-PLAN_STEPS = 3
-TIMED_STEPS = 3
+# same cut and those listed at SWEEP_SEEDS. Phase 10 (the process-control
+# runs) and phase 3's ns = 2 checks took a cold run on a slow host to 170.1 s
+# (phase 9 ended at 160.4 s there, 112.7 s on another host), so phase 10 was
+# cut first (see PC_RUNS), then three earlier depths: PLAN_STEPS and
+# TIMED_STEPS from 3 to 2 and CONTROLLER_PLANNED from 2 to 1. With
+# CONTROLLER_PLANNED at 2 (its second step 3.2 s and its f64 comparison
+# ~2 s on the card) that slow host is estimated at ~168 s, past the 165 s
+# the cuts aim under; with 1, at ~162 s (PERF.md, section 6). Both are
+# estimates: no run has measured the final tree on that host.
+PLAN_STEPS = 2
+TIMED_STEPS = 2
 MIXED_STEPS = 1  # trained-GP flagship steps in mixed mode, each checked and timed
 FUSED_STEPS = 1  # whole-step path steps, each checked and timed
 MIXED_NH = 5
@@ -212,9 +236,11 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # Phase 6's controller steps, each a 15-step rollout per evaluation: a warmup
 # step one forward-only rollout (15 df_mm_full); a planned step runs df_mm_full
 # in every rollout and df_mm_fwd and df_mm_bwd in the backward of each
-# value-and-grad one: the first planned step 5 value-and-grad evaluations, 3
-# forward-only line-search trials and the rollout of its result, the second
-# 3, 3 and 1 (the same counts on the plain twins on the CPU, by the same
+# value-and-grad one: the planned step 5 value-and-grad evaluations, 3
+# forward-only line-search trials and the rollout of its result (a second
+# planned step, warm-started from the first plan, before the cut of
+# CONTROLLER_PLANNED: 3, 3 and 1; 105 / 45 / 45, also on the card after the
+# cut) (the same counts on the plain twins on the CPU, by the same
 # line-search decisions).
 # Phase 7's mountain-car episode, each rollout 12 steps: the random steps 0,
 # 5, 10 and 15 one forward-only rollout each (48 df_mm_full); the planned
@@ -227,15 +253,33 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # no kernel) and the planned step at t = 20 as phase 7's (9 x 10 df_mm_full,
 # 8 x 10 df_mm_fwd and df_mm_bwd), for the two seeds (counted on the plain
 # twins on the CPU with the whole-step dispatch on).
+# Phase 10's process-control runs, each rollout 5 steps: the random steps 0,
+# 10 and 20 one forward-only rollout each (15 df_mm_full); the planned step
+# 30 of run 1 two restarts of 3 value-and-grad evaluations each (30 df_mm_fwd
+# and df_mm_bwd; no forward-only line-search trial) and the rollout of its
+# result (35 df_mm_full), counted on the plain twins on the CPU with the
+# whole-step dispatch on. Run 0's planned step counts the same there, but not
+# on the card: its second restart's second value-and-grad evaluation rounds
+# to the same f32 objective as the first (0.03353068233; the plain twins'
+# is one f32 ulp, 3.7e-9, lower, and the f64 objectives differ by 3.3e-9:
+# the df32 objective's own error, ~1e-7 of it, decides the rounding), so the
+# line search finds no decrease and backtracks 14 times before the rollout
+# of the result: 5 value-and-grad and 15 forward-only rollouts, 100 / 25 /
+# 25. The card's kernels sum in a fixed order, so the card repeats it (three
+# calls); those are the counts held here.
 EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 5,
                      "df_fwdres per residual mixed plan": 25,
                      "df_fwd per stacked mixed plan": 30, "df_mm_bwd_mean per split rollout": 15,
                      "df_mm_bwd_pair per split rollout": 15,
                      "controller warmup step": {"df_mm_full": 15},
-                     "controller planned steps": ({"df_mm_full": 135, "df_mm_fwd": 75, "df_mm_bwd": 75},
-                                                  {"df_mm_full": 105, "df_mm_fwd": 45, "df_mm_bwd": 45}),
+                     "controller planned steps": ({"df_mm_full": 135, "df_mm_fwd": 75, "df_mm_bwd": 75},),
                      "mountain-car episode": {"df_mm_full": 156, "df_mm_fwd": 96, "df_mm_bwd": 96},
-                     "mountain-car sweep": {"df_mm_full": 260, "df_mm_fwd": 160, "df_mm_bwd": 160}}
+                     "mountain-car sweep": {"df_mm_full": 260, "df_mm_fwd": 160, "df_mm_bwd": 160},
+                     "process-control run": {
+                         "planned steps": (({"df_mm_full": 100, "df_mm_fwd": 25, "df_mm_bwd": 25},),
+                                           ({"df_mm_full": 35, "df_mm_fwd": 30, "df_mm_bwd": 30},)),
+                         "runs": ({"df_mm_full": 115, "df_mm_fwd": 25, "df_mm_bwd": 25},
+                                  {"df_mm_full": 50, "df_mm_fwd": 30, "df_mm_bwd": 30})}}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -257,6 +301,9 @@ EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed 
 GRAM_RTOL, GRAM_ATOL = 2e-5, 2e-6
 COV_TOL = 3e-7
 MIN_RESOLVED = 5e-4
+# the random operand sets drawn not to cancel, held to MIN_RESOLVED: the
+# flagship's shapes and the ns = 2 (P = 3) shapes of the process-control path
+RESOLVED_LABELS = ("random", "random P=3")
 # The cov core's iK gradient (cov_gik) has independent entries g_corr[m] E,
 # so it is held elementwise. The kernel forms E's exponent a + c + sum_e
 # U_e Xj_e with FMAs, the plain twin with an add and an einsum: the two
@@ -326,6 +373,12 @@ NS2_SIZES = (32, RAGGED_N)  # and at ns = 2, d = 3 (phase 7's widths) on random 
 # output against its plain twin to DF_GRAD_TOL of its largest entry, and the
 # combined split route against #9 (#9 is right at any N), timed at both
 SPLIT_SIZES = (192, 384)
+# the time-varying process-control path's shapes (ns = 2, P = 3; d = 5 with
+# the raw time column): #12, #8 and #9 at these N, and #2, #3, #5, #6 and #7
+# on a step of a cache of PC_CACHE_POINTS points (the 1500-step workload's
+# last, stored every 10 steps) in its bucket, past 128 (check_ns2_kernels)
+PC_DF_MM_SIZES = (32, RAGGED_N)
+PC_CACHE_POINTS, PC_CACHE_BUCKET = 150, 192
 FULL_EPS = 4 * 2.0 ** -23
 # launches of each whole-step wrapper (the split route's cotangent cat apart)
 LAUNCHES_PER_CALL = {"df_mm_full": 2, "df_mm_fwd": 2, "df_mm_bwd": 2, "df_mm_bwd_mean": 1, "df_mm_bwd_pair": 3}
@@ -364,13 +417,13 @@ MIXED_TOL = {"objective": 1e-4, "gradient": 3e-3, "info": 1e-3, "plan": 1e-2}
 # The controller (phase 6): the pendulum example's GpMpcController in mixed
 # mode on PendulumEnv(seed=0), CONTROLLER_WARMUP random steps
 # (run_pendulum.py's random_actions_init), the training they fire, blocked
-# until it is swapped in, then CONTROLLER_PLANNED planned steps. The one
-# reduction: training_frequency is 10 in place of the example's 25, so that
-# training fires right after the warmup. With at most 32 stored points every
+# until it is swapped in, then CONTROLLER_PLANNED planned steps (2 before
+# the cut above). The one reduction: training_frequency is 10 in place of
+# the example's 25, so that training fires right after the warmup. With at most 32 stored points every
 # rollout step takes the whole-step path (ops.use_df_fused); each step's
 # launches are held in EXPECTED_LAUNCHES.
 CONTROLLER_WARMUP = 10
-CONTROLLER_PLANNED = 2
+CONTROLLER_PLANNED = 1
 CONTROLLER_TRAINING_FREQUENCY = 10
 
 # The mountain-car example through run_env (phase 7): its configuration in
@@ -407,6 +460,31 @@ SWEEP_SEEDS = (0, 1)
 SWEEP_STEPS = 25
 SWEEP_TRAINING_FREQUENCY = 20
 
+# The time-varying process-control example through run_env_multiple (phase
+# 10): examples/process_control/run_process_control_multiple_torch.py's env
+# and configuration in mixed mode (Ns=2, Na=2, the time model: D = 5 with the
+# raw step index as the last input, horizon 5, repeat 10, two L-BFGS-B
+# restarts), PC_RUNS runs (seeds 0 and 1) on the card. A run: PC_WARMUP
+# random steps (a forward-only rollout at steps 0, 10 and 20), the plant's
+# parameters redrawn after its steps 14 and 29, the training dispatched after
+# step 29 (f64, on the controller's CPU thread, on the three stored points
+# (0 -> 10, 10 -> 20, 20 -> 30): time column 0, 10, 20, the last two across
+# or after a redraw) and waited for before step 30, whose plan of two
+# restarts runs on the trained parameters. Cuts: 10 runs to PC_RUNS, 1000
+# steps to PC_STEPS, the plant's period_change 500 to PC_PERIOD_CHANGE and
+# training_frequency 15 to PC_TRAINING_FREQUENCY (so that both fall inside
+# the cut run, before its one planned step) and the L-BFGS-B budget 15 to
+# PC_MAXFUN (3 in phases 7-8); the random warmup goes from the example's 10
+# to PC_WARMUP steps, so that the training and the plan see more than one
+# point; iter_train keeps its 15 (at 5 the training kept its initial
+# parameters). Three stored points sit in the 32 bucket: every rollout step
+# runs #12 (#8 and #9 in the backward) at ns = 2, d = 5. Earlier versions
+# planned at steps 10 and 20 (21 steps, training every 15, budget 3), then
+# at step 10 only on one stored point; one planned step at budget 3 took the
+# phase 9.7 s of a 170.1 s cold run on a slow host (PERF.md, section 6).
+PC_RUNS, PC_WARMUP, PC_STEPS, PC_PERIOD_CHANGE, PC_TRAINING_FREQUENCY, PC_MAXFUN = 2, 30, 31, 15, 30, 2
+PC_EXAMPLE = "examples/process_control/run_process_control_multiple_torch.py"
+
 _T0 = time.perf_counter()
 
 
@@ -423,10 +501,12 @@ def card_line() -> str:
 
 def objective_and_grad(prob, cache, actions):
     """The planning objective and its gradient at fixed actions, on the cache
-    cast as the planner casts it (split into df32 in mixed mode)."""
+    cast as the planner casts it (split into df32 in mixed mode), at the
+    problem's step index (``iter_ctrl``, the time model's input; 0 unless
+    given)."""
     a = actions.detach().clone().requires_grad_(True)
     cost, _ = _objective_and_info(prob.spec, _cast_cache(cache, prob.state_mu.dtype), a, prob.state_mu,
-                                  prob.state_var, prob.action_prev, 0)
+                                  prob.state_var, prob.action_prev, getattr(prob, "iter_ctrl", 0))
     (g,) = torch.autograd.grad(cost, a)
     return float(cost.detach()), g.double().cpu()
 
@@ -964,8 +1044,8 @@ def hold_cov(what, label, out, ref, scale) -> float:
         f"= {resolved:.3e} of it")
     if not rel_e <= COV_TOL:
         raise AssertionError(f"{what} [{label}] disagrees with its plain version")
-    if label == "random" and not resolved >= MIN_RESOLVED:
-        raise AssertionError(f"{what} [random]: output {resolved:.3e} of its scale, not resolvable")
+    if label in RESOLVED_LABELS and not resolved >= MIN_RESOLVED:
+        raise AssertionError(f"{what} [{label}]: output {resolved:.3e} of its scale, not resolvable")
     return abs_e
 
 
@@ -1069,8 +1149,8 @@ def hold_df(what, label, out_h, out_l, ref_h, ref_l, scale) -> float:
         f"= {resolved:.3e} of it")
     if not rel_e <= DF_TOL:
         raise AssertionError(f"{what} [{label}] disagrees with its plain version")
-    if label == "random" and float(scale.abs().max()) > 0 and not resolved >= MIN_RESOLVED:
-        raise AssertionError(f"{what} [random]: output {resolved:.3e} of its scale, not resolvable")
+    if label in RESOLVED_LABELS and float(scale.abs().max()) > 0 and not resolved >= MIN_RESOLVED:
+        raise AssertionError(f"{what} [{label}]: output {resolved:.3e} of its scale, not resolvable")
     return abs_e
 
 
@@ -1086,14 +1166,15 @@ def check_df_operands(label, args, diag_pos) -> tuple[float, float]:
     hold_repeat("df_fwd", label, out, df_cov.df_cov_fwd(*args, diag_pos))
     rows, cols = df_cov.df_cov_fwdres(*args, diag_pos)
     rows_r, cols_r = df_cov.df_cov_fwdres_plain(*args, diag_pos)
-    names = ["A1", "A2"] + [f"B1_{e}" for e in range(3)] + [f"B2_{e}" for e in range(3)]
-    names_c = ["C1", "C2"] + [f"D1_{e}" for e in range(3)] + [f"D2_{e}" for e in range(3)]
+    ns = args[4].shape[2]
+    names = ["A1", "A2"] + [f"B1_{e}" for e in range(ns)] + [f"B2_{e}" for e in range(ns)]
+    names_c = ["C1", "C2"] + [f"D1_{e}" for e in range(ns)] + [f"D2_{e}" for e in range(ns)]
     err_res = 0.0
     for outs, refs, scales, nm in ((rows, rows_r, row_abs, names), (cols, cols_r, col_abs, names_c)):
         for k in range(0, len(outs), 2):
             err_res = max(err_res, hold_df(f"df_fwdres {nm[k // 2]}", label, outs[k], outs[k + 1],
                                            refs[k], refs[k + 1], scales[k]))
-    if label == "random":
+    if label in RESOLVED_LABELS:
         p = args[0].shape[0]
         w = torch.linspace(1.0, 2.0, p, device=args[0].device)
         wc = torch.linspace(1.0, 3.0, len(diag_pos), device=args[0].device)
@@ -1110,6 +1191,20 @@ def check_df_operands(label, args, diag_pos) -> tuple[float, float]:
     return err_fwd, err_res
 
 
+def df_cov_bound(name, p, n, ns, nd) -> tuple[float, str]:
+    """bound_ms of a square df cov launch (df_fwd, df_fwdres or df_bwd): its
+    operands read once and its outputs written once, against its non-FMA f32
+    instructions (``df_instructions_per_element``) over every element of the
+    (P, N, N) slab."""
+    per, per_diag = df_instructions_per_element(ns)[name]
+    in_bytes = 4 * 2 * (4 * p * n + 2 * p * n * ns + nd * n * n)
+    if name == "df_bwd":
+        return bound_ms(in_bytes + 4 * 2 * p + 4 * 2 * p * n * (1 + ns), 2 * (p * per + nd * per_diag) * n * n,
+                        H100_F32_INSTR_PER_S)
+    out_bytes = 4 * 2 * (2 * p + nd) if name == "df_fwd" else 4 * 2 * 2 * (2 + 2 * ns) * p * n
+    return bound_ms(in_bytes + out_bytes, (p * per + nd * per_diag) * n * n, H100_F32_INSTR_PER_S)
+
+
 def check_df_kernels(dev):
     """The two df32 kernels against their plain twins on the card: on the
     trained-GP flagship's operands and on random operands of its shapes."""
@@ -1121,14 +1216,12 @@ def check_df_kernels(dev):
     results = {}
     counts = df_instructions_per_element(ns)
     nd = len(diag_pos)
-    in_bytes = 4 * 2 * (4 * p * n + 2 * p * n * ns + nd * n * n)
     for i, (name, kern, plain) in enumerate((("df_fwd", df_cov.df_cov_fwd, df_cov.df_cov_fwd_plain),
                                             ("df_fwdres", df_cov.df_cov_fwdres, df_cov.df_cov_fwdres_plain))):
         ms, host = cuda_ms(lambda: kern(*flag, diag_pos))
         plain_ms = event_ms(lambda: plain(*flag, diag_pos))
         per, per_diag = counts[name]
-        out_bytes = 4 * 2 * (2 * p + nd) if name == "df_fwd" else 4 * 2 * 2 * (2 + 2 * ns) * p * n
-        b, by = bound_ms(in_bytes + out_bytes, (p * per + nd * per_diag) * n * n, H100_F32_INSTR_PER_S)
+        b, by = df_cov_bound(name, p, n, ns, nd)
         log(f"kernel {name} (P={p}, N={n}, ns={ns}): wrapper {ms:.4f} ms (device, kernel + summing launch) "
             f"plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 "
             f"instructions per element over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
@@ -1149,8 +1242,7 @@ def check_df_kernels(dev):
     ms, host = cuda_ms(lambda: df_cov.df_cov_bwd(*flag, gs, gco, diag_pos))
     plain_ms = event_ms(lambda: df_cov.df_cov_bwd_plain(*flag, gs, gco, diag_pos))
     per, per_diag = counts["df_bwd"]
-    b, by = bound_ms(in_bytes + 4 * 2 * p + 4 * 2 * p * n * (1 + ns), 2 * (p * per + nd * per_diag) * n * n,
-                     H100_F32_INSTR_PER_S)
+    b, by = df_cov_bound("df_bwd", p, n, ns, nd)
     log(f"kernel df_bwd (2P={2 * p} stacked rows, N={n}, ns={ns}): kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
         f"bound {b:.5f} ms ({by}: {per} + {per_diag} on diagonal pairs f32 instructions per element of each side "
         f"over {H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
@@ -1506,6 +1598,29 @@ def check_df_mm_split(label, cache, mu, sv) -> tuple[float, float]:
     return err_mean, err_pair
 
 
+def df_mm_bound(name, n, ns, d) -> tuple[float, str, str]:
+    """bound_ms of a whole-step wrapper at (N, ns, d): its operands read once
+    and its outputs written once, against its non-FMA f32 instructions per
+    slab element (#10: per model and point), and what was counted."""
+    p = ns * (ns + 1) // 2
+    in_bytes = 4 * 2 * (n * d + 3 * ns * d + ns + ns * n + ns * n * n) + 4 * (d + ns * ns + 2 * ns ** 3
+                                                                           + 2 * p * ns * ns)
+    out_bytes = {"df_mm_full": 4 * (ns + ns * d + p), "df_mm_fwd": 4 * 2 * (2 * ns + ns * d + p),
+                 "df_mm_bwd": 4 * (d + ns ** 3 + p * ns * ns), "df_mm_bwd_mean": 4 * (2 * d + ns ** 3),
+                 "df_mm_bwd_pair": 4 * (2 * p * d + p * ns * ns)}
+    if name == "df_mm_bwd_mean":
+        per = mean_vjp_instructions(ns, d)
+        ops_, what = ns * n * per, f"{per} f32 instructions per (model, point)"
+    else:
+        per, per_diag = df_instructions_per_element(ns)[name]
+        ops_ = (p * per + ns * per_diag) * n * n
+        what = (f"{per} + {per_diag} on diagonal pairs f32 instructions per slab element; the per-point "
+                f"work is not counted")
+    nbytes = (4 * 2 * (n * d + 3 * ns * d + ns + ns * n) + 4 * (d + 2 * ns ** 3) if name == "df_mm_bwd_mean"
+              else in_bytes) + out_bytes[name]  # the mean path reads no iK and no Q
+    return (*bound_ms(nbytes, ops_, H100_F32_INSTR_PER_S), what)
+
+
 def check_df_mm_kernels(dev):
     """#12, #8 and #9 against their plain twins on the card at N = 32, 96
     (the bucket that is not a power of two), 128 and 384 (and on random
@@ -1548,27 +1663,11 @@ def check_df_mm_kernels(dev):
                                     lambda: df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, cache, g[0], g[1])),
                  "df_mm_bwd_pair": (lambda: df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3]),
                                     lambda: df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, cache, g[2], g[3]))}
-        counts = df_instructions_per_element(ns)
-        in_bytes = 4 * 2 * (n * d + 3 * ns * d + ns + ns * n + ns * n * n) + 4 * (d + ns * ns + 2 * ns ** 3
-                                                                               + 2 * p * ns * ns)
-        out_bytes = {"df_mm_full": 4 * (ns + ns * d + p), "df_mm_fwd": 4 * 2 * (2 * ns + ns * d + p),
-                     "df_mm_bwd": 4 * (d + ns ** 3 + p * ns * ns), "df_mm_bwd_mean": 4 * (2 * d + ns ** 3),
-                     "df_mm_bwd_pair": 4 * (2 * p * d + p * ns * ns)}
         for name in names:
             kern, plain = calls[name]
             ms, host = cuda_ms(kern)
             plain_ms = event_ms(plain)
-            if name == "df_mm_bwd_mean":
-                per = mean_vjp_instructions(ns, d)
-                ops_, what = ns * n * per, f"{per} f32 instructions per (model, point)"
-            else:
-                per, per_diag = counts[name]
-                ops_ = (p * per + ns * per_diag) * n * n
-                what = (f"{per} + {per_diag} on diagonal pairs f32 instructions per slab element; the per-point "
-                        f"work is not counted")
-            nbytes = (4 * 2 * (n * d + 3 * ns * d + ns + ns * n) + 4 * (d + 2 * ns ** 3) if name == "df_mm_bwd_mean"
-                      else in_bytes) + out_bytes[name]  # the mean path reads no iK and no Q
-            b, by = bound_ms(nbytes, ops_, H100_F32_INSTR_PER_S)
+            b, by, what = df_mm_bound(name, n, ns, d)
             log(f"kernel {name} (P={p}, N={n}, ns={ns}, trained-GP operands): wrapper {ms:.4f} ms (device, "
                 f"{LAUNCHES_PER_CALL[name]} launches) plain {plain_ms:.4f} ms bound {b:.5f} ms ({by}: {what}, over "
                 f"{H100_F32_INSTR_PER_S:.3g}/s); host {host:.4f} ms per call")
@@ -1618,6 +1717,132 @@ def check_df_mm_kernels(dev):
         ms, _ = cuda_ms(lambda: df_mm.full_step_fwd(mu, sv, cache))
         log(f"kernel df_mm_full (N={n}, trained-GP operands): wrapper {ms:.4f} ms (device, 2 launches)")
     return results
+
+
+def process_control_cache(n_points, bucket, seed):
+    """A float64 factorization cache, on the CPU, of the time-varying
+    process-control workload's shapes (Ns=2, Na=2, the time model: D = 5):
+    ``n_points`` points stored every 10 steps, so that the last input column
+    holds the raw step index 0, 10, 20, ..., states in [0.3, 0.7] changing by
+    ~1e-2, actions in [0, 1], padded to ``bucket``; lengthscales inside the
+    example's bounds (0.25-2 on the states and actions, 50-1000 on time),
+    its initial outputscale 0.05 and noise 1e-5. Returns (cache, mu (D,), sv
+    (Ns, Ns)) of a planning step at the next stored step, in f64."""
+    rng = np.random.default_rng(seed)
+    ns, d = 2, 5
+    x, y = np.zeros((bucket, d)), np.zeros((bucket, ns))
+    x[:n_points, :ns] = rng.uniform(0.3, 0.7, (n_points, ns))
+    x[:n_points, ns:d - 1] = rng.uniform(0, 1, (n_points, d - 1 - ns))
+    x[:n_points, -1] = 10.0 * np.arange(n_points)
+    y[:n_points] = rng.normal(0, 1e-2, (n_points, ns))
+    mask = np.arange(bucket) < n_points
+    ls = np.concatenate([rng.uniform(0.25, 2.0, (ns, d - 1)), rng.uniform(50, 1000, (ns, 1))], axis=1)
+    f64 = dict(dtype=torch.float64)
+    bounds = gp_mod.GPBounds(
+        torch.tensor([[5e-2] * (d - 1) + [5.0]] * ns, **f64), torch.tensor([[25.0] * (d - 1) + [1000.0]] * ns, **f64),
+        torch.full((ns,), 1e-5, **f64), torch.full((ns,), 0.95, **f64), torch.full((ns,), 1e-6, **f64),
+        torch.full((ns,), 0.09, **f64))
+    params = gp_mod.params_from_constrained(torch.tensor(ls, **f64), torch.full((ns,), 5e-2, **f64),
+                                            torch.full((ns,), 1e-5, **f64), bounds)
+    cache = gp_mod.masked_cholesky_factorize(params, bounds, torch.tensor(x), torch.tensor(y), torch.tensor(mask))
+    mu = torch.tensor(np.concatenate([rng.uniform(0.4, 0.6, ns), rng.uniform(0, 1, d - 1 - ns),
+                                      [10.0 * n_points + 5]]))
+    sv = torch.tensor(np.eye(ns) * 1e-4 + 2e-5)
+    return cache, mu, sv
+
+
+def shape_line(info) -> str:
+    return (f"{info['registers']} registers, {info['threads']} threads, {info['blocks_per_sm']} blocks per SM, grid "
+            f"{info['grid']} = {info['waves']:.2f} waves")
+
+
+def check_ns2_kernels(dev) -> dict:
+    """The kernels of the time-varying process-control path at ns = 2 against
+    their plain twins on the card, on operands of a process-control cache
+    with its raw time column: #12, #8 and #9 at d = 5 at N = 32 and RAGGED_N
+    (and on random operands of those shapes), #5, #6 and #7 on the df cov
+    core's operands of a step of a PC_CACHE_POINTS-point cache in the
+    PC_CACHE_BUCKET bucket (past 128, where the dispatch sends a mixed step
+    to them), and #2 and #3 on the f32 cov core's operands of the same step;
+    each also on random operands of its shapes whose outputs do not cancel
+    (label ``random P=3``). Prints each kernel's time, launch shape and
+    bound. Returns the largest error of each kernel."""
+    errs = {}
+
+    def keep(name, e):
+        errs[name] = max(errs.get(name, 0.0), e)
+
+    for n in PC_DF_MM_SIZES:
+        cache64, mu, sv = process_control_cache(int(0.8 * n), n, seed=n)
+        cache = _cast_cache(_to_device(cache64, dev), torch.float32)
+        mu, sv = mu.to(dev, torch.float32), sv.to(dev, torch.float32)
+        for label, operands in ((f"process-control ns=2 d=5, time to {10 * int(0.8 * n) + 5}", (cache, mu, sv)),
+                                ("random ns=2 d=5", random_df_mm_problem(dev, n, seed=n + 5, ns=2, d=5))):
+            for name, e in zip(("df_mm_full", "df_mm_fwd", "df_mm_bwd"), check_df_mm_operands(label, *operands)):
+                keep(name, e)
+        ns, d = cache.ils_hi.shape
+        ii, jj, _, _ = df_mm.pair_indices(ns, dev)
+        Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(cache, sv, ii, jj)
+        p = Qh.shape[0]
+        g = (torch.ones(ns, device=dev), torch.ones(ns, d, device=dev), torch.ones(p, device=dev),
+             -torch.ones(ns, device=dev))
+        sms = _build.sm_count(dev)
+        shapes = {"df_mm_full": shape_line(df_mm.full_launch_info(n, ns)),
+                  "df_mm_fwd": f"#12's grid, {df_mm.fwd_launch_plan(n, ns, sms)['rows_per_warp']} rows per warp",
+                  "df_mm_bwd": shape_line(df_mm.bwd_launch_info(n, ns))}
+        for name, call in (("df_mm_full", lambda: df_mm.full_step_fwd(mu, sv, cache)),
+                           ("df_mm_fwd", lambda: df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache)),
+                           ("df_mm_bwd", lambda: df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g))):
+            ms, _ = cuda_ms(call)
+            b, by, _ = df_mm_bound(name, n, ns, d)
+            log(f"kernel {name} at ns=2 (P={p}, N={n}, d={d}, process-control operands): {ms:.4f} ms (device, "
+                f"{LAUNCHES_PER_CALL[name]} launches; {shapes[name]}) bound {b:.5f} ms ({by})")
+
+    cache64, mu, sv = process_control_cache(PC_CACHE_POINTS, PC_CACHE_BUCKET, seed=PC_CACHE_POINTS)
+    ns, d = sv.shape[0], mu.shape[0]
+    var = torch.zeros(d, d, dtype=torch.float64)
+    var[:ns, :ns] = sv
+    seen, seen_df = [], []
+    with torch.no_grad(), ops.override_cov_core(lambda *a: seen.append(a) or ops.cov_core_ref(*a)):
+        gp_mod.moment_match(cache64, mu, var)
+    with torch.no_grad(), ops.override_df_cov_core(lambda *a: seen_df.append(a) or ops.df_cov_core_ref(*a)):
+        gp_mod.moment_match_df(gp_mod.split_cache_df(cache64), mu.float(), var.float())
+    *cov_t, diag_pos = seen[-1]
+    cov_pc = [t.to(device=dev, dtype=torch.float32).contiguous() for t in cov_t]
+    *df_t, diag_pos_df = seen_df[-1]
+    df_pc = [t.to(dev).contiguous() for t in df_t]
+    p, n = cov_pc[0].shape
+    nd = len(diag_pos)
+    where = f"{PC_CACHE_POINTS} process-control points in the {n} bucket, time to {10 * PC_CACHE_POINTS + 5}"
+    cov_rand = random_cov_operands(dev, p, n, ns, diag_pos, seed=n + 7)
+    df_rand = random_df_operands(dev, p, n, ns, diag_pos_df, seed=n + 8)
+    for label, operands in ((where, cov_pc), ("random P=3", cov_rand)):
+        keep("cov_fwd", check_cov_fwd(label, operands, diag_pos))
+        keep("cov_bwd_row", check_cov_bwd(label, operands, diag_pos))
+    for label, args in ((where, df_pc), ("random P=3", df_rand)):
+        e_fwd, e_res = check_df_operands(label, args, diag_pos_df)
+        keep("df_fwd", e_fwd)
+        keep("df_fwdres", e_res)
+        keep("df_bwd", check_df_bwd(label, args, diag_pos_df))
+
+    g_s = torch.linspace(1.0, 2.0, p, device=dev)
+    g_c = torch.linspace(1.0, 3.0, nd, device=dev)
+    gco = _scatter_diag(g_c, p, diag_pos_df)
+    timed = (("cov_fwd", lambda: moment_cov.cov_fwd(*cov_pc, diag_pos), cov_fwd_bound(p, n, ns, nd),
+              shape_line(moment_cov.fwd_launch_info(p, n, ns))),
+             ("cov_bwd_row", lambda: moment_cov.cov_bwd(g_s, *cov_pc, g_c, diag_pos), cov_bwd_bound(p, n, n, ns, nd),
+              shape_line(moment_cov.bwd_launch_info(p, n, ns))),
+             ("df_fwd", lambda: df_cov.df_cov_fwd(*df_pc, diag_pos_df), df_cov_bound("df_fwd", p, n, ns, nd),
+              shape_line(df_cov.fwd_launch_info(p, n, diag_pos_df, ns))),
+             ("df_fwdres", lambda: df_cov.df_cov_fwdres(*df_pc, diag_pos_df), df_cov_bound("df_fwdres", p, n, ns, nd),
+              shape_line(df_cov.fwdres_launch_info(p, n, nd, ns))),
+             ("df_bwd", lambda: df_cov.df_cov_bwd(*df_pc, g_s, gco, diag_pos_df), df_cov_bound("df_bwd", p, n, ns, nd),
+              "one launch"))
+    for name, call, (b, by), shape in timed:
+        ms, _ = cuda_ms(call)
+        log(f"kernel {name} at ns=2 (P={p}, N={n}, process-control operands): {ms:.4f} ms (device; {shape}) bound "
+            f"{b:.5f} ms ({by})")
+    return errs
 
 
 def check_launches(name, counts, expected) -> None:
@@ -1703,7 +1928,7 @@ def compare_mixed_to_f64(prob, planner, plans, ref, witness=True, label="trained
     def f64_at(a):
         with torch.no_grad():
             return _objective_and_info(ref_prob.spec, ref_planner._cache, a.to(torch.float64), ref_prob.state_mu,
-                                       ref_prob.state_var, ref_prob.action_prev, 0)
+                                       ref_prob.state_var, ref_prob.action_prev, getattr(ref_prob, "iter_ctrl", 0))
 
     plan_gaps, a_gaps = [], []
     for (a_mix, _), (a_ref, _) in zip(plans, ref.plans):
@@ -1869,6 +2094,57 @@ def record_plans(planner):
     return calls
 
 
+@contextlib.contextmanager
+def record_controller_steps(wait_for_training=False):
+    """While open, every GpMpcController.get_action is timed blocked and
+    recorded: yields the list its records are appended to, one per step, as
+    SimpleNamespace(ctrl, i (the step's iter_ctrl), secs, launches (the
+    port's kernel launches of the step), planned, params (the GP parameters
+    the step started on), call (the step's ``planner.plan`` arguments and
+    result, as ``record_plans`` keeps them, or None), master (the planner's
+    f64 factorization right after that plan), wait_s, train_s). With
+    ``wait_for_training`` a planned step first waits for a dispatched
+    training, timed apart (wait_s; train_s its seconds on the CPU thread)."""
+    steps = []
+    get_action = GpMpcController.get_action
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def recorded_get_action(ctrl, obs_mu, obs_var=None, random=False):
+        planned = ctrl.iter_ctrl % ctrl.config.controller.num_repeat_actions == 0 and not random
+        wait_s = None
+        if wait_for_training and planned and ctrl._pending_train is not None:
+            t0 = time.perf_counter()
+            ctrl.wait_for_training()
+            wait_s = time.perf_counter() - t0
+        params, before, calls = ctrl.gp_params, ops.launch_counts(), []
+        plan = ctrl.planner.plan
+
+        def recorded_plan(*args, **kwargs):
+            calls.append((args, plan(*args, **kwargs)))
+            return calls[-1][1]
+
+        ctrl.planner.plan = recorded_plan
+        t0 = time.perf_counter()
+        try:
+            out = get_action(ctrl, obs_mu, obs_var, random)
+            sync()
+        finally:
+            del ctrl.planner.plan
+        after = ops.launch_counts()
+        steps.append(SimpleNamespace(
+            ctrl=ctrl, i=ctrl.iter_ctrl - 1, secs=time.perf_counter() - t0, planned=planned, params=params,
+            launches={k: after[k] - before[k] for k in after if after[k] != before[k]},
+            call=calls[0] if calls else None, master=ctrl.planner._cache if calls else None,
+            wait_s=wait_s, train_s=ctrl.last_train_seconds if wait_s is not None else None))
+        return out
+
+    GpMpcController.get_action = recorded_get_action
+    try:
+        yield steps
+    finally:
+        GpMpcController.get_action = get_action
+
+
 def _as_dtype(tree, dtype):
     return type(tree)(*(a.to(dtype) if isinstance(a, torch.Tensor) and a.is_floating_point() else a for a in tree))
 
@@ -1890,7 +2166,7 @@ def mixed_plan_gaps(plan_spec, master_cache, call, dev, label="controller"):
 
     def problem(spec, state_mu, state_var, inits, action_prev):
         return SimpleNamespace(spec=spec, state_mu=state_mu, state_var=state_var, inits=inits,
-                               action_prev=action_prev, n_points=int(mask.sum()), x=x_pad)
+                               action_prev=action_prev, n_points=int(mask.sum()), x=x_pad, iter_ctrl=iter_ctrl)
 
     ref_prob = problem(spec64, *ref_args)
     f, g = objective_and_grad(ref_prob, ref_planner._cache, ref_prob.inits[0])
@@ -1990,9 +2266,8 @@ def drive_controller(dev, card):
 def drive_run_env(dev, card):
     """Phase 7: the mountain-car example in mixed mode through the port's
     run_env on ``dev`` (see MC_HORIZON), two restarts at its one planned
-    step. Hooks installed for the phase (and removed after it) time each
-    get_action blocked with its launches, record the planned call (as
-    ``record_plans`` does) and the restart each plan keeps. Holds: 21
+    step. Hooks installed for the phase (and removed after it) record each
+    step (``record_controller_steps``) and the restart each plan keeps. Holds: 21
     finite costs, the episode's launches (EXPECTED_LAUNCHES, no other
     kernel), the planner's tensors on the card, and the plan against the
     card's f64 plan of the same memory, parameters and both inits by
@@ -2000,43 +2275,27 @@ def drive_run_env(dev, card):
     cfg = mountain_car_config(len_horizon=MC_HORIZON, num_repeat_actions=MC_REPEAT, dtype="float32")
     opt = cfg.controller.actions_optimizer_params
     cfg.controller.actions_optimizer_params = {**opt, "maxfun": MC_MAXFUN, "maxiter": MC_MAXFUN}
-    steps, calls, chosen = [], [], []
-    get_action, plan, select = GpMpcController.get_action, Planner.plan, planner_mod._select_restart
-
-    def timed_get_action(ctrl, *args, **kwargs):
-        before = ops.launch_counts()
-        t0 = time.perf_counter()
-        out = get_action(ctrl, *args, **kwargs)
-        torch.cuda.synchronize()
-        after = ops.launch_counts()
-        steps.append(SimpleNamespace(ctrl=ctrl, secs=time.perf_counter() - t0,
-                                     launches={k: after[k] - before[k] for k in after if after[k] != before[k]}))
-        return out
-
-    def recorded_plan(planner, *args, **kwargs):
-        out = plan(planner, *args, **kwargs)
-        calls.append((args, out))
-        return out
+    chosen, select = [], planner_mod._select_restart
 
     def recorded_select(fs):
         chosen.append((select(fs), fs.tolist()))
         return chosen[-1][0]
 
-    GpMpcController.get_action, Planner.plan, planner_mod._select_restart = (timed_get_action, recorded_plan,
-                                                                            recorded_select)
+    planner_mod._select_restart = recorded_select
     try:
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        costs = run_env(MountainCarContinuousEnv(seed=0), cfg, None, random_actions_init=MC_WARMUP,
-                        num_steps=MC_STEPS, verbose=False, seed=0, device=dev)
-        torch.cuda.synchronize()
-        episode_s = time.perf_counter() - t0
-        launches = ops.launch_counts()
+        with record_controller_steps() as steps:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            costs = run_env(MountainCarContinuousEnv(seed=0), cfg, None, random_actions_init=MC_WARMUP,
+                            num_steps=MC_STEPS, verbose=False, seed=0, device=dev)
+            torch.cuda.synchronize()
+            episode_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
         ctrl = steps[0].ctrl
         planned = [i for i in range(0, MC_STEPS, MC_REPEAT) if i >= MC_WARMUP]
-        for i, step in enumerate(steps):
-            if step.launches or i in planned:
-                log(f"phase 7 run_env step {i} ({'planned' if i in planned else 'random'}): {step.secs:.3f} s "
+        for step in steps:
+            if step.launches or step.i in planned:
+                log(f"phase 7 run_env step {step.i} ({'planned' if step.planned else 'random'}): {step.secs:.3f} s "
                     f"blocked, launches " + ", ".join(f"{k} {n}" for k, n in step.launches.items()))
         log(f"phase 7 run_env: {MC_STEPS} mountain-car steps in {episode_s:.3f} s blocked ({ctrl.memory.len_mem_model} "
             f"stored points in the {ctrl.memory.get_padded()[3]} bucket), launches "
@@ -2047,7 +2306,8 @@ def drive_run_env(dev, card):
         wrong = {k: n for k, n in launches.items() if n != expected.get(k, 0)}
         if wrong:
             raise AssertionError(f"the mountain-car episode launched {wrong}, expected {expected} and no other kernel")
-        if len(calls) != len(planned) or len(chosen) != len(planned):
+        calls = [s.call for s in steps if s.call is not None]
+        if [s.i for s in steps if s.planned] != planned or len(calls) != len(planned) or len(chosen) != len(planned):
             raise AssertionError(f"{len(calls)} plans for the planned steps {planned}")
         if ctrl.config.controller.restarts_optim != 2 or calls[0][0][7].shape[0] != 2:
             raise AssertionError("the mountain-car plan did not run two restarts")
@@ -2057,7 +2317,7 @@ def drive_run_env(dev, card):
         gaps = controller_plan_gaps(ctrl, calls[0], dev)
         ref_s = time.perf_counter() - t0
     finally:
-        GpMpcController.get_action, Planner.plan, planner_mod._select_restart = get_action, plan, select
+        planner_mod._select_restart = select
     (mixed_best, mixed_fs), (f64_best, f64_fs) = chosen
     log(f"phase 7 run_env restarts: mixed plan kept restart {mixed_best} of objectives {mixed_fs}, the card's f64 "
         f"plan restart {f64_best} of {f64_fs}")
@@ -2178,12 +2438,12 @@ def drive_sharding(dev, card, mprob, mplans, ref64):
         f"on {card}; one rank shows the path and the kernels on its slab, no multi-rank collective and no speed-up")
 
 
-def _to_cpu(tree):
-    """Tensors (also inside NamedTuples) moved to the CPU, anything else kept."""
+def _to_device(tree, dev):
+    """Tensors (also inside NamedTuples) moved to ``dev``, anything else kept."""
     if isinstance(tree, torch.Tensor):
-        return tree.cpu()
+        return tree.to(dev)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_to_cpu(a) for a in tree))
+        return type(tree)(*(_to_device(a, dev) for a in tree))
     return tree
 
 
@@ -2267,7 +2527,9 @@ def drive_sweep(dev, card):
 
     for i, tr in enumerate(trainings):
         new_card = tr.out[0]
-        new_cpu = train(*(_to_cpu(a) for a in tr.args), **{k: _to_cpu(v) for k, v in tr.kwargs.items()})[0]
+        cpu = torch.device("cpu")
+        new_cpu = train(*(_to_device(a, cpu) for a in tr.args),
+                        **{k: _to_device(v, cpu) for k, v in tr.kwargs.items()})[0]
         gap = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(new_card, new_cpu))
         log(f"phase 8 training, seed {SWEEP_SEEDS[i]}: {tr.secs:.3f} s blocked in f64 on the card "
             f"({int(tr.args[4].sum())} points, {spec.train_cfg.iters} L-BFGS iterations at most per model); raw "
@@ -2294,6 +2556,141 @@ def drive_sweep(dev, card):
     log(f"phase 8 sweep: aggregate_env_steps_per_sec {len(SWEEP_SEEDS) * SWEEP_STEPS / sweep_s:.3f}, seeds "
         + ", ".join(f"{t:.3f}" for t in seed_s) + " s, trainings " + ", ".join(f"{tr.secs:.3f}" for tr in trainings)
         + f" s on {card}")
+
+
+def load_example(path):
+    """A module of the repo's examples (not a package), loaded from its file."""
+    spec = importlib.util.spec_from_file_location(os.path.splitext(os.path.basename(path))[0],
+                                                  os.path.join(os.path.dirname(os.path.abspath(__file__)), path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def drive_process_control(dev, card):
+    """Phase 10: the time-varying process-control example in mixed mode
+    through the port's run_env_multiple on ``dev`` (see PC_RUNS), its plot
+    written into a temporary directory. Hooks installed for the phase (and
+    removed after it) record each step (``record_controller_steps``, which
+    waits for a dispatched training before a planned step and times it
+    apart) and count the plant's parameter redraws. Holds: finite costs of every run, the launches of
+    each planned step and of each run (EXPECTED_LAUNCHES, no other kernel),
+    a redraw of the plant inside each run, the trained parameters reaching
+    the plan, the time column of the stored inputs, and each run's planned
+    step against the card's f64 plan of the same memory, parameters, state
+    and inits by MIXED_TOL."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    example = load_example(PC_EXAMPLE)
+    env = example.make_env(period_change=PC_PERIOD_CHANGE)
+    cfg = example.make_config(dtype="float32")
+    opt = cfg.controller.actions_optimizer_params
+    cfg.controller.actions_optimizer_params = {**opt, "maxfun": PC_MAXFUN, "maxiter": PC_MAXFUN}
+    cfg.training.training_frequency = PC_TRAINING_FREQUENCY
+    repeat, redraws, define_params = cfg.controller.num_repeat_actions, [], env.define_params
+
+    def counted_define_params():
+        redraws.append(env.iter)
+        return define_params()
+
+    env.define_params = counted_define_params
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    try:
+        with (tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings(record=True) as caught,
+              record_controller_steps(wait_for_training=True) as steps):
+            warnings.simplefilter("always")
+            os.chdir(tmp)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            costs = run_env_multiple(env, example.ENV_NAME, cfg, None, num_runs=PC_RUNS,
+                                     random_actions_init=PC_WARMUP, num_steps=PC_STEPS, verbose=False, device=dev)
+            sync()
+            runs_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            plot = os.path.join(tmp, f"multiple_runs_costs_{example.ENV_NAME}.png")
+            plot_bytes = os.path.getsize(plot) if os.path.isfile(plot) else 0
+    finally:
+        os.chdir(cwd)
+        del env.define_params
+    if costs.shape != (PC_RUNS, PC_STEPS) or not np.all(np.isfinite(costs)):
+        raise AssertionError(f"run_env_multiple returned costs of shape {costs.shape}, finite: "
+                             f"{bool(np.all(np.isfinite(costs)))}")
+    # the plot where matplotlib is installed; else (the card's machine) the warning and no file
+    no_plot_warned = any("matplotlib is not installed" in str(w.message) for w in caught)
+    if importlib.util.find_spec("matplotlib") is not None:
+        if plot_bytes < 1000:
+            raise AssertionError(f"run_env_multiple wrote no plot ({plot_bytes} bytes)")
+        plot_note = f"plot {plot_bytes} bytes"
+    elif not no_plot_warned or plot_bytes:
+        raise AssertionError("without matplotlib run_env_multiple did not warn and skip its plot")
+    else:
+        plot_note = "no matplotlib here: run_env_multiple warned and wrote no plot"
+    expected = EXPECTED_LAUNCHES["process-control run"]
+    runs = [[s for s in steps if s.ctrl is c] for c in dict.fromkeys(s.ctrl for s in steps)]
+    if len(runs) != PC_RUNS or any(len(r) != PC_STEPS for r in runs):
+        raise AssertionError(f"{[len(r) for r in runs]} controller steps in {PC_RUNS} runs of {PC_STEPS}")
+    total = {}
+    for r, run in enumerate(runs):
+        ctrl = run[0].ctrl
+        planned = [s for s in run if s.planned]
+        run_launches = {}
+        for s in run:
+            for k, n in s.launches.items():
+                run_launches[k] = run_launches.get(k, 0) + n
+        for k, n in run_launches.items():
+            total[k] = total.get(k, 0) + n
+        training = [s for s in run if s.wait_s is not None]
+        log(f"phase 10 process-control run {r}: {PC_STEPS} steps in {sum(s.secs for s in run):.3f} s blocked "
+            f"({ctrl.memory.len_mem_model} stored points, time column "
+            f"{ctrl.memory.model_inputs[:ctrl.memory.len_mem_model, -1].tolist()}); planned steps "
+            + ", ".join(f"{s.i} {s.secs:.3f} s ({', '.join(f'{k} {n}' for k, n in s.launches.items())})"
+                        for s in planned)
+            + "; random steps " + ", ".join(f"{s.i} {s.secs:.3f} s" for s in run if s.launches and not s.planned)
+            + "; training " + ", ".join(
+                f"{s.train_s:.3f} s on the CPU thread, waited {s.wait_s:.3f} s before step {s.i}" for s in training)
+            + "; launches " + ", ".join(f"{k} {n}" for k, n in run_launches.items()))
+        if [s.i for s in planned] != list(range(PC_WARMUP, PC_STEPS, repeat)) or any(s.call is None for s in planned):
+            raise AssertionError(f"run {r} planned at steps {[s.i for s in planned]}")
+        for j, s in enumerate(planned):
+            want = expected["planned steps"][r][j]
+            if {k: n for k, n in s.launches.items() if n} != want:
+                raise AssertionError(f"run {r} planned step {s.i} launched {s.launches}, expected {want} and no "
+                                     f"other kernel")
+            if s.call[0][7].shape[0] != 2:
+                raise AssertionError(f"run {r} planned step {s.i} did not run two restarts")
+        if run_launches != expected["runs"][r]:
+            raise AssertionError(f"run {r} launched {run_launches}, expected {expected['runs'][r]} and no other "
+                                 f"kernel")
+        if len(training) != 1 or training[0].i != planned[0].i or ctrl._last_train_losses is None:
+            raise AssertionError(f"run {r}: the training was not waited for before the planned step")
+        used = planned[0].call[0][3]  # the GP parameters the plan ran on
+        if torch.equal(used.raw_lengthscales, run[0].params.raw_lengthscales) or not all(
+                torch.equal(a, b) for a, b in zip(used, ctrl.gp_params)):
+            raise AssertionError(f"run {r}: the trained parameters did not reach the plan")
+        times = ctrl.memory.model_inputs[:ctrl.memory.len_mem_model, -1]
+        if not np.array_equal(times, np.arange(len(times)) * repeat):
+            raise AssertionError(f"run {r}: the stored inputs' time column is {times.tolist()}")
+        if dev.type == "cuda":
+            check_on_card(ctrl)
+        check_plans([(s.call[1][0], s.call[1][2]) for s in planned], ctrl.plan_spec, finite_info=True)
+    if sorted(redraws) != sorted(list(range(PC_PERIOD_CHANGE, PC_STEPS, PC_PERIOD_CHANGE)) * PC_RUNS):
+        raise AssertionError(f"the plant was redrawn at its steps {redraws}")
+    gaps_all, t0 = [], time.perf_counter()
+    for r, run in enumerate(runs):
+        for s in (s for s in run if s.planned):
+            gaps = mixed_plan_gaps(run[0].ctrl.plan_spec, s.master, s.call, dev,
+                                   label=f"process-control run {r} step {s.i}")
+            gaps_all.append(gaps)
+            if not all(v <= MIXED_TOL[k] for k, v in gaps.items()):
+                raise AssertionError(f"run {r}'s planned step {s.i} disagrees with the card's f64 plan beyond "
+                                     f"{MIXED_TOL}: {gaps}")
+    ref_s = time.perf_counter() - t0
+    log(f"phase 10 process-control accuracy: each run's planned step within {MIXED_TOL} of the card's f64 plan (made and "
+        f"compared in {ref_s:.3f} s): " + "; ".join(", ".join(f"{k} {v:.3e}" for k, v in g.items()) for g in gaps_all))
+    log(f"phase 10 process-control: {PC_RUNS} mixed time-varying runs of {PC_STEPS} steps through run_env_multiple in "
+        f"{runs_s:.3f} s blocked ({plot_note}; the plant redrawn at its steps {sorted(set(redraws))} of "
+        f"each run), the phase {time.perf_counter() - t_phase:.3f} s; launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items() if n) + f" on {card}")
 
 
 def main() -> int:
@@ -2328,6 +2725,8 @@ def _run() -> int:
     kern = check_kernels(dev)
     kern.update(check_df_kernels(dev))
     kern.update(check_df_mm_kernels(dev))
+    for name, e in check_ns2_kernels(dev).items():
+        kern[name]["err"] = max(kern[name]["err"], e)
     log("phase 3 kernels: all twelve match their plain versions on the card")
     for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres", "df_fwd", "cov_bwd_row", "df_mm_bwd_pair N=192",
                  "df_mm_bwd_pair", "df_mm_bwd_mean N=192", "df_mm_bwd_mean", "gram", "cov_gik"):
@@ -2470,6 +2869,7 @@ def _run() -> int:
     drive_run_env(dev, card)
     drive_sweep(dev, card)
     drive_sharding(dev, card, mprob, mplans, ref64)
+    drive_process_control(dev, card)
 
     kernels_of = {  # name: (source, the TPU kernel it replaces, the driven path's launch counts)
         "gram": ("gram.cu", "pallas_gram.py:28", launches),

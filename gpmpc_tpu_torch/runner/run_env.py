@@ -18,6 +18,7 @@ running and stops the controller's training thread.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -124,7 +125,8 @@ def run_env_multiple(
     """Repeat run_env with seeds 0..num_runs-1; plot the mean±std cost curve
     to ``multiple_runs_costs_<env_name>.png`` in the working directory
     (reference run_env_function.py:52-72). Returns the costs (num_runs,
-    num_steps)."""
+    num_steps). Where matplotlib is not installed (the card's machine has
+    none), it warns and writes no plot instead of failing after the runs."""
     costs_runs = []
     for run_idx in range(num_runs):
         costs = run_env(
@@ -144,8 +146,11 @@ def run_env_multiple(
     costs_std = costs_runs.std(axis=0)
 
     if save_plot:
-        import matplotlib
-
+        try:
+            import matplotlib
+        except ImportError:
+            warnings.warn("run_env_multiple: matplotlib is not installed, so no plot of the costs is written")
+            return costs_runs
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 

@@ -271,9 +271,12 @@ DF_MM_SIZES = [32, 96, 128, 384]
 FULL_EPS = 4 * 2.0 ** -23
 
 
-def _df_mm_problem(seed, n, dev, ns=3, d=4):
+def _df_mm_problem(seed, n, dev, ns=3, d=4, time_column=False):
     """A random DFCache-shaped operand set (f64 draws split into f32 halves)
-    whose outputs do not cancel, with an input mean and state covariance."""
+    whose outputs do not cancel, with an input mean and state covariance.
+    ``time_column``: the last input is the time model's raw step index, as
+    the memory stores it every 10 steps (0, 10, ..., 10 (n - 1); the mean at
+    10 n + 5), with a time lengthscale of 50-1000."""
     from types import SimpleNamespace
 
     rng = np.random.default_rng(seed)
@@ -286,13 +289,18 @@ def _df_mm_problem(seed, n, dev, ns=3, d=4):
     ils = 1.0 / rng.uniform(0.3, 0.8, (ns, d))
     ik = rng.normal(0, 0.1, (ns, n, n))
     outs = rng.uniform(0.5, 1.0, ns)
+    x = rng.uniform(0, 1, (n, d))
+    mu = rng.uniform(0.3, 0.7, d)
+    if time_column:
+        ils[:, -1] = 1.0 / rng.uniform(50, 1000, ns)
+        x[:, -1] = 10.0 * np.arange(n)
+        mu[-1] = 10.0 * n + 5
     f = {}
-    for name, x in (("x", rng.uniform(0, 1, (n, d))), ("ils", ils), ("ils2", ils * ils),
-                    ("log_outs", np.log(outs)), ("beta", rng.normal(0, 1, (ns, n))),
-                    ("iK", (ik + ik.transpose(0, 2, 1)) / 2)):
-        f[f"{name}_hi"], f[f"{name}_lo"] = split(x)
+    for name, v in (("x", x), ("ils", ils), ("ils2", ils * ils), ("log_outs", np.log(outs)),
+                    ("beta", rng.normal(0, 1, (ns, n))), ("iK", (ik + ik.transpose(0, 2, 1)) / 2)):
+        f[f"{name}_hi"], f[f"{name}_lo"] = split(v)
     cache = SimpleNamespace(outs=torch.tensor(outs, dtype=torch.float32, device=dev), **f)
-    mu = torch.tensor(rng.uniform(0.3, 0.7, d), dtype=torch.float32, device=dev)
+    mu = torch.tensor(mu, dtype=torch.float32, device=dev)
     sv = torch.tensor(np.eye(ns) * 1e-2 + 2e-3, dtype=torch.float32, device=dev)
     return cache, mu, sv
 
@@ -777,3 +785,134 @@ def test_df_kernels_match_plain_on_rectangular_slabs(dev, nr, nc):
 
     for o, r in zip(grads(df_cov.DfCovCoreStacked.apply), grads(df_cov.DfCovCore.apply)):
         _within_largest(o, r)
+
+
+# the time-varying process-control path: ns = 2 (P = 3, diag_pos (0, 2)),
+# d = 5 with the time model's raw step index as the last input
+# ---------------------------------------------------------------------------
+
+NS2_DIAG = (0, 2)
+NS2_SIZES = [1, 37, 100, 192, 384]
+
+
+def _check_cov_kernels(a, c, u, xj, bi, bj, ik, diag):
+    """#2 and #3 against their plain twins (each output within COV_RTOL of
+    its sum of |terms|), both bitwise repeatable."""
+    p, dev = a.shape[0], a.device
+    s, co = moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, diag)
+    s_r, co_r = moment_cov.cov_core_ref(a, c, u, xj, bi, bj, ik, diag)
+    s_abs, co_abs = moment_cov.cov_fwd_abs_terms(a, c, u, xj, bi, bj, ik, diag)
+    assert torch.all((s - s_r).abs() <= COV_RTOL * s_abs) and torch.all((co - co_r).abs() <= COV_RTOL * co_abs)
+    again = moment_cov.cov_fwd(a, c, u, xj, bi, bj, ik, diag)
+    assert torch.equal(again[0], s) and torch.equal(again[1], co)
+    g = torch.linspace(1.0, 2.0, p, device=dev)
+    g_corr = torch.linspace(1.0, -2.0, len(diag), device=dev)
+    gco = torch.zeros(p, device=dev).index_copy(0, torch.tensor(diag, device=dev), g_corr)
+    out = moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, diag)
+    ref = moment_cov.cov_bwd_plain(g, a, c, u, xj, bi, bj, ik, g_corr, diag)
+    row = moment_cov.cov_bwd_row_abs_terms(g, a, c, u, xj, bi, bj, ik, gco, diag)
+    col = moment_cov.cov_bwd_row_abs_terms(g, c, a, xj, u, bj, bi, ik.transpose(1, 2), gco, diag)
+    for o, r, sc in zip(out, ref, (row[0], col[0], row[1], col[1], row[2], col[2])):
+        assert o.shape == r.shape
+        assert torch.all((o - r).abs() <= COV_RTOL * sc + 1e-30)
+    assert all(torch.equal(x, y) for x, y in zip(moment_cov.cov_bwd(g, a, c, u, xj, bi, bj, ik, g_corr, diag), out))
+
+
+def _check_df_kernels(args, diag):
+    """#5, #6 and #7 against their plain twins (the forwards within
+    DF_COV_RTOL of their sums of |terms|, the stacked backward within
+    DF_GRAD_RTOL of each output's largest entry), each bitwise repeatable."""
+    p, dev = args[0].shape[0], args[0].device
+    out = df_cov.df_cov_fwd(*args, diag)
+    ref = df_cov.df_cov_fwd_plain(*args, diag)
+    (s_abs, co_abs), (row_abs, col_abs) = df_cov.df_cov_abs_terms(*args, diag)
+    _df_within(out[0], out[1], ref[0], ref[1], s_abs)
+    _df_within(out[2], out[3], ref[2], ref[3], co_abs)
+    assert all(torch.equal(a, b) for a, b in zip(df_cov.df_cov_fwd(*args, diag), out))
+    rows, cols = df_cov.df_cov_fwdres(*args, diag)
+    rows_r, cols_r = df_cov.df_cov_fwdres_plain(*args, diag)
+    for o, r, scale in ((rows, rows_r, row_abs), (cols, cols_r, col_abs)):
+        for k in range(0, len(o), 2):
+            _df_within(o[k], o[k + 1], r[k], r[k + 1], scale[k] + 1e-300)
+    again = df_cov.df_cov_fwdres(*args, diag)
+    assert all(torch.equal(a, b) for a, b in zip(list(again[0]) + list(again[1]), list(rows) + list(cols)))
+    gs = torch.linspace(1.0, 2.0, p, device=dev)
+    gco = torch.zeros(p, device=dev).index_copy(0, torch.tensor(diag, device=dev),
+                                                torch.linspace(1.0, -2.0, len(diag), device=dev))
+    out = df_cov.df_cov_bwd(*args, gs, gco, diag)
+    for o, r in zip(out, df_cov.df_cov_bwd_plain(*args, gs, gco, diag)):
+        _within_largest(o, r)
+    assert all(torch.equal(a, b) for a, b in zip(df_cov.df_cov_bwd(*args, gs, gco, diag), out))
+
+
+@pytest.mark.parametrize("n", NS2_SIZES)
+def test_cov_kernels_match_plain_at_ns2(dev, n):
+    """The ns = 2 instances of #2 and #3 (the f32 step of a process-control
+    or mountain-car problem)."""
+    _check_cov_kernels(*_cov_problem(n + 21, n, dev, p=3, ns=2, m=2), NS2_DIAG)
+
+
+@pytest.mark.parametrize("n", NS2_SIZES)
+def test_df_kernels_match_plain_at_ns2(dev, n):
+    """The ns = 2 instances of #5, #6 and #7 (a mixed process-control step
+    past 128 stored points: 150 of the 1500-step workload in the 192
+    bucket)."""
+    _check_df_kernels(_df_problem(n + 22, n, dev, p=3, ns=2, m=2), NS2_DIAG)
+
+
+@pytest.mark.parametrize("n", [32, 37, 100, 128])
+def test_df_mm_kernels_match_plain_at_ns2_d5_with_a_time_column(dev, n):
+    """#12, #8 and #9 at the time-varying process-control widths (ns = 2,
+    d = 5), the last input column the raw step index up to 10 (n - 1) and
+    the mean's at 10 n + 5: the df32 split of values in the hundreds and
+    thousands leaves lo parts the kernels must carry as their twins do."""
+    from gpmpc_tpu_torch.ops import df_mm
+
+    cache, mu, sv = _df_mm_problem(n + 23, n, dev, ns=2, d=5, time_column=True)
+    assert float(cache.x_hi[:, -1].max()) == 10.0 * (n - 1) and float(mu[-1]) == 10.0 * n + 5
+    out = df_mm.full_step_fwd(mu, sv, cache)
+    ref = df_mm.full_step_plain(mu, sv, cache)
+    Bh, Bl, c32, Qh, Ql, sdr = _stage1(cache, sv)
+    m_abs, v_abs, sp_abs, co_abs = df_mm.abs_terms(mu, Bh, Bl, Qh, Ql, cache)
+    diag = df_mm.pair_indices(2, dev)[2]
+    sp_scale = (sp_abs + torch.zeros_like(sp_abs).index_add(0, diag, co_abs)) / sdr.double()
+    for o, r, sc in zip(out, ref, (m_abs * c32.double(), v_abs * c32.double()[:, None], sp_scale)):
+        err = (o.double() - r.double()).abs()
+        assert torch.all(err <= FULL_EPS * r.double().abs() + DF_COV_RTOL * sc), float(err.max())
+    assert all(torch.equal(a, b) for a, b in zip(df_mm.full_step_fwd(mu, sv, cache), out))
+    raw = df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache)
+    raw_ref = df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, cache)
+    for k, scale in enumerate((m_abs, v_abs, sp_abs, co_abs)):
+        _df_within(raw[2 * k], raw[2 * k + 1], raw_ref[2 * k], raw_ref[2 * k + 1], scale + 1e-300)
+    rng = np.random.default_rng(n)
+    g = [torch.tensor(rng.normal(size=sh), dtype=torch.float32, device=dev) for sh in ((2,), (2, 5), (3,), (2,))]
+    grads = df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g)
+    for o, r in zip(grads, df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, cache, *g)):
+        _within_largest(o, r)
+    assert all(torch.equal(a, b) for a, b in zip(df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g), grads))
+
+
+# the reference's larger buckets: the port's reach 2048 (memory/buffer.py),
+# as the JAX df cov kernels serve every padded N up to 2048
+# ---------------------------------------------------------------------------
+
+LARGE_SIZES = [768, 1536, 2048]
+
+
+@pytest.mark.parametrize("n", LARGE_SIZES)
+def test_cov_kernels_match_plain_at_large_n(dev, n):
+    _check_cov_kernels(*_cov_problem(n + 31, n, dev), DIAG)
+
+
+@pytest.mark.parametrize("n", LARGE_SIZES)
+def test_df_kernels_match_plain_at_large_n(dev, n):
+    _check_df_kernels(_df_problem(n + 32, n, dev), DIAG)
+
+
+def test_gram_kernel_matches_plain_at_2048(dev):
+    rng = np.random.default_rng(2048)
+    ls, outs, x = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (
+        rng.uniform(0.3, 2.0, (3, 4)), rng.uniform(0.02, 0.4, 3), rng.uniform(0, 1, (2048, 4))))
+    out = gram_rbf.gram(ls, outs, x)
+    torch.testing.assert_close(out, gram_rbf.gram_ref(ls, outs, x), rtol=2e-5, atol=2e-6)
+    assert torch.equal(gram_rbf.gram(ls, outs, x), out)

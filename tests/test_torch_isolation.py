@@ -71,7 +71,7 @@ def test_smoke_imports_and_cpu_planning_step_with_jax_blocked():
 def test_example_runners_import_with_jax_blocked():
     """Each torch example runner loads (not as __main__) with jax and
     gpmpc_tpu blocked, and none of them is loaded by it."""
-    assert len(EXAMPLE_RUNNERS) == 5
+    assert len(EXAMPLE_RUNNERS) == 6  # every JAX example runner has its torch twin
     code = textwrap.dedent(f"""
         import sys
         for name in {BLOCKED!r}:

@@ -460,3 +460,30 @@ def test_cov_gik_plan_covers_every_entry_once(nr, nc, sms):
     if (nr, nc, sms) == (384, 384, 132):  # the flagship's shapes: 9 rows x 96 quads, one item a thread
         assert moment_cov.gik_launch_plan(3, 384, 384, 132) == dict(rows=9, bands=43, quads=96, tx=96, ty=9,
                                                                       blocks=129)
+
+
+# the reference's larger buckets (the port's reach 2048, memory/buffer.py),
+# where tests/test_torch_cuda.py holds #1, #2, #3, #5, #6 and #7 on the card;
+# #6 runs #5's grid. P = 6 (ns = 3) and P = 3 (ns = 2, the process-control
+# path's width) on the H100's 132 SMs.
+LARGE_SIZES = [768, 1536, 2048]
+
+
+@pytest.mark.parametrize("n", LARGE_SIZES)
+def test_plans_cover_every_element_once_at_large_n(n):
+    sms = 132
+    for p, diag_pos, ns in ((6, (0, 3, 5), 3), (3, (0, 2), 2)):
+        rows, bands = moment_cov.fwd_launch_plan(p, n, sms)  # #2
+        assert 1 <= rows <= min(n, moment_cov.FWD_MAX_ROWS) and bands == -(-n // rows)
+        counts, _ = _cov_counts(p, n, rows, bands)  # past 1024 columns a thread takes one or two of a row
+        assert np.all(counts == 1), ("cov_fwd", p)
+        plan = df_cov.fwd_launch_plan(p, n, diag_pos, ns, sms)  # #5
+        counts, blocks, most = _df_fwd_counts(p, n, diag_pos, plan)
+        assert np.all(counts == 1) and (blocks, most) == (plan["blocks"], plan["max_bands"]), ("df_fwd", p)
+        plan = moment_cov.bwd_launch_plan(p, n)  # #3
+        assert plan["batches"] == -(-n // (32 * moment_cov.BWD_LANE_COLS))
+        assert np.all(_cov_bwd_counts(p, n, plan) == 1), ("cov_bwd", p)
+    if n == 2048:  # #1 on three models
+        plan = gram_rbf.launch_plan(3, n, sms)
+        assert plan["blocks"] <= sms
+        assert np.all(_band_counts(3, n, n, plan, gram_rbf.THREADS, 1) == 1)

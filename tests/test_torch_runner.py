@@ -121,6 +121,22 @@ def test_run_env_multiple_two_runs(tmp_path, monkeypatch):
     assert _train_threads() <= before
 
 
+def test_run_env_multiple_without_matplotlib(tmp_path, monkeypatch):
+    """Where matplotlib is not installed, as on the card's machine,
+    run_env_multiple returns the runs' costs with a warning and writes no
+    plot, instead of failing after the runs."""
+    import sys
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import matplotlib raises ImportError
+    cfg = small_pendulum_config(gpmpc_tpu_torch, len_horizon=3, training_frequency=100)
+    with pytest.warns(UserWarning, match="matplotlib is not installed"):
+        costs = run_env_multiple(PendulumEnv(seed=0), "Pendulum-v0", cfg, None, num_runs=2, random_actions_init=4,
+                                 num_steps=4, verbose=False, device="cpu")
+    assert costs.shape == (2, 4) and np.all(np.isfinite(costs))
+    assert not list(tmp_path.iterdir())
+
+
 def test_run_env_defaults_to_cuda():
     """Without ``device`` the episode runs on cuda; where torch finds no
     CUDA device run_env and run_env_multiple raise instead of carrying on

@@ -208,3 +208,70 @@ def test_training_restarts():
     _, one = tgp.train_hyperparams(params, bounds, x, y, mask, None, cfg, restarts=1,
                                    draws=torch.rand((3, NS, D + 2), generator=_gen(4), dtype=torch.float64)[:1])
     assert torch.all(losses <= one)  # the best of three runs includes the first
+
+
+def _time_model_problem(seed=3, n=30, pad=2):
+    """The process-control example's model with the time model on (ns = 2,
+    D = ns + na + 1 = 5), its bounds and initial parameters resolved by each
+    package's own ``ModelConfig.resolved`` (the time lengthscale's box 5-1000
+    and init 100, extend_dim_lengthscale_time), on inputs whose last column
+    is the raw iteration index of a point stored every 10 env steps (0-290),
+    as the memory stores it at ``num_repeat_actions`` = 10; the targets drift
+    with time as a plant whose parameters change does."""
+    import importlib.util
+    from pathlib import Path
+
+    from gpmpc_tpu_torch.example_configs import process_control_config
+
+    path = Path(__file__).resolve().parents[1] / "examples/process_control/config_process_control.py"
+    spec = importlib.util.spec_from_file_location("config_process_control", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    ns, d = 2, 5
+    rj = module.get_config(len_horizon=5, include_time_model=True, num_repeat_actions=10).model.resolved(ns, d)
+    rt = process_control_config(len_horizon=5, include_time_model=True, num_repeat_actions=10).model.resolved(ns, d)
+    for name in vars(rj):
+        np.testing.assert_array_equal(getattr(rt, name), getattr(rj, name), err_msg=name)
+    assert np.all(rj.min_lengthscale[:, -1] == 5) and np.all(rj.max_lengthscale[:, -1] == 1000)
+
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.uniform(0, 1, (n, d - 1)), 10.0 * np.arange(n)[:, None]], axis=1)
+    y = np.stack([0.05 * np.sin(3 * x[:, 0]) - 0.02 * x[:, 2] + 1e-4 * x[:, 4],
+                  0.03 * x[:, 1] * x[:, 3] - 0.01 * np.cos(x[:, 4] / 50.0)], axis=1)
+    y += rng.normal(0, 1e-3, y.shape)
+    x = np.concatenate([x, np.zeros((pad, d))])
+    y = np.concatenate([y, np.zeros((pad, ns))])
+    mask = np.arange(n + pad) < n
+    bounds = jgp.GPBounds(*(jnp.asarray(v) for v in (rj.min_lengthscale, rj.max_lengthscale, rj.min_outputscale,
+                                                      rj.max_outputscale, rj.min_noise_var, rj.max_noise_var)))
+    params = jgp.params_from_constrained(jnp.asarray(rj.init_lengthscale), jnp.asarray(rj.init_outputscale),
+                                         jnp.asarray(rj.init_noise_var), bounds)
+    return params, bounds, x, y, mask
+
+
+def test_train_hyperparams_with_the_time_model_matches_jax_with_its_draws():
+    """``train_hyperparams`` at D = 5 with the raw time column and the time
+    lengthscale's bounds (the time-varying process-control workload's
+    training), held to JAX's with JAX's draws: the losses within 1e-9
+    relative and the constrained parameters within 1e-7 of their box, over the
+    example's 15 iterations from its initial parameters and from a restart."""
+    params, bounds, x, y, mask = _time_model_problem()
+    ns, d = x.shape[1] - 3, x.shape[1]
+    cfg_j = jgp.TrainConfigDevice(lr=7e-3, iters=15, clip_grad_value=1e-3)
+    key = jax.random.PRNGKey(11)
+    restarts = 2
+    new_ref, losses_ref = jgp.train_hyperparams(params, bounds, jnp.asarray(x), jnp.asarray(y), jnp.asarray(mask),
+                                                key, cfg_j, restarts=restarts)
+    tparams, tbounds = _port(params, bounds)
+    new_out, losses_out = tgp.train_hyperparams(
+        tparams, tbounds, _t(x), _t(y), _t(mask, torch.bool), None, tgp.TrainConfigDevice(*cfg_j),
+        restarts=restarts, draws=_jax_draws(key, restarts, ns, d))
+    assert _rel(losses_out.numpy(), losses_ref) <= 1e-9
+    lo_hi = [(bounds.min_lengthscale, bounds.max_lengthscale), (bounds.min_outputscale, bounds.max_outputscale),
+             (bounds.min_noise, bounds.max_noise)]
+    for out, ref, (lo, hi) in zip(tgp.constrained_params(new_out, tbounds), jgp.constrained_params(new_ref, bounds),
+                                  lo_hi):
+        gap = np.abs(out.numpy() - np.asarray(ref)) / (np.asarray(hi) - np.asarray(lo))
+        assert gap.max() <= 1e-7
+    # the training moved the parameters: the comparison is not of two untouched inits
+    assert not np.allclose(np.asarray(new_ref.raw_lengthscales), np.asarray(params.raw_lengthscales))
