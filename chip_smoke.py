@@ -244,42 +244,43 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # line-search decisions).
 # Phase 7's mountain-car episode, each rollout 12 steps: the random steps 0,
 # 5, 10 and 15 one forward-only rollout each (48 df_mm_full); the planned
-# step two restarts of 4 value-and-grad evaluations each (MC_MAXFUN = 3 ends
-# a restart after its first evaluation and three accepted line searches; no
-# forward-only trial) and the rollout of its result: 9 x 12 df_mm_full, 8 x
-# 12 df_mm_fwd and df_mm_bwd (the same counts on the plain twins on the CPU).
-# Phase 8's sweep, each rollout 10 steps, per seed: the random evaluations
-# at t = 0, 5, 10 and 15 (40 df_mm_full; the training at t = 19 runs in f64,
-# no kernel) and the planned step at t = 20 as phase 7's (9 x 10 df_mm_full,
-# 8 x 10 df_mm_fwd and df_mm_bwd), for the two seeds (counted on the plain
-# twins on the CPU with the whole-step dispatch on).
+# step two restarts in one lockstep batch, 4 value-and-grad evaluations of
+# the batch (MC_MAXFUN = 3 ends each restart after its first evaluation and
+# three accepted line searches; no forward-only trial) and the rollout of its
+# result: 5 x 12 df_mm_full, 4 x 12 df_mm_fwd and df_mm_bwd (the same counts
+# on the plain twins on the CPU).
+# Phase 8's sweep, each rollout 10 steps, the two seeds in lockstep: the
+# random evaluations at t = 0, 5, 10 and 15 one batched rollout each (40
+# df_mm_full; the training at t = 19 runs in f64, no kernel) and the planned
+# step at t = 20, the seeds' two restarts each in one batch of four, as phase
+# 7's (5 x 10 df_mm_full, 4 x 10 df_mm_fwd and df_mm_bwd), counted on the
+# plain twins on the CPU with the whole-step dispatch on.
 # Phase 10's process-control runs, each rollout 5 steps: the random steps 0,
 # 10 and 20 one forward-only rollout each (15 df_mm_full); the planned step
-# 30 of run 1 two restarts of 3 value-and-grad evaluations each (30 df_mm_fwd
-# and df_mm_bwd; no forward-only line-search trial) and the rollout of its
-# result (35 df_mm_full), counted on the plain twins on the CPU with the
+# 30 two restarts in one lockstep batch, 3 value-and-grad evaluations of the
+# batch (15 df_mm_fwd and df_mm_bwd; no forward-only trial) and the rollout of
+# its result (20 df_mm_full), counted on the plain twins on the CPU with the
 # whole-step dispatch on. Run 0's planned step counts the same there, but not
 # on the card: its second restart's second value-and-grad evaluation rounds
-# to the same f32 objective as the first (0.03353068233; the plain twins'
-# is one f32 ulp, 3.7e-9, lower, and the f64 objectives differ by 3.3e-9:
-# the df32 objective's own error, ~1e-7 of it, decides the rounding), so the
-# line search finds no decrease and backtracks 14 times before the rollout
-# of the result: 5 value-and-grad and 15 forward-only rollouts, 100 / 25 /
-# 25. The card's kernels sum in a fixed order, so the card repeats it (three
-# calls); those are the counts held here.
+# to the same f32 objective as the first (the df32 objective's own error,
+# ~1e-7 of it, decides the rounding), so that restart's line
+# search finds no decrease and backtracks 14 times, forward only, and fails:
+# 3 value-and-grad and 14 forward-only batches and the rollout of the
+# result, 90 / 15 / 15. The card's kernels sum in a fixed
+# order, so the card repeats it; those are the counts held here.
 EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed plan": 5,
                      "df_fwdres per residual mixed plan": 25,
                      "df_fwd per stacked mixed plan": 30, "df_mm_bwd_mean per split rollout": 15,
                      "df_mm_bwd_pair per split rollout": 15,
                      "controller warmup step": {"df_mm_full": 15},
                      "controller planned steps": ({"df_mm_full": 135, "df_mm_fwd": 75, "df_mm_bwd": 75},),
-                     "mountain-car episode": {"df_mm_full": 156, "df_mm_fwd": 96, "df_mm_bwd": 96},
-                     "mountain-car sweep": {"df_mm_full": 260, "df_mm_fwd": 160, "df_mm_bwd": 160},
+                     "mountain-car episode": {"df_mm_full": 108, "df_mm_fwd": 48, "df_mm_bwd": 48},
+                     "mountain-car sweep": {"df_mm_full": 90, "df_mm_fwd": 40, "df_mm_bwd": 40},
                      "process-control run": {
-                         "planned steps": (({"df_mm_full": 100, "df_mm_fwd": 25, "df_mm_bwd": 25},),
-                                           ({"df_mm_full": 35, "df_mm_fwd": 30, "df_mm_bwd": 30},)),
-                         "runs": ({"df_mm_full": 115, "df_mm_fwd": 25, "df_mm_bwd": 25},
-                                  {"df_mm_full": 50, "df_mm_fwd": 30, "df_mm_bwd": 30})}}
+                         "planned steps": (({"df_mm_full": 90, "df_mm_fwd": 15, "df_mm_bwd": 15},),
+                                           ({"df_mm_full": 20, "df_mm_fwd": 15, "df_mm_bwd": 15},)),
+                         "runs": ({"df_mm_full": 105, "df_mm_fwd": 15, "df_mm_bwd": 15},
+                                  {"df_mm_full": 35, "df_mm_fwd": 15, "df_mm_bwd": 15})}}
 
 # Kernel tolerances, f32 on both sides. Gram entries are independent:
 # rtol 2e-5, atol 2e-6, as tests/test_pallas_ops.py holds the Pallas Gram.
@@ -1467,7 +1468,8 @@ def trained_gp_step_inputs(dev, n):
     finally:
         for name, fn in originals.items():
             setattr(gp_mod, name, fn)
-    mu, var = seen[-1]
+    mu, var = seen[-1]  # a rollout of one runs as a batch of one
+    mu, var = mu.reshape(mu.shape[-1:]), var.reshape(var.shape[-2:])
     ns = cache.ils_hi.shape[0]
     return cache, mu.float().contiguous(), var[:ns, :ns].float().contiguous()
 
@@ -1842,6 +1844,190 @@ def check_ns2_kernels(dev) -> dict:
         ms, _ = cuda_ms(call)
         log(f"kernel {name} at ns=2 (P={p}, N={n}, process-control operands): {ms:.4f} ms (device; {shape}) bound "
             f"{b:.5f} ms ({by})")
+    return errs
+
+
+# The batch axis of #12, #8 and #9 (phase 3): B elements in one launch,
+# each with its own mu, state covariance (and B^-1, Q, cotangents), against
+# one shared cache (a plan's restarts) or against C = 2 caches, element b
+# reading cache b / (B / C) (an episode batch's seeds, restarts inner). Each
+# element equals its own single launch bit for bit (the launch plans one
+# element; nothing is summed across elements), at every N, ns and d of the
+# paths; the batched launch is held to the batched plain twin within DF_TOL,
+# FULL_EPS and DF_GRAD_TOL at BATCH_TWIN (B, cache) pairs. BATCH_TIMES: the
+# batches timed at N = 128 against their bound times B. FOLD_N: the bucket
+# of the folded df cov core check (#5, #6 at B = 2: the batch folded into
+# the pair axis, the bands planned for one element).
+BATCH_SIZES = (2, 4)
+BATCH_TWIN = ((2, "shared"), (4, "per-seed"))
+BATCH_TIMES = (1, 2, 4, 8)
+BATCH_NS_D = ((3, 4), (2, 5))
+BATCH_N = (32, 128)
+FOLD_N = 192
+
+
+def stacked_cache(caches, index, dev):
+    """The caches stacked on a leading axis, element b reading cache index[b]."""
+    fields = {f: torch.stack([getattr(c, f) for c in caches]).contiguous()
+              for f in df_mm._CACHE_FIELDS + ("outs",)}
+    return SimpleNamespace(index=torch.tensor(index, dtype=torch.int32, device=dev), **fields)
+
+
+def batch_elements(dev, b, ns, d, seed):
+    """b elements' mu (b, d) and state covariances (b, ns, ns), each its own."""
+    rng = np.random.default_rng(seed)
+    mu = torch.tensor(rng.uniform(0.3, 0.7, (b, d)), dtype=torch.float32, device=dev)
+    sv = torch.tensor(np.stack([np.eye(ns) * 1e-2 * (1 + 0.2 * k) + 2e-3 for k in range(b)]), dtype=torch.float32,
+                      device=dev)
+    return mu, sv
+
+
+def batch_cotangents(dev, b, ns, d):
+    """Fixed cotangents g_M, g_V, g_S_p, g_corr of b elements, each its own."""
+    p = ns * (ns + 1) // 2
+    scale = torch.linspace(1.0, 1.5, b, device=dev)
+    return [scale.reshape((b,) + (1,) * len(shape)) * torch.linspace(lo, hi, k, device=dev).reshape(shape)
+            for lo, hi, k, shape in ((1.0, 2.0, ns, (ns,)), (-1.0, 1.0, ns * d, (ns, d)), (1.0, 2.0, p, (p,)),
+                                     (-1.0, -2.0, ns, (ns,)))]
+
+
+def check_batch(label, bcache, caches, index, mu, sv, twin) -> tuple[float, float, float]:
+    """#12, #8 and #9 on a batch: each element bit for bit its own single
+    launch on its own cache, and (``twin``) the batch within tolerance of
+    the batched plain twin. Returns the three kernels' max abs errors to the
+    twin (0 where not held to it)."""
+    b, d = mu.shape
+    ns = sv.shape[-1]
+    ii, jj, diag, _ = df_mm.pair_indices(ns, mu.device)
+    Bh, Bl, c32, Qh, Ql, sdr = df_mm.df_stage1(bcache, sv, ii, jj)
+    g = batch_cotangents(mu.device, b, ns, d)
+    calls = {"df_mm_full": (lambda: df_mm.full_step_fwd(mu, sv, bcache),
+                            lambda k, c: df_mm.full_step_fwd(mu[k], sv[k], c),
+                            lambda: df_mm.full_step_plain(mu, sv, bcache)),
+             "df_mm_fwd": (lambda: df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, bcache),
+                           lambda k, c: df_mm.stage23_fwd(mu[k], Bh[k], Bl[k], Qh[k], Ql[k], c),
+                           lambda: df_mm.stage23_plain(mu, Bh, Bl, Qh, Ql, bcache)),
+             "df_mm_bwd": (lambda: df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, bcache, *g),
+                           lambda k, c: df_mm.stage23_bwd_all(mu[k], Bh[k], Bl[k], Qh[k], Ql[k], c,
+                                                              *(t[k] for t in g)),
+                           lambda: df_mm.stage23_vjp_plain(mu, Bh, Bl, Qh, Ql, bcache, *g))}
+    errs = []
+    for name, (batched, single, plain) in calls.items():
+        before = df_mm.LAUNCHES[name]
+        out = batched()
+        if df_mm.LAUNCHES[name] != before + 1:
+            raise AssertionError(f"{name} [{label}]: the batch of {b} took {df_mm.LAUNCHES[name] - before} launches")
+        for k in range(b):
+            one = single(k, caches[index[k]])
+            if not all(torch.equal(o[k], r) for o, r in zip(out, one)):
+                raise AssertionError(f"{name} [{label}]: element {k} of the batch of {b} differs from its single "
+                                     f"launch")
+        if not twin:
+            errs.append(0.0)
+            continue
+        ref = plain()
+        worst, err = 0.0, 0.0
+        for k in range(b):
+            c = caches[index[k]]
+            m_abs, v_abs, sp_abs, co_abs = df_mm.abs_terms(mu[k], Bh[k], Bl[k], Qh[k], Ql[k], c)
+            if name == "df_mm_fwd":
+                for j, scale in enumerate((m_abs, v_abs, sp_abs, co_abs)):
+                    o = out[2 * j][k].double() + out[2 * j + 1][k].double()
+                    r = ref[2 * j][k].double() + ref[2 * j + 1][k].double()
+                    e, rel = max_err(o, r, scale)
+                    err, worst = max(err, e), max(worst, rel / DF_TOL)
+            elif name == "df_mm_full":
+                sp_scale = (sp_abs + torch.zeros_like(sp_abs).index_add(0, diag, co_abs)) / sdr[k].double()
+                for o, r, scale in zip(out, ref, (m_abs * c32[k].double(), v_abs * c32[k].double()[:, None],
+                                                  sp_scale)):
+                    diff = (o[k].double() - r[k].double()).abs()
+                    err = max(err, float(diff.max()))
+                    worst = max(worst, float((diff / (FULL_EPS * r[k].double().abs() + DF_TOL * scale)).max()))
+            else:
+                for o, r in zip(out, ref):
+                    e, rel = max_err(o[k], r[k])
+                    err, worst = max(err, e), max(worst, rel / DF_GRAD_TOL)
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} [{label}]: the batch of {b} disagrees with its batched plain twin "
+                                 f"({worst:.3e} of its tolerance)")
+        log(f"kernel {name} batch [{label}]: max abs err to the batched plain twin {err:.3e}, {worst:.3e} of its "
+            f"tolerance")
+        errs.append(err)
+    return tuple(errs)
+
+
+def check_folded_df_cov(dev) -> None:
+    """#5 and #6 on two elements' df cov operands folded into one launch's
+    pair axis (``models.gp._batched_cov_core``: pairs b P + p, iK stacked,
+    diag_pos shifted, the bands planned for one element) against one launch
+    per element, bit for bit, in the FOLD_N bucket."""
+    ns, n = 3, FOLD_N
+    diag_pos = tuple(int(q) for q in df_mm.pair_indices(ns, dev)[3])
+    p = ns * (ns + 1) // 2
+    elems = [random_df_operands(dev, p, n, ns, diag_pos, seed=n + 11 + k) for k in range(2)]
+    folded = [torch.cat(parts).contiguous() for parts in zip(*elems)]
+    fold_diag = diag_pos + tuple(p + q for q in diag_pos)
+    out = df_cov.df_cov_fwd(*folded, fold_diag, batch=2)
+    ones = [df_cov.df_cov_fwd(*e, diag_pos) for e in elems]
+    same = all(torch.equal(out[j][k * p:(k + 1) * p], ones[k][j]) for k in range(2) for j in range(2)) \
+        and all(torch.equal(out[j][k * len(diag_pos):(k + 1) * len(diag_pos)], ones[k][j]) for k in range(2)
+                for j in range(2, 4))
+    rows, cols = df_cov.df_cov_fwdres(*folded, fold_diag, batch=2)
+    res = [df_cov.df_cov_fwdres(*e, diag_pos) for e in elems]
+    same_res = all(torch.equal(t[k * p:(k + 1) * p], r) for k in range(2)
+                   for got, want in ((rows, res[k][0]), (cols, res[k][1])) for t, r in zip(got, want))
+    fwd_ms, _ = cuda_ms(lambda: df_cov.df_cov_fwd(*folded, fold_diag, batch=2))
+    one_ms, _ = cuda_ms(lambda: df_cov.df_cov_fwd(*elems[0], diag_pos))
+    res_ms, _ = cuda_ms(lambda: df_cov.df_cov_fwdres(*folded, fold_diag, batch=2))
+    res1_ms, _ = cuda_ms(lambda: df_cov.df_cov_fwdres(*elems[0], diag_pos))
+    log(f"kernel df_fwd and df_fwdres folded (B=2, P={2 * p}, N={n}): bit for bit with one launch per element: "
+        f"{same}, {same_res}; device ms {fwd_ms:.4f} and {res_ms:.4f} against {one_ms:.4f} and {res1_ms:.4f} for "
+        f"one element")
+    if not (same and same_res):
+        raise AssertionError("a folded df cov launch differs from its single launches")
+
+
+def check_batched_kernels(dev) -> dict:
+    """Phase 3's batch axis: #12, #8 and #9 at B = BATCH_SIZES, a shared
+    cache and per-seed caches, at N = BATCH_N and (ns, d) = BATCH_NS_D
+    (``check_batch``); the folded df cov core (``check_folded_df_cov``);
+    then device ms per call at B = BATCH_TIMES at N = 128 on the trained-GP
+    operands, each beside its bound times B. Returns each kernel's largest
+    error to its batched twin."""
+    errs = {}
+    for n in BATCH_N:
+        for ns, d in BATCH_NS_D:
+            caches = [random_df_mm_problem(dev, n, seed=n + 31 * c + ns, ns=ns, d=d)[0] for c in range(2)]
+            for b in BATCH_SIZES:
+                mu, sv = batch_elements(dev, b, ns, d, seed=n + b + ns)
+                for mode in ("shared", "per-seed"):
+                    index = [0] * b if mode == "shared" else [k * 2 // b for k in range(b)]
+                    bcache = caches[0] if mode == "shared" else stacked_cache(caches, index, dev)
+                    label = f"B={b}, {mode} cache, N={n}, ns={ns}, d={d}"
+                    out = check_batch(label, bcache, caches, index, mu, sv, (b, mode) in BATCH_TWIN)
+                    for name, e in zip(("df_mm_full", "df_mm_fwd", "df_mm_bwd"), out):
+                        errs[name] = max(errs.get(name, 0.0), e)
+            log(f"kernel df_mm_full, df_mm_fwd, df_mm_bwd batch (N={n}, ns={ns}, d={d}): B = "
+                f"{', '.join(map(str, BATCH_SIZES))} with a shared cache and with per-seed caches, each element bit "
+                f"for bit its own single launch")
+    check_folded_df_cov(dev)
+    cache, mu1, sv1 = trained_gp_step_inputs(dev, 128)
+    ns, d = cache.ils_hi.shape
+    for b in BATCH_TIMES:
+        off = torch.linspace(0.0, 2e-3, b, device=dev)
+        mu = (mu1 + off[:, None]).contiguous()
+        sv = (sv1 * (1 + off[:, None, None])).contiguous()
+        ii, jj, _, _ = df_mm.pair_indices(ns, dev)
+        Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(cache, sv, ii, jj)
+        g = batch_cotangents(dev, b, ns, d)
+        times = []
+        for name, call in (("df_mm_full", lambda: df_mm.full_step_fwd(mu, sv, cache)),
+                           ("df_mm_fwd", lambda: df_mm.stage23_fwd(mu, Bh, Bl, Qh, Ql, cache)),
+                           ("df_mm_bwd", lambda: df_mm.stage23_bwd_all(mu, Bh, Bl, Qh, Ql, cache, *g))):
+            ms, _ = cuda_ms(call)
+            bound, _, _ = df_mm_bound(name, 128, ns, d)
+            times.append(f"{name} {ms:.4f} ms (bound x B {bound * b:.5f} ms)")
+        log(f"kernel batch B={b} (N=128, trained-GP operands, one shared cache): " + ", ".join(times))
     return errs
 
 
@@ -2447,19 +2633,27 @@ def _to_device(tree, dev):
     return tree
 
 
+def seed_master(master, i):
+    """Seed i's f64 master of an episode batch's stacked factorizations."""
+    return master._replace(index=None, **{k: v[i] for k, v in master._asdict().items()
+                                          if isinstance(v, torch.Tensor)})
+
+
 def drive_sweep(dev, card):
     """Phase 8: the mixed mountain-car sweep of SWEEP_SEEDS through
     runner/episode.py's build_episodes_batch_fn on ``dev`` (see
-    SWEEP_SEEDS). Hooks installed for the phase (and removed after it) time
-    each seed's episode steps (blocked), record each planned step's f64
-    master, state, inits and result, and time each training (blocked) with
-    its inputs. Holds: finite costs, seeds that
-    differ, every output tensor on the card, the sweep's launches
-    (EXPECTED_LAUNCHES, no other kernel) and each seed's planned step against
-    the card's f64 plan of the same memory, trained parameters, state and
-    inits by MIXED_TOL. Prints each seed's seconds, each training's seconds
-    and the gap of its parameters to an f64 CPU training of the same inputs
-    and draws, and the sweep's aggregate env steps per second."""
+    SWEEP_SEEDS), the seeds in lockstep. Hooks installed for the phase (and
+    removed after it) record each planning step's stacked f64 masters,
+    states, inits and result (``plan_batch``: the seeds' restarts as one
+    L-BFGS-B batch) and time each training (``train_restarts``: the seeds'
+    restarts x models as one L-BFGS batch, blocked) with its inputs. Holds:
+    finite costs, seeds that differ, every output tensor on the card, the
+    sweep's launches (EXPECTED_LAUNCHES, no other kernel) and each seed's
+    planned step against the card's f64 plan of the same memory, trained
+    parameters, state and inits by MIXED_TOL. Prints the batch's seconds
+    (and per seed), the training's seconds and the gap of its parameters to
+    an f64 CPU training of the same inputs and draws, and the sweep's
+    aggregate env steps per second."""
 
     def edit(cfg):
         cfg.training.training_frequency = SWEEP_TRAINING_FREQUENCY
@@ -2468,33 +2662,24 @@ def drive_sweep(dev, card):
 
     setup = sweep_setup("mountain_car", "mixed", device=dev, steps=SWEEP_STEPS, edit_config=edit)
     spec = setup.spec
-    seed_s, plans, trainings = dict.fromkeys(SWEEP_SEEDS, 0.0), [], []
-    run_steps_of, plan_from_cache, train = episode_mod._Episode.run, episode_mod._plan_from_cache, \
-        episode_mod.train_hyperparams
-
-    def timed_run(episode, carry, ts):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run_steps_of(episode, carry, ts)
-        torch.cuda.synchronize()
-        seed_s[carry.draws.seed] += time.perf_counter() - t0
-        return out
+    seeds = len(SWEEP_SEEDS)
+    plans, trainings = [], []
+    plan_batch, train = episode_mod.plan_batch, episode_mod.train_restarts
 
     def recorded_plan(*args):
-        out = plan_from_cache(*args)
+        out = plan_batch(*args)
         plans.append((args, out))
         return out
 
-    def timed_train(*args, **kwargs):
+    def timed_train(*args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = train(*args, **kwargs)
+        out = train(*args)
         torch.cuda.synchronize()
-        trainings.append(SimpleNamespace(secs=time.perf_counter() - t0, args=args, kwargs=kwargs, out=out))
+        trainings.append(SimpleNamespace(secs=time.perf_counter() - t0, args=args, out=out))
         return out
 
-    episode_mod._Episode.run, episode_mod._plan_from_cache, episode_mod.train_hyperparams = (
-        timed_run, recorded_plan, timed_train)
+    episode_mod.plan_batch, episode_mod.train_restarts = recorded_plan, timed_train
     try:
         batch = build_episodes_batch_fn(spec)
         ops.reset_launch_counts()
@@ -2505,14 +2690,11 @@ def drive_sweep(dev, card):
         sweep_s = time.perf_counter() - t0
         launches = ops.launch_counts()
     finally:
-        episode_mod._Episode.run, episode_mod._plan_from_cache, episode_mod.train_hyperparams = (
-            run_steps_of, plan_from_cache, train)
-    seed_s = list(seed_s.values())
-    log(f"phase 8 sweep: {len(SWEEP_SEEDS)} mixed mountain-car episodes of {SWEEP_STEPS} steps in {sweep_s:.3f} s "
-        f"blocked (" + ", ".join(f"seed {s} {t:.3f} s" for s, t in zip(SWEEP_SEEDS, seed_s)) + "), "
-        f"{out['final_mem'].len_model.tolist()} GP points of model_cap {spec.model_cap}, launches "
-        + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
-    if not bool(torch.isfinite(out["cost"]).all()) or tuple(out["cost"].shape) != (len(SWEEP_SEEDS), SWEEP_STEPS):
+        episode_mod.plan_batch, episode_mod.train_restarts = plan_batch, train
+    log(f"phase 8 sweep: {seeds} mixed mountain-car episodes of {SWEEP_STEPS} steps in lockstep in {sweep_s:.3f} s "
+        f"blocked ({sweep_s / seeds:.3f} s per seed), {out['final_mem'].len_model.tolist()} GP points of model_cap "
+        f"{spec.model_cap}, launches " + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+    if not bool(torch.isfinite(out["cost"]).all()) or tuple(out["cost"].shape) != (seeds, SWEEP_STEPS):
         raise AssertionError(f"the sweep's costs {tuple(out['cost'].shape)} are not all finite")
     if torch.equal(out["obs"][0], out["obs"][1]):
         raise AssertionError("the two seeds' trajectories are equal")
@@ -2522,40 +2704,40 @@ def drive_sweep(dev, card):
     wrong = {k: n for k, n in launches.items() if n != expected.get(k, 0)}
     if wrong:
         raise AssertionError(f"the mountain-car sweep launched {wrong}, expected {expected} and no other kernel")
-    if len(plans) != len(SWEEP_SEEDS) or len(trainings) != len(SWEEP_SEEDS):
-        raise AssertionError(f"{len(plans)} plans and {len(trainings)} trainings for {len(SWEEP_SEEDS)} seeds")
+    if len(plans) != 1 or len(trainings) != 1:
+        raise AssertionError(f"{len(plans)} planning steps and {len(trainings)} trainings, expected one each")
 
-    for i, tr in enumerate(trainings):
-        new_card = tr.out[0]
-        cpu = torch.device("cpu")
-        new_cpu = train(*(_to_device(a, cpu) for a in tr.args),
-                        **{k: _to_device(v, cpu) for k, v in tr.kwargs.items()})[0]
-        gap = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(new_card, new_cpu))
-        log(f"phase 8 training, seed {SWEEP_SEEDS[i]}: {tr.secs:.3f} s blocked in f64 on the card "
-            f"({int(tr.args[4].sum())} points, {spec.train_cfg.iters} L-BFGS iterations at most per model); raw "
-            f"parameters {gap:.3e} of their largest entry from an f64 CPU training of the same inputs and draws "
-            f"(printed only)")
+    tr = trainings[0]
+    cpu = torch.device("cpu")
+    raws_cpu, _ = train(*(_to_device(a, cpu) for a in tr.args))
+    gap = float((tr.out[0].cpu() - raws_cpu).abs().max() / raws_cpu.abs().max())
+    log(f"phase 8 training: {tr.secs:.3f} s blocked in f64 on the card, {seeds} seeds x "
+        f"{tr.args[6].shape[1]} restarts x {tr.args[6].shape[2]} models as one L-BFGS batch "
+        f"({tr.args[4].sum(dim=-1).tolist()} points, {spec.train_cfg.iters} iterations at most); raw parameters "
+        f"{gap:.3e} of their largest entry from an f64 CPU training of the same inputs and draws (printed only)")
 
+    (plan_spec, master, state_mu, state_var, inits, action_prev, t), (a_opt, info) = plans[0]
     gaps_all = []
     t0 = time.perf_counter()
-    for i, ((plan_spec, cache, state_mu, state_var, inits, action_prev, t), result) in enumerate(plans):
+    for i in range(seeds):
         # the planned step at t = 20 plans with the parameters of the
         # training at t = 19, the episode's last: its final_params
         params = type(out["final_params"])(*(f[i] for f in out["final_params"]))
+        cache = seed_master(master, i)
         args = (cache.x_mem.cpu().numpy(), cache.y_mem.cpu().numpy(), cache.mask.cpu().numpy(), params, spec.bounds,
-                state_mu, state_var, inits, action_prev, t)
+                state_mu[i], state_var, inits[i], action_prev[i], t)
+        result = (a_opt[i], None, type(info)(*(f[i] for f in info)))
         gaps = mixed_plan_gaps(plan_spec, cache, (args, result), dev, label=f"sweep seed {SWEEP_SEEDS[i]}")
         gaps_all.append(gaps)
         if not all(v <= MIXED_TOL[k] for k, v in gaps.items()):
             raise AssertionError(f"seed {SWEEP_SEEDS[i]}'s planned step disagrees with the card's f64 plan beyond "
                                  f"{MIXED_TOL}: {gaps}")
     ref_s = time.perf_counter() - t0
-    log(f"phase 8 sweep accuracy: each seed's planned step (t = {plans[0][0][6]}, two restarts) within {MIXED_TOL} "
-        f"of the card's f64 plan (made and compared in {ref_s:.3f} s): "
-        + "; ".join(", ".join(f"{k} {v:.3e}" for k, v in g.items()) for g in gaps_all))
-    log(f"phase 8 sweep: aggregate_env_steps_per_sec {len(SWEEP_SEEDS) * SWEEP_STEPS / sweep_s:.3f}, seeds "
-        + ", ".join(f"{t:.3f}" for t in seed_s) + " s, trainings " + ", ".join(f"{tr.secs:.3f}" for tr in trainings)
-        + f" s on {card}")
+    log(f"phase 8 sweep accuracy: each seed's planned step (t = {t}, {inits.shape[1]} restarts, the seeds' "
+        f"{seeds * inits.shape[1]} in one batch) within {MIXED_TOL} of the card's f64 plan (made and compared in "
+        f"{ref_s:.3f} s): " + "; ".join(", ".join(f"{k} {v:.3e}" for k, v in g.items()) for g in gaps_all))
+    log(f"phase 8 sweep: aggregate_env_steps_per_sec {seeds * SWEEP_STEPS / sweep_s:.3f}, the batch "
+        f"{sweep_s:.3f} s ({sweep_s / seeds:.3f} s per seed), training {tr.secs:.3f} s on {card}")
 
 
 def load_example(path):
@@ -2726,6 +2908,8 @@ def _run() -> int:
     kern.update(check_df_kernels(dev))
     kern.update(check_df_mm_kernels(dev))
     for name, e in check_ns2_kernels(dev).items():
+        kern[name]["err"] = max(kern[name]["err"], e)
+    for name, e in check_batched_kernels(dev).items():
         kern[name]["err"] = max(kern[name]["err"], e)
     log("phase 3 kernels: all twelve match their plain versions on the card")
     for name in ("df_mm_full", "cov_fwd", "df_mm_bwd", "df_fwdres", "df_fwd", "cov_bwd_row", "df_mm_bwd_pair N=192",

@@ -11,11 +11,14 @@ steps: one new stored point is an O(Ns N^2) extension, anything else a full
 refactorization.
 
 Restarts: the JAX package optimizes all restarts in one vmapped program;
-here they run one after another, each an independent L-BFGS-B from its own
-init, which computes what the vmap computes (a restart under vmap does not
-see the others, and the batched line search the vmap runs accepts the same
-points as the grad-first one here: tests/test_lbfgs.py pins it in JAX). The
-restarts would share one rollout once the kernels take a batch axis.
+here they run as one lockstep batch (``lbfgs_b_minimize_batch``): every
+objective evaluation rolls out all the restarts still running in one
+batched rollout, one launch of each kernel per horizon step, and each
+restart computes what it would alone (a restart under vmap does not see the
+others, and the batched line search the vmap runs accepts the same points
+as the grad-first one here: tests/test_lbfgs.py pins it in JAX). The
+on-device episodes batch their seeds' restarts the same way, each seed's
+against its own cache (``_run_restarts`` with a cache index).
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ from ..models.gp import (
     extend_factorization,
     masked_cholesky_factorize,
     predict_trajectory,
+    select_elements,
     split_cache_df,
 )
-from .lbfgs import lbfgs_b_minimize
+from .lbfgs import lbfgs_b_minimize_batch
 
 
 class PlanSpec(NamedTuple):
@@ -54,6 +58,8 @@ class PlanSpec(NamedTuple):
 
 
 class TrajectoryInfo(NamedTuple):
+    """Of one plan; a batched evaluation's fields have the batch in front."""
+
     states_mu_pred: torch.Tensor  # (Nh+1, Ns)
     states_var_pred: torch.Tensor  # (Nh+1, Ns, Ns)
     rewards_traj: torch.Tensor  # (Nh+1,)
@@ -63,6 +69,8 @@ class TrajectoryInfo(NamedTuple):
 
 def _objective_and_info(spec: PlanSpec, cache: FactorizationCache, actions_mpc, state_mu,
                         state_var, action_prev, iter_ctrl):
+    """The objective and TrajectoryInfo of actions_mpc (..., Nh*Na), every
+    argument's leading batch broadcast against the others'."""
     actions_model = mpc_to_model_actions(spec.action, actions_mpc, action_prev)
     states_mu, states_var = predict_trajectory(
         cache, actions_model, state_mu, state_var, iter_ctrl, spec.include_time_model)
@@ -72,7 +80,7 @@ def _objective_and_info(spec: PlanSpec, cache: FactorizationCache, actions_mpc, 
     ucb = rewards + spec.reward.exploration_factor * torch.sqrt(torch.clamp(rewards_var, min=0.0))
     if spec.reward.clip_lower_bound_cost_to_0:
         ucb = ste_clamp(ucb, -float("inf"), 0.0)
-    mean_ucb = torch.mean(ucb)
+    mean_ucb = torch.mean(ucb, dim=-1)
     return -mean_ucb, TrajectoryInfo(states_mu, states_var, rewards, rewards_var, mean_ucb)
 
 
@@ -86,7 +94,8 @@ def _cast_cache(cache: FactorizationCache, dtype):
         return cache
     if dtype == torch.float32 and cache.x_mem.dtype == torch.float64:
         return split_cache_df(cache)
-    return FactorizationCache(*(a.to(dtype) if a.is_floating_point() else a for a in cache))
+    return cache._replace(**{k: a.to(dtype) for k, a in cache._asdict().items()
+                             if torch.is_tensor(a) and a.is_floating_point()})
 
 
 def _select_restart(fs) -> int:
@@ -100,20 +109,27 @@ def _select_restart(fs) -> int:
 
 
 def _run_restarts(spec: PlanSpec, cache, state_mu, state_var, inits, action_prev, iter_ctrl):
-    """Each restart's box L-BFGS-B from its init, inits (R, Nh*Na), on a
-    cache already in the rollout's dtype: (xs (R, Nh*Na), fs (R,))."""
+    """Every restart's box L-BFGS-B from its init, inits (B, Nh*Na), as one
+    lockstep batch on a cache already in the rollout's dtype: (xs (B,
+    Nh*Na), fs (B,)). state_mu, state_var and action_prev are one for all
+    ((Ns,), (Ns, Ns), (Na,)) or one per element (a leading B); the cache is
+    shared, or with an index (B,) each element's (the seeds of an episode
+    batch, ``with_index``)."""
 
-    def objective(a):
-        cost, _ = _objective_and_info(spec, cache, a, state_mu, state_var, action_prev, iter_ctrl)
+    def each(t, dims, idx):
+        return t if t.dim() == dims else t[idx]
+
+    def objective(a, idx):
+        cost, _ = _objective_and_info(spec, select_elements(cache, idx), a, each(state_mu, 1, idx),
+                                      each(state_var, 2, idx), each(action_prev, 1, idx), iter_ctrl)
         return cost
 
     if inits.shape[0] == 0:  # a rank's empty chunk of the restarts
         return inits, inits[:, 0]
     lower = torch.zeros_like(inits[0])
     upper = torch.ones_like(inits[0])
-    xs, fs = zip(*(lbfgs_b_minimize(objective, a0, lower, upper, maxiter=spec.maxiter, maxcor=spec.maxcor,
-                                    maxls=spec.maxls, maxfun=spec.maxfun) for a0 in inits))
-    return torch.stack(xs), torch.stack(fs)
+    return lbfgs_b_minimize_batch(objective, inits, lower, upper, maxiter=spec.maxiter, maxcor=spec.maxcor,
+                                  maxls=spec.maxls, maxfun=spec.maxfun)
 
 
 def _best_restart(spec: PlanSpec, cache, xs, fs, state_mu, state_var, action_prev, iter_ctrl):

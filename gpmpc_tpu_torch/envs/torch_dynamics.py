@@ -27,6 +27,12 @@ the env casts them to its dtype and device):
 JAX's keys cannot be reproduced here, so a test that holds an env to the
 JAX one passes a ``draw`` that returns the JAX package's values.
 
+A batch of envs (the seeds of an episode batch, in lockstep) steps in one
+call: ``step_fn`` takes a state stacked over a leading axis
+(``stack_states`` of the seeds' ``init_fn`` states) and actions (S, Na),
+with ``generator`` a list of the seeds' generators, each seed's draws made
+from its own in its order; every element computes what it would alone.
+
 ``dtype`` is the env's arithmetic (f64 under mixed mode, as in the JAX
 package's sweep); an action of another dtype is cast to it first, which is
 exact from f32 to f64, as JAX's type promotion is. ``device`` None is
@@ -40,6 +46,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops.lanewise import lanewise
 
 PROCESS_PARAMS = ("s", "fi", "ci", "cr", "noise_l", "noise_co", "sp_l", "sp_co")
 
@@ -72,6 +80,25 @@ def _drawn(values, dtype, device) -> torch.Tensor:
     return torch.tensor(np.array(values, dtype=np.float64)).to(device=device, dtype=dtype)
 
 
+def _draw_each(draw, generator, name, dtype, device) -> torch.Tensor:
+    """The named draw from one generator, or from each of a list of them
+    (a batch of envs), stacked on a leading axis."""
+    if isinstance(generator, (list, tuple)):
+        return torch.stack([_drawn(draw(g, name), dtype, device) for g in generator])
+    return _drawn(draw(generator, name), dtype, device)
+
+
+def stack_states(states):
+    """The env states of a batch of envs (each from ``init_fn``) stacked on
+    a leading axis: tensors stacked; a dict's tensors stacked and its other
+    values (the step counter, the same for every env in lockstep) kept."""
+    first = states[0]
+    if isinstance(first, dict):
+        return {k: stack_states([s[k] for s in states]) if isinstance(v, (dict, torch.Tensor)) else v
+                for k, v in first.items()}
+    return torch.stack(states)
+
+
 def _angle_normalize(x):
     return ((x + math.pi) % (2 * math.pi)) - math.pi
 
@@ -86,21 +113,21 @@ def pendulum_spec(dtype=torch.float64, device=None, draw=None) -> TorchEnvSpec:
     draw = draw or default_draw
 
     def _obs(state):
-        th, thdot = state[0], state[1]
-        return torch.stack([torch.cos(th), torch.sin(th), thdot])
+        th, thdot = state[..., 0], state[..., 1]
+        return torch.stack([lanewise(torch.cos, th), lanewise(torch.sin, th), thdot], dim=-1)
 
     def init_fn(generator):
         state = _drawn(draw(generator, "init"), dtype, device)
         return state, _obs(state)
 
     def step_fn(state, action_raw, generator):
-        th, thdot = state[0], state[1]
-        u = torch.clamp(action_raw[0].to(dtype), -max_torque, max_torque)
+        th, thdot = state[..., 0], state[..., 1]
+        u = torch.clamp(action_raw[..., 0].to(dtype), -max_torque, max_torque)
         cost = _angle_normalize(th) ** 2 + 0.1 * thdot**2 + 0.001 * u**2
-        newthdot = thdot + (-3 * g / (2 * l) * torch.sin(th + math.pi) + 3.0 / (m * l**2) * u) * dt
+        newthdot = thdot + (-3 * g / (2 * l) * lanewise(torch.sin, th + math.pi) + 3.0 / (m * l**2) * u) * dt
         newth = th + newthdot * dt
         newthdot = torch.clamp(newthdot, -max_speed, max_speed)
-        new_state = torch.stack([newth, newthdot])
+        new_state = torch.stack([newth, newthdot], dim=-1)
         return new_state, _obs(new_state), -cost
 
     return TorchEnvSpec(
@@ -131,13 +158,13 @@ def mountain_car_spec(dtype=torch.float64, device=None, draw=None) -> TorchEnvSp
         return state, state
 
     def step_fn(state, action_raw, generator):
-        pos, vel = state[0], state[1]
-        force = torch.clamp(action_raw[0].to(dtype), -1.0, 1.0)
-        vel = torch.clamp(vel + force * power - 0.0025 * torch.cos(3 * pos), -max_speed, max_speed)
+        pos, vel = state[..., 0], state[..., 1]
+        force = torch.clamp(action_raw[..., 0].to(dtype), -1.0, 1.0)
+        vel = torch.clamp(vel + force * power - 0.0025 * lanewise(torch.cos, 3 * pos), -max_speed, max_speed)
         new_pos = torch.clamp(pos + vel, min_pos, max_pos)
         vel = torch.where((new_pos == min_pos) & (vel < 0), torch.zeros_like(vel), vel)
         reward = torch.where(new_pos >= goal, 100.0, 0.0).to(dtype) - 0.1 * force**2
-        new_state = torch.stack([new_pos, vel])
+        new_state = torch.stack([new_pos, vel], dim=-1)
         return new_state, new_state, reward
 
     return TorchEnvSpec(
@@ -192,15 +219,16 @@ def process_control_spec(
     draw = draw or default_draw
 
     def _draw_params(generator):
-        values = _drawn(draw(generator, "params"), dtype, device)
-        return {k: values[i] for i, k in enumerate(PROCESS_PARAMS)}
+        values = _draw_each(draw, generator, "params", dtype, device)
+        return {k: values[..., i] for i, k in enumerate(PROCESS_PARAMS)}
 
     def _obs(env_state, generator):
         p = env_state["params"]
-        noise = _drawn(draw(generator, "noise"), dtype, device)
-        l_mes = env_state["v"] / p["s"] + noise[0] * p["noise_l"] * obs_high[0]
-        co_mes = env_state["r"] / (env_state["v"] + 1e-6) + noise[1] * p["noise_co"] * obs_high[1]
-        return torch.stack([torch.clamp(l_mes, obs_low[0], obs_high[0]), torch.clamp(co_mes, obs_low[1], obs_high[1])])
+        noise = _draw_each(draw, generator, "noise", dtype, device)
+        l_mes = env_state["v"] / p["s"] + noise[..., 0] * p["noise_l"] * obs_high[0]
+        co_mes = env_state["r"] / (env_state["v"] + 1e-6) + noise[..., 1] * p["noise_co"] * obs_high[1]
+        return torch.stack([torch.clamp(l_mes, obs_low[0], obs_high[0]), torch.clamp(co_mes, obs_low[1], obs_high[1])],
+                           dim=-1)
 
     def init_fn(generator):
         params = _draw_params(generator)
@@ -214,8 +242,8 @@ def process_control_spec(
         p = env_state["params"]
         v, r = env_state["v"], env_state["r"]
         a = action_raw.to(dtype)
-        dv = p["fi"] + a[1] - a[0]
-        dr = p["fi"] * p["ci"] + a[1] * p["cr"] - a[0] * r / (v + 1e-3)
+        dv = p["fi"] + a[..., 1] - a[..., 0]
+        dr = p["fi"] * p["ci"] + a[..., 1] * p["cr"] - a[..., 0] * r / (v + 1e-3)
         v = v + dv * dt
         r = r + dr * dt
         it = env_state["iter"] + 1

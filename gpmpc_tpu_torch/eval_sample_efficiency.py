@@ -5,7 +5,8 @@ claims are cost-vs-interaction curves averaged over 10-20 serial host runs
 (reference run_env_function.py:52-72; README.md:99-133 "Pendulum solved in
 < 100 interactions"). Here every seed's whole episode (warmup, planning,
 memory, training and the env) runs on the device through
-``runner.episode``, the seeds one after another.
+``runner.episode``, the seeds in lockstep (one batched program, as JAX's
+vmap over keys).
 
 Usage (from the repository root):
 

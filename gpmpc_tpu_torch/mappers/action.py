@@ -41,15 +41,17 @@ class ActionMapperSpec(NamedTuple):
 
 
 def mpc_to_model_actions(spec: ActionMapperSpec, actions_mpc, action_prev):
-    """Flat (Nh*Na,) optimizer variables -> (Nh, Na) normalized actions;
-    ``action_prev`` anchors the cumsum of the derivative mapping."""
-    acts = actions_mpc.reshape(spec.len_horizon, spec.dim_action)
+    """Flat (..., Nh*Na) optimizer variables -> (..., Nh, Na) normalized
+    actions; ``action_prev`` (..., Na) anchors the cumsum of the derivative
+    mapping. Leading batches broadcast."""
+    acts = actions_mpc.reshape(actions_mpc.shape[:-1] + (spec.len_horizon, spec.dim_action))
     if not spec.limit_action_change:
         return acts
     mc = spec.max_change_action_norm
     deltas = acts * 2.0 * mc - mc
-    deltas = torch.cat([deltas[:1] + action_prev, deltas[1:]], dim=0)
-    return ste_clamp(torch.cumsum(deltas, dim=0), 0.0, 1.0)
+    deltas = deltas.expand(torch.broadcast_shapes(deltas.shape[:-2], action_prev.shape[:-1]) + deltas.shape[-2:])
+    deltas = torch.cat([deltas[..., :1, :] + action_prev[..., None, :], deltas[..., 1:, :]], dim=-2)
+    return ste_clamp(torch.cumsum(deltas, dim=-2), 0.0, 1.0)
 
 
 def norm_action(action_raw, action_low, action_high):

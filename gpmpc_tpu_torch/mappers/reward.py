@@ -21,6 +21,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.lanewise import lanewise
+
 
 class RewardSpec(NamedTuple):
     target_state_action_norm: torch.Tensor  # (Ns+Na,)
@@ -36,23 +38,27 @@ class RewardSpec(NamedTuple):
 
 
 def _normal_cdf(x, mu, sigma):
-    return 0.5 * (1.0 + torch.special.erf((x - mu) / (sigma * math.sqrt(2.0))))
+    return 0.5 * (1.0 + lanewise(torch.special.erf, (x - mu) / (sigma * math.sqrt(2.0))))
 
 
 def _quad_cost(error, sa_var, W):
-    """Batched over a leading axis: error (B, K), sa_var (B, K, K), W (K, K)."""
-    e_row = error[:, None, :]
-    e_col = error[:, :, None]
-    cost_mu = torch.diagonal(sa_var @ W, dim1=-2, dim2=-1).sum(-1) + (e_row @ W @ e_col)[:, 0, 0]
+    """Batched over leading axes: error (..., K), sa_var (..., K, K), W (K,
+    K). W is expanded to the batch, so that every product is one small
+    matrix product per element, which rounds the same whatever the batch."""
+    e_row = error[..., None, :]
+    e_col = error[..., :, None]
+    W = W.expand(sa_var.shape)
+    cost_mu = torch.diagonal(sa_var @ W, dim1=-2, dim2=-1).sum(-1) + (e_row @ W @ e_col)[..., 0, 0]
     TS = W @ sa_var
     cost_var = 2.0 * torch.diagonal(TS @ TS, dim1=-2, dim2=-1).sum(-1) \
-        + 4.0 * (e_row @ TS @ W @ e_col)[:, 0, 0]
+        + 4.0 * (e_row @ TS @ W @ e_col)[..., 0, 0]
     return cost_mu, cost_var
 
 
 def reward_single(spec: RewardSpec, state_mu, state_var, action):
-    """Stage reward (negative cost) and cost variance, batched over stages:
-    state_mu (B, Ns), state_var (B, Ns, Ns), action (B, Na) -> (B,), (B,)."""
+    """Stage reward (negative cost) and cost variance, batched over stages
+    and any leading axes: state_mu (..., Ns), state_var (..., Ns, Ns),
+    action (..., Na) -> (...), (...)."""
     na = action.shape[-1]
     error = torch.cat([state_mu, action], dim=-1) - spec.target_state_action_norm
     sa_var = F.pad(state_var, (0, na, 0, na))
@@ -67,15 +73,16 @@ def reward_single(spec: RewardSpec, state_mu, state_var, action):
 
 
 def reward_terminal(spec: RewardSpec, state_mu, state_var):
-    """Terminal reward with its own weights: (Ns,), (Ns, Ns) -> scalars."""
-    error = (state_mu - spec.target_state_norm)[None]
-    cost_mu, cost_var = _quad_cost(error, state_var[None], spec.weight_matrix_cost_terminal)
-    return -cost_mu[0], cost_var[0]
+    """Terminal reward with its own weights: (..., Ns), (..., Ns, Ns) ->
+    (...), (...)."""
+    error = (state_mu - spec.target_state_norm)[..., None, :]
+    cost_mu, cost_var = _quad_cost(error, state_var[..., None, :, :], spec.weight_matrix_cost_terminal)
+    return -cost_mu[..., 0], cost_var[..., 0]
 
 
 def rewards_trajectory(spec: RewardSpec, states_mu, states_var, actions):
     """Stage rewards on states[:-1] with actions, terminal on states[-1]:
-    ((Nh+1,), (Nh+1,))."""
-    r_stage, rv_stage = reward_single(spec, states_mu[:-1], states_var[:-1], actions)
-    r_term, rv_term = reward_terminal(spec, states_mu[-1], states_var[-1])
-    return torch.cat([r_stage, r_term[None]]), torch.cat([rv_stage, rv_term[None]])
+    ((..., Nh+1), (..., Nh+1)) for states_mu (..., Nh+1, Ns)."""
+    r_stage, rv_stage = reward_single(spec, states_mu[..., :-1, :], states_var[..., :-1, :, :], actions)
+    r_term, rv_term = reward_terminal(spec, states_mu[..., -1, :], states_var[..., -1, :, :])
+    return torch.cat([r_stage, r_term[..., None]], dim=-1), torch.cat([rv_stage, rv_term[..., None]], dim=-1)

@@ -114,41 +114,43 @@ def gram(lengthscales, outputscales, x):
     return _gram_mod.gram(lengthscales, outputscales, x)
 
 
-def cov_core(a, c, u, xj, bi, bj, ik, diag_pos):
+def cov_core(a, c, u, xj, bi, bj, ik, diag_pos, batch=1):
     """(S_p, corr) of the moment-matching covariance (see moment_cov). An
     installed override first, in every dtype; under ``disable_pallas`` the
-    plain core; otherwise ``_cov_core_by_device``."""
+    plain core; otherwise ``_cov_core_by_device``. ``batch``: the pairs are
+    that many elements of a batched rollout, folded into the pair axis
+    (``models.gp._batched_cov_core``); the kernels plan for one element."""
     if _COV_CORE_OVERRIDE is not None:
         return _COV_CORE_OVERRIDE(a, c, u, xj, bi, bj, ik, diag_pos)
     if _PALLAS_DISABLED:
         return cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos)
-    return _cov_core_by_device(a, c, u, xj, bi, bj, ik, diag_pos)
+    return _cov_core_by_device(a, c, u, xj, bi, bj, ik, diag_pos, batch)
 
 
-def _cov_core_by_device(a, c, u, xj, bi, bj, ik, diag_pos):
+def _cov_core_by_device(a, c, u, xj, bi, bj, ik, diag_pos, batch=1):
     """``cov_core``'s rules without the switches (what the N-sharded core
     runs on each rank's slab): the plain core, differentiable in every
     argument, on the CPU and on the card past COV_MAX_NS state dims;
     otherwise CovCore, whose kernels take float32 only."""
     if a.device.type == "cpu" or u.shape[-1] > COV_MAX_NS:
         return cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos)
-    return CovCore.apply(a, c, u, xj, bi, bj, ik, tuple(diag_pos))
+    return CovCore.apply(a, c, u, xj, bi, bj, ik, tuple(diag_pos), batch)
 
 
-def df_cov_core(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+def df_cov_core(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos, batch=1):
     """df32 (S_p h, l, corr h, l) of the moment-matching covariance (see
     df_cov). An installed override first; under ``disable_pallas`` the
     plain core, differentiable by autograd; otherwise
-    ``_df_cov_core_by_device``."""
+    ``_df_cov_core_by_device``. ``batch`` as in ``cov_core``."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
     if _DF_COV_CORE_OVERRIDE is not None:
         return _DF_COV_CORE_OVERRIDE(*args, diag_pos)
     if _PALLAS_DISABLED:
         return df_cov_core_ref(*args, diag_pos)
-    return _df_cov_core_by_device(*args, diag_pos)
+    return _df_cov_core_by_device(*args, diag_pos, batch)
 
 
-def _df_cov_core_by_device(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+def _df_cov_core_by_device(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos, batch=1):
     """``df_cov_core``'s rules without the switches (what the N-sharded df
     core runs on each rank's slab). Under autograd (grad mode on and an
     operand requiring a gradient) DfCovCore, which takes the
@@ -163,10 +165,10 @@ def _df_cov_core_by_device(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl,
         return df_cov_core_ref(*args, diag_pos)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         core = DfCovCoreStacked if _df_mod.VJP_MODE == "stacked" else DfCovCore
-        return core.apply(*args, tuple(diag_pos))
+        return core.apply(*args, tuple(diag_pos), batch)
     if ah.device.type == "cpu":
         return df_cov_core_ref(*args, diag_pos)
-    return df_cov_fwd(*args, tuple(diag_pos))
+    return df_cov_fwd(*args, tuple(diag_pos), batch)
 
 
 def use_df_fused(n: int, ns: int, d: int, device) -> bool:

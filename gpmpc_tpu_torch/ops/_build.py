@@ -46,16 +46,16 @@ _SIGNATURES = {
     "gpmpc_empty_launch": (_I,) * 3 + (_P,),
     "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 8 + (_P,),
     "gpmpc_df_fwd_info": (_I,) * 5 + (_P,),
-    "gpmpc_df_fwdres_max_bands": (_I,) * 4,
-    "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 3 + (_I,) * 4 + (_P,),
-    "gpmpc_df_fwdres_info": (_I,) * 4 + (_P,),
+    "gpmpc_df_fwdres_max_bands": (_I,) * 5,
+    "gpmpc_df_fwdres_f32": (_P,) * 15 + (_I,) + (_P,) * 3 + (_I,) * 5 + (_P,),
+    "gpmpc_df_fwdres_info": (_I,) * 5 + (_P,),
     "gpmpc_df_bwd_f32": (_P,) * 17 + (_I,) + (_P,) * 2 + (_I,) * 3 + (_P,),
     "gpmpc_df_bwd_side_f32": (_P,) * 17 + (_I,) + (_P,) * 2 + (_I,) * 5 + (_P,),
     "gpmpc_df_mm_tile": (),
-    "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 4 + (_P,),
-    "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 4 + (_P,),
+    "gpmpc_df_mm_full_f32": (_P,) * 19 + (_I,) * 4 + (_P, _I, _P),
+    "gpmpc_df_mm_fwd_f32": (_P,) * 20 + (_I,) * 4 + (_P, _I, _P),
     "gpmpc_df_mm_full_info": (_I,) * 3 + (_P,),
-    "gpmpc_df_mm_bwd_f32": (_P,) * 24 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_f32": (_P,) * 24 + (_I,) * 3 + (_P, _I, _P),
     "gpmpc_df_mm_bwd_info": (_I,) * 2 + (_P,),
     "gpmpc_df_mm_bwd_mean_f32": (_P,) * 18 + (_I,) * 3 + (_P,),
     "gpmpc_df_mm_bwd_mean_info": (_I,) * 3 + (_P,),

@@ -591,23 +591,33 @@ bool valid_plan(const FwdPlan& plan, int blocks) {
          plan.max_bands >= 1 && blocks >= 1;
 }
 
-Bands fwdres_bands(int p, int nr, int n_diag, int ns) {
+// The bands are planned for one batch element: a launch whose P pairs are
+// `batch` elements of P / batch pairs each (models/gp.py folds a batched
+// rollout so) gets each element's bands, and so its column sums in its own
+// order, whatever the batch; the grid is every element's blocks.
+Bands fwdres_bands(int p, int nr, int n_diag, int ns, int batch) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int pe = p / batch, de = n_diag / batch;
   const double cd = fwdres_elem_cost(ns, true), co = fwdres_elem_cost(ns, false);
-  const double per_sm = (double)nr * (n_diag * cd + (p - n_diag) * co) / (sms > 0 ? sms : 1);
+  const double per_sm = (double)nr * (de * cd + (pe - de) * co) / (sms > 0 ? sms : 1);
   auto clamp_rows = [](double r) { return r < 1 ? 1 : r > kMaxBandWarps ? kMaxBandWarps : (int)r; };
   Bands b{};
   for (double work = per_sm;; work *= 1.01) {  // the least work per block that fits one wave
     b.rows_d = clamp_rows(work / cd);
     b.rows_o = clamp_rows(work / co);
     const int nb_d = (nr + b.rows_d - 1) / b.rows_d, nb_o = (nr + b.rows_o - 1) / b.rows_o;
-    b.blocks = n_diag * nb_d + (p - n_diag) * nb_o;
-    b.max_bands = n_diag > 0 && nb_d > nb_o ? nb_d : p > n_diag ? nb_o : nb_d;
-    if (b.blocks <= sms || (b.rows_d == kMaxBandWarps && b.rows_o == kMaxBandWarps)) return b;
+    b.blocks = de * nb_d + (pe - de) * nb_o;
+    b.max_bands = de > 0 && nb_d > nb_o ? nb_d : pe > de ? nb_o : nb_d;
+    if (b.blocks <= sms || (b.rows_d == kMaxBandWarps && b.rows_o == kMaxBandWarps)) {
+      b.blocks *= batch;
+      return b;
+    }
   }
 }
+
+bool valid_fold(int p, int n_diag, int batch) { return batch >= 1 && p % batch == 0 && n_diag % batch == 0; }
 
 template <int NS>
 size_t fwdres_smem() {
@@ -616,9 +626,9 @@ size_t fwdres_smem() {
 
 template <int NS>
 int launch_fwdres(const Operands& o, const int* diag_pos, int n_diag, float* col_part, float* row_out,
-                  float* col_out, int p, int nr, int nc, cudaStream_t stream) {
+                  float* col_out, int p, int nr, int nc, int batch, cudaStream_t stream) {
   constexpr int NV = 2 + 2 * NS;
-  const Bands b = fwdres_bands(p, nr, n_diag, NS);
+  const Bands b = fwdres_bands(p, nr, n_diag, NS, batch);
   const int threads = 32 * (b.rows_d > b.rows_o ? b.rows_d : b.rows_o);
   const size_t smem = fwdres_smem<NS>();
   int rc = (int)cudaFuncSetAttribute(df_fwdres_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -635,11 +645,11 @@ int launch_fwdres(const Operands& o, const int* diag_pos, int n_diag, float* col
 // #6's registers, spill bytes, threads, resident blocks per SM, grid, SMs
 // and dynamic shared memory at (p, nr, n_diag), for the smoke's report
 template <int NS>
-int fwdres_info(int p, int nr, int n_diag, int* info) {
+int fwdres_info(int p, int nr, int n_diag, int batch, int* info) {
   cudaFuncAttributes a;
   int rc = (int)cudaFuncGetAttributes(&a, df_fwdres_kernel<NS>);
   if (rc != 0) return rc;
-  const Bands b = fwdres_bands(p, nr, n_diag, NS);
+  const Bands b = fwdres_bands(p, nr, n_diag, NS, batch);
   const int threads = 32 * (b.rows_d > b.rows_o ? b.rows_d : b.rows_o);
   rc = (int)cudaFuncSetAttribute(df_fwdres_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)fwdres_smem<NS>());
@@ -710,32 +720,38 @@ int gpmpc_df_fwd_info(int ns, int rows_d, int rows_o, int max_bands, int blocks,
 }
 
 // the most bands of a pair of df_fwdres on this card: the wrapper sizes
-// col_part with it
-int gpmpc_df_fwdres_max_bands(int p, int nr, int n_diag, int ns) { return fwdres_bands(p, nr, n_diag, ns).max_bands; }
+// col_part with it (batch: fwdres_bands)
+int gpmpc_df_fwdres_max_bands(int p, int nr, int n_diag, int ns, int batch) {
+  if (!valid_fold(p, n_diag, batch)) return -1;
+  return fwdres_bands(p, nr, n_diag, ns, batch).max_bands;
+}
 
+// batch: the P pairs are that many batch elements of P / batch pairs, each
+// with the same diagonal pairs, planned for one element (fwdres_bands)
 int gpmpc_df_fwdres_f32(const float* ah, const float* al, const float* ch, const float* cl,
                         const float* uh, const float* ul, const float* xjh, const float* xjl,
                         const float* bih, const float* bil, const float* bjh, const float* bjl,
                         const float* ikh, const float* ikl, const int* diag_pos, int n_diag,
                         float* col_part, float* row_out, float* col_out, int p, int nr, int nc, int ns,
-                        void* stream) {
-  if (p < 1 || nr < 1 || nc < 1 || p > 65535) return (int)cudaErrorInvalidValue;
+                        int batch, void* stream) {
+  if (p < 1 || nr < 1 || nc < 1 || p > 65535 || !valid_fold(p, n_diag, batch)) return (int)cudaErrorInvalidValue;
   const Operands o{ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ns) {
-    case 1: return launch_fwdres<1>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, s);
-    case 2: return launch_fwdres<2>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, s);
-    case 3: return launch_fwdres<3>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, s);
+    case 1: return launch_fwdres<1>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, batch, s);
+    case 2: return launch_fwdres<2>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, batch, s);
+    case 3: return launch_fwdres<3>(o, diag_pos, n_diag, col_part, row_out, col_out, p, nr, nc, batch, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // #6's launch report (fwdres_info): info[9]
-int gpmpc_df_fwdres_info(int p, int nr, int n_diag, int ns, int* info) {
+int gpmpc_df_fwdres_info(int p, int nr, int n_diag, int ns, int batch, int* info) {
+  if (!valid_fold(p, n_diag, batch)) return (int)cudaErrorInvalidValue;
   switch (ns) {
-    case 1: return fwdres_info<1>(p, nr, n_diag, info);
-    case 2: return fwdres_info<2>(p, nr, n_diag, info);
-    case 3: return fwdres_info<3>(p, nr, n_diag, info);
+    case 1: return fwdres_info<1>(p, nr, n_diag, batch, info);
+    case 2: return fwdres_info<2>(p, nr, n_diag, batch, info);
+    case 3: return fwdres_info<3>(p, nr, n_diag, batch, info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

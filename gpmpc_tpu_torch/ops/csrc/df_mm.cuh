@@ -32,6 +32,34 @@ struct Cache {
 
 __device__ __forceinline__ df ld(const float* h, const float* l, size_t i) { return {h[i], l[i]}; }
 
+// The batch axis of #12, #8 and #9: block row blockIdx.y is element b of
+// the launch, and element b reads cache cidx[b] of C caches stacked on a
+// leading axis (cache 0 when cidx is null: one cache shared by every
+// element, as the restarts of a plan share their GP). Each element's
+// operands, partials and outputs lie after the element before it's; nothing
+// is summed across elements, so an element's result does not depend on the
+// others in the launch.
+template <int NS>
+__device__ __forceinline__ Cache cache_of(Cache c, const int* cidx, int b) {
+  const size_t k = cidx == nullptr ? 0 : (size_t)cidx[b];
+  const size_t nd = (size_t)c.n * c.d, md = (size_t)NS * c.d, mn = (size_t)NS * c.n;
+  c.xh += k * nd;
+  c.xl += k * nd;
+  c.ilsh += k * md;
+  c.ilsl += k * md;
+  c.ils2h += k * md;
+  c.ils2l += k * md;
+  c.logoh += k * NS;
+  c.logol += k * NS;
+  c.beth += k * mn;
+  c.betl += k * mn;
+  c.ikh += k * mn * c.n;
+  c.ikl += k * mn * c.n;
+  return c;
+}
+
+__device__ __forceinline__ int cache_index(const int* cidx, int b) { return cidx == nullptr ? 0 : cidx[b]; }
+
 __device__ __forceinline__ void st(float* base, size_t plane, size_t i, df v) {
   base[i] = v.h;
   base[plane + i] = v.l;
@@ -311,6 +339,9 @@ __device__ void load_tile(const Cache& c, const float* mu, const df* q, int i, i
 }
 
 bool valid(int n, int ns, int d) { return n >= 1 && ns >= 1 && ns <= kMaxNs && d >= ns && d <= kMaxD; }
+
+// a launch's batch: grid rows, at most the grid's y extent
+bool valid_batch(int batch) { return batch >= 1 && batch <= 65535; }
 
 }  // namespace
 

@@ -84,6 +84,12 @@ Cot cot_block(const float* ct, int ns, int d) {
   return {ct, ct + ns, ct + ns + ns * d, ct + ns + ns * d + ns * (ns + 1) / 2};
 }
 
+// batch element elem's four, each (batch, k) row major
+__device__ __forceinline__ Cot cot_at(Cot ct, int ns, int d, int elem) {
+  const size_t b = elem;
+  return {ct.m + b * ns, ct.v + b * ns * d, ct.sp + b * (ns * (ns + 1) / 2), ct.corr + b * ns};
+}
+
 // ct: the cotangents.
 // #11: row_part and col_part [2][P][1 + NS][nt][N] (part_at): for point n
 // of pair p, G and G Xj_e summed over column tile t (the row side), or G
@@ -602,18 +608,35 @@ __device__ void bwd_unit(const Cache& c, const float* __restrict__ mu, const flo
 }
 
 // #9: kUnitBlocks blocks (a cluster) per unit, then nt mean blocks (padded
-// to whole clusters; a padding block returns at once)
-template <int NS>
+// to whole clusters; a padding block returns at once); with BATCHED, grid
+// row y is the batch element (df_mm.cuh cache_of), whose operands,
+// cotangents and partials follow the element before's (one element with
+// its one cache launches the instance without, as #12 does)
+template <int NS, bool BATCHED>
 __global__ void __cluster_dims__(kUnitBlocks, 1, 1) __launch_bounds__(kUnitThreads, 1)
 df_mm_bwd_kernel(Cache c, const float* __restrict__ mu, const float* __restrict__ bh,
                  const float* __restrict__ bl, const float* __restrict__ qh, const float* __restrict__ ql,
-                 Cot ct, float* __restrict__ mean_part, float* __restrict__ unit_part) {
+                 Cot ct, float* __restrict__ mean_part, float* __restrict__ unit_part,
+                 const int* __restrict__ cidx) {
   constexpr int P = NS * (NS + 1) / 2;
   gpmpc_pdl::release_dependents();
   __shared__ UnitShared<NS> s;
   extern __shared__ df dyn[];
   const int nt = (c.n + kTile - 1) / kTile;
   const int nub = kUnitBlocks * 2 * P * nt;
+  if constexpr (BATCHED) {  // this block's batch element
+    const int elem = blockIdx.y;
+    const size_t nv = c.d + NS * NS;
+    c = cache_of<NS>(c, cidx, elem);
+    mu += (size_t)elem * c.d;
+    bh += (size_t)elem * NS * NS * NS;
+    bl += (size_t)elem * NS * NS * NS;
+    qh += (size_t)elem * P * NS * NS;
+    ql += (size_t)elem * P * NS * NS;
+    ct = cot_at(ct, NS, c.d, elem);
+    mean_part += (size_t)elem * 2 * NS * nt * nv;
+    unit_part += (size_t)elem * 2 * 2 * P * nt * nv;
+  }
   if ((int)blockIdx.x < nub)
     bwd_unit<NS>(c, mu, qh, ql, ct, unit_part, blockIdx.x / kUnitBlocks, s, dyn);
   else if ((int)blockIdx.x - nub < nt)
@@ -857,13 +880,14 @@ df_mm_bwd_mean_kernel(Cache c, const float* __restrict__ mu, const float* __rest
   }
 }
 
-// #9's second launch, one block, a programmatic dependent of the first: each
+// #9's second launch, one block per batch element (blockIdx.x; with
+// BATCHED), a programmatic dependent of the first: each
 // output a sequential df sum in a fixed order: g_mu = -(units + mean path),
 // g_B = mean path, g_Q = units of its pair. The partials are first copied
 // into shared memory (all threads, coalesced) when they fit (smem_floats),
 // so that each sum's chain waits on no global load. out: g_mu (d), g_B
 // (NS^3), g_Q (P NS^2), f32.
-template <int NS>
+template <int NS, bool BATCHED>
 __global__ void __launch_bounds__(kSumThreads)
 df_mm_bwd_sum_kernel(int n, int d, const float* __restrict__ mean_part, const float* __restrict__ unit_part,
                      float* __restrict__ out, int smem_floats) {
@@ -875,6 +899,12 @@ df_mm_bwd_sum_kernel(int n, int d, const float* __restrict__ mean_part, const fl
   const int units = 2 * P * nt;
   const size_t uplane = (size_t)units * nv;
   const size_t mplane = (size_t)NS * nt * nv;
+  if constexpr (BATCHED) {
+    const int elem = blockIdx.x;
+    unit_part += (size_t)elem * 2 * uplane;
+    mean_part += (size_t)elem * 2 * mplane;
+    out += (size_t)elem * (d + NS * NS * NS + P * NS * NS);
+  }
   const float* up = unit_part;
   const float* mp = mean_part;
   if ((size_t)smem_floats >= 2 * (uplane + mplane)) {
@@ -918,30 +948,42 @@ int bwd_grid(int n) {
 }
 
 // past 48 KB of dynamic shared memory a kernel must be allowed it
-template <int NS>
+template <int NS, bool BATCHED = false>
 int allow_dyn_smem(size_t dyn) {
   if (dyn > kMaxUnitDynSmem) return (int)cudaErrorInvalidValue;
   if (dyn <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(df_mm_bwd_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  return (int)cudaFuncSetAttribute(df_mm_bwd_kernel<NS, BATCHED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)dyn);
 }
 
-template <int NS>
-int launch_bwd(const Cache& c, const float* mu, const float* bh, const float* bl, const float* qh,
-               const float* ql, Cot ct, float* mean_part, float* unit_part, float* out,
-               cudaStream_t stream) {
+// the grid of one element is the B = 1 launch's; batch rows of it
+template <int NS, bool BATCHED>
+int launch_bwd_as(const Cache& c, const float* mu, const float* bh, const float* bl, const float* qh,
+                  const float* ql, Cot ct, float* mean_part, float* unit_part, float* out, const int* cidx,
+                  int batch, cudaStream_t stream) {
   const size_t dyn = unit_dyn_smem<NS>(c.n);
-  int rc = allow_dyn_smem<NS>(dyn);
+  int rc = allow_dyn_smem<NS, BATCHED>(dyn);
   if (rc != 0) return rc;
-  df_mm_bwd_kernel<NS><<<bwd_grid<NS>(c.n), kUnitThreads, dyn, stream>>>(c, mu, bh, bl, qh, ql, ct, mean_part,
-                                                                         unit_part);
+  df_mm_bwd_kernel<NS, BATCHED><<<dim3(bwd_grid<NS>(c.n), batch), kUnitThreads, dyn, stream>>>(
+      c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, cidx);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   constexpr int P = NS * (NS + 1) / 2;
   const int nt = (c.n + kTile - 1) / kTile;
   const size_t parts = (size_t)2 * (2 * P * nt + NS * nt) * (c.d + NS * NS);  // floats of both
   const int smem_floats = parts * sizeof(float) <= 48 * 1024 ? (int)parts : 0;
-  return gpmpc_pdl::launch_dependent(df_mm_bwd_sum_kernel<NS>, 1, kSumThreads, smem_floats * sizeof(float), stream,
-                                     c.n, c.d, (const float*)mean_part, (const float*)unit_part, out, smem_floats);
+  return gpmpc_pdl::launch_dependent(df_mm_bwd_sum_kernel<NS, BATCHED>, batch, kSumThreads,
+                                     smem_floats * sizeof(float), stream, c.n, c.d, (const float*)mean_part,
+                                     (const float*)unit_part, out, smem_floats);
+}
+
+template <int NS>
+int launch_bwd(const Cache& c, const float* mu, const float* bh, const float* bl, const float* qh,
+               const float* ql, Cot ct, float* mean_part, float* unit_part, float* out, const int* cidx,
+               int batch, cudaStream_t stream) {
+  if (batch == 1 && cidx == nullptr)
+    return launch_bwd_as<NS, false>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, cidx, batch, stream);
+  return launch_bwd_as<NS, true>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, cidx, batch, stream);
 }
 
 // #9's registers, spill bytes, threads, resident blocks per SM, grid, SMs
@@ -949,13 +991,13 @@ int launch_bwd(const Cache& c, const float* mu, const float* bh, const float* bl
 template <int NS>
 int bwd_info(int n, int* info) {
   cudaFuncAttributes a;
-  int rc = (int)cudaFuncGetAttributes(&a, df_mm_bwd_kernel<NS>);
+  int rc = (int)cudaFuncGetAttributes(&a, df_mm_bwd_kernel<NS, false>);
   if (rc != 0) return rc;
   const size_t dyn = unit_dyn_smem<NS>(n);
   rc = allow_dyn_smem<NS>(dyn);
   if (rc != 0) return rc;
   int per_sm = 0, dev = 0, sms = 0;
-  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_mm_bwd_kernel<NS>, kUnitThreads, dyn);
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_mm_bwd_kernel<NS, false>, kUnitThreads, dyn);
   if (rc != 0) return rc;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -1100,18 +1142,21 @@ int pair_info(int n, int* info) {
 
 extern "C" {
 
+// batch elements, each its operands, cotangents, partials and out after the
+// element before's; cidx (batch) the cache of each, or null for one shared
+// cache
 int gpmpc_df_mm_bwd_f32(const float* mu, const float* bh, const float* bl, const float* qh, const float* ql,
                         GPMPC_DF_MM_CACHE_ARGS, const float* g_m, const float* g_v, const float* g_sp,
                         const float* g_corr, float* mean_part, float* unit_part, float* out, int n, int ns, int d,
-                        void* stream) {
-  if (!valid(n, ns, d)) return (int)cudaErrorInvalidValue;
+                        const int* cidx, int batch, void* stream) {
+  if (!valid(n, ns, d) || !valid_batch(batch)) return (int)cudaErrorInvalidValue;
   const Cache c{xh, xl, ilsh, ilsl, ils2h, ils2l, logoh, logol, beth, betl, ikh, ikl, n, d};
   const Cot ct{g_m, g_v, g_sp, g_corr};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ns) {
-    case 1: return launch_bwd<1>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, s);
-    case 2: return launch_bwd<2>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, s);
-    default: return launch_bwd<3>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, s);
+    case 1: return launch_bwd<1>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, cidx, batch, s);
+    case 2: return launch_bwd<2>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, cidx, batch, s);
+    default: return launch_bwd<3>(c, mu, bh, bl, qh, ql, ct, mean_part, unit_part, out, cidx, batch, s);
   }
 }
 

@@ -3,10 +3,10 @@
 // sums the blocks' partials in a fixed order and finishes.
 //
 // Replaces gpmpc_tpu/ops/pallas_df_mm.py:
-//   df_mm_fwd_kernel<NS, true> + df_mm_fwd_sum_kernel<NS, true>
+//   df_mm_fwd_kernel<NS, true, *> + df_mm_fwd_sum_kernel<NS, true, *>
 //       -> _build_full.fwd_kernel (#12): stage 1, the mean path, every pair
 //          and the finish (wrapper df_mm_full)
-//   df_mm_fwd_kernel<NS, false> + df_mm_fwd_sum_kernel<NS, false>
+//   df_mm_fwd_kernel<NS, false, *> + df_mm_fwd_sum_kernel<NS, false, *>
 //       -> _build.fwd_kernel (#8): the raw df partials (wrapper df_mm_fwd)
 //   df_mm_bwd_kernel + df_mm_bwd_sum_kernel (df_mm_bwd.cu)
 //       -> _build.bwd_all_kernel (#9) (wrapper df_mm_bwd), and its split for
@@ -78,21 +78,42 @@ static_assert(kStage1Warp < kWarps && kMaxNs * kMaxNs <= 32, "stage 1 and the Q 
 
 // grid: P rtiles ctiles pair blocks (b = (p rtiles + rt) ctiles + ct), then
 // mtiles = ceil(N / 32) mean blocks; rtiles = ceil(N / (kWarps rpw)),
-// ctiles = ceil(N / kTile).
+// ctiles = ceil(N / kTile); with BATCHED, grid row y is the batch element
+// (df_mm.cuh cache_of), whose operands, partials and scale follow the
+// element before's. One element with its one cache launches the instance
+// without BATCHED, which holds every pointer where the launch put it (as
+// kernel parameters, not registers): the batch costs that launch nothing.
 // pair_part [2][P rtiles ctiles][2] (S_p, corr); mean_part [2][NS][1 + d][mtiles];
 // scale [NS + P] (c_m, then sqrt det R_p; FULL only)
-template <int NS, bool FULL>
+template <int NS, bool FULL, bool BATCHED>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 df_mm_fwd_kernel(Cache c, const float* __restrict__ mu, const float* __restrict__ sv,
                  const float* __restrict__ outs, const float* __restrict__ bh, const float* __restrict__ bl,
                  const float* __restrict__ qh, const float* __restrict__ ql, float* __restrict__ pair_part,
-                 float* __restrict__ mean_part, float* __restrict__ scale, int rpw) {
+                 float* __restrict__ mean_part, float* __restrict__ scale, int rpw, const int* __restrict__ cidx) {
   constexpr int P = NS * (NS + 1) / 2;
   gpmpc_pdl::release_dependents();  // the summing launch waits for this one to end
   gpmpc_pdl::wait_for_prerequisite();  // this launch is a programmatic dependent of the kernel before it
   const int rows = kWarps * rpw;
   const int rtiles = (c.n + rows - 1) / rows, ctiles = (c.n + kTile - 1) / kTile;
   const int npb = P * rtiles * ctiles;
+  if constexpr (BATCHED) {  // this block's batch element
+    const int elem = blockIdx.y;
+    if (FULL) outs += (size_t)cache_index(cidx, elem) * NS;
+    c = cache_of<NS>(c, cidx, elem);
+    mu += (size_t)elem * c.d;
+    if (FULL) {
+      sv += (size_t)elem * NS * NS;
+      scale += (size_t)elem * (NS + P);
+    } else {
+      bh += (size_t)elem * NS * NS * NS;
+      bl += (size_t)elem * NS * NS * NS;
+      qh += (size_t)elem * P * NS * NS;
+      ql += (size_t)elem * P * NS * NS;
+    }
+    pair_part += (size_t)elem * 4 * npb;
+    mean_part += (size_t)elem * 2 * NS * (1 + c.d) * ctiles;
+  }
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   __shared__ df s_q[NS * NS];
   __shared__ df s_b[NS][NS * NS];
@@ -224,13 +245,14 @@ __device__ __forceinline__ void warp_sum_parts(const float* src, size_t plane, i
   }
 }
 
-// One block of kFwdSumThreads, a programmatic dependent of the forward.
+// One block of kFwdSumThreads per batch element (blockIdx.x; with BATCHED),
+// a programmatic dependent of the forward.
 // Output groups: pair p < P (its S_p and, on a diagonal pair (i, i), corr_i),
 // then (model m, value v) for v = 0 (M_m) and 1 + e (V_m[e]); warp w takes
 // groups w, w + 32, .... Without FULL, out [2][n_out] (hi, lo) with the raw
 // outputs M (NS), V (NS d), S_p (P), corr (NS); with FULL, the finish:
 // out = [c M, c V, (S_p (-) corr) / sqrt det R].
-template <int NS, bool FULL>
+template <int NS, bool FULL, bool BATCHED>
 __global__ void __launch_bounds__(kFwdSumThreads)
 df_mm_fwd_sum_kernel(const float* __restrict__ pair_part, const float* __restrict__ mean_part,
                      const float* __restrict__ scale, float* __restrict__ out, int n, int d, int tiles) {
@@ -241,6 +263,13 @@ df_mm_fwd_sum_kernel(const float* __restrict__ pair_part, const float* __restric
   const int mtiles = (n + kTile - 1) / kTile;
   const int n_out = NS + NS * d + P + NS;
   const size_t pplane = (size_t)P * tiles * 2, mplane = (size_t)NS * (1 + d) * mtiles;
+  if constexpr (BATCHED) {
+    const int elem = blockIdx.x;
+    pair_part += (size_t)elem * 2 * pplane;
+    mean_part += (size_t)elem * 2 * mplane;
+    if (FULL) scale += (size_t)elem * (NS + P);
+    out += (size_t)elem * (FULL ? NS + NS * d + P : 2 * n_out);
+  }
   for (int g = warp; g < P + NS * (1 + d); g += kFwdSumThreads / 32) {
     if (g < P) {
       int i, j;
@@ -288,18 +317,32 @@ int fwd_grid(int n, int rpw) {
   return P * ((n + rows - 1) / rows) * ((n + kTile - 1) / kTile) + (n + kTile - 1) / kTile;
 }
 
-template <int NS, bool FULL>
-int launch_fwd(const Cache& c, const float* mu, const float* sv, const float* outs, const float* bh,
-               const float* bl, const float* qh, const float* ql, float* pair_part, float* mean_part,
-               float* scale, float* out, int rpw, cudaStream_t stream) {
-  const int rc = gpmpc_pdl::launch_dependent(df_mm_fwd_kernel<NS, FULL>, fwd_grid<NS>(c.n, rpw), kThreads, 0, stream,
-                                             c, mu, sv, outs, bh, bl, qh, ql, pair_part, mean_part, scale, rpw);
+// the grid of one element is the B = 1 launch's (the plan does not see the
+// batch, so an element sums in the same order at every B); batch rows of it
+template <int NS, bool FULL, bool BATCHED>
+int launch_fwd_as(const Cache& c, const float* mu, const float* sv, const float* outs, const float* bh,
+                  const float* bl, const float* qh, const float* ql, float* pair_part, float* mean_part,
+                  float* scale, float* out, int rpw, const int* cidx, int batch, cudaStream_t stream) {
+  const int rc = gpmpc_pdl::launch_dependent(df_mm_fwd_kernel<NS, FULL, BATCHED>,
+                                             dim3(fwd_grid<NS>(c.n, rpw), batch), kThreads, 0, stream, c, mu, sv,
+                                             outs, bh, bl, qh, ql, pair_part, mean_part, scale, rpw, cidx);
   if (rc != 0) return rc;
   const int rows = kWarps * rpw;
   const int tiles = ((c.n + rows - 1) / rows) * ((c.n + kTile - 1) / kTile);
-  return gpmpc_pdl::launch_dependent(df_mm_fwd_sum_kernel<NS, FULL>, 1, kFwdSumThreads, 0, stream,
+  return gpmpc_pdl::launch_dependent(df_mm_fwd_sum_kernel<NS, FULL, BATCHED>, batch, kFwdSumThreads, 0, stream,
                                      (const float*)pair_part, (const float*)mean_part, (const float*)scale, out,
                                      c.n, c.d, tiles);
+}
+
+template <int NS, bool FULL>
+int launch_fwd(const Cache& c, const float* mu, const float* sv, const float* outs, const float* bh,
+               const float* bl, const float* qh, const float* ql, float* pair_part, float* mean_part,
+               float* scale, float* out, int rpw, const int* cidx, int batch, cudaStream_t stream) {
+  if (batch == 1 && cidx == nullptr)
+    return launch_fwd_as<NS, FULL, false>(c, mu, sv, outs, bh, bl, qh, ql, pair_part, mean_part, scale, out, rpw,
+                                          cidx, batch, stream);
+  return launch_fwd_as<NS, FULL, true>(c, mu, sv, outs, bh, bl, qh, ql, pair_part, mean_part, scale, out, rpw,
+                                       cidx, batch, stream);
 }
 
 // #12's registers, spill bytes, threads, resident blocks per SM, grid, SMs
@@ -307,10 +350,10 @@ int launch_fwd(const Cache& c, const float* mu, const float* sv, const float* ou
 template <int NS>
 int full_info(int n, int rpw, int* info) {
   cudaFuncAttributes a;
-  int rc = (int)cudaFuncGetAttributes(&a, df_mm_fwd_kernel<NS, true>);
+  int rc = (int)cudaFuncGetAttributes(&a, df_mm_fwd_kernel<NS, true, false>);
   if (rc != 0) return rc;
   int per_sm = 0, dev = 0, sms = 0;
-  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_mm_fwd_kernel<NS, true>, kThreads, 0);
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_mm_fwd_kernel<NS, true, false>, kThreads, 0);
   if (rc != 0) return rc;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -329,29 +372,33 @@ extern "C" {
 // the tile extent: the wrappers size the partial buffers with it
 int gpmpc_df_mm_tile() { return kTile; }
 
+// batch elements, each its mu (d) and sv (ns, ns) and its partials, scale
+// and out after the element before's; cidx (batch) the cache of each, or
+// null for one shared cache
 int gpmpc_df_mm_full_f32(const float* mu, const float* sv, GPMPC_DF_MM_CACHE_ARGS, const float* outs,
                          float* pair_part, float* mean_part, float* scale, float* out, int n, int ns, int d,
-                         int rpw, void* stream) {
-  if (!valid(n, ns, d) || !valid_rpw(rpw)) return (int)cudaErrorInvalidValue;
+                         int rpw, const int* cidx, int batch, void* stream) {
+  if (!valid(n, ns, d) || !valid_rpw(rpw) || !valid_batch(batch)) return (int)cudaErrorInvalidValue;
   const Cache c{xh, xl, ilsh, ilsl, ils2h, ils2l, logoh, logol, beth, betl, ikh, ikl, n, d};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ns) {
-    case 1: return launch_fwd<1, true>(c, mu, sv, outs, nullptr, nullptr, nullptr, nullptr, pair_part, mean_part, scale, out, rpw, s);
-    case 2: return launch_fwd<2, true>(c, mu, sv, outs, nullptr, nullptr, nullptr, nullptr, pair_part, mean_part, scale, out, rpw, s);
-    default: return launch_fwd<3, true>(c, mu, sv, outs, nullptr, nullptr, nullptr, nullptr, pair_part, mean_part, scale, out, rpw, s);
+    case 1: return launch_fwd<1, true>(c, mu, sv, outs, nullptr, nullptr, nullptr, nullptr, pair_part, mean_part, scale, out, rpw, cidx, batch, s);
+    case 2: return launch_fwd<2, true>(c, mu, sv, outs, nullptr, nullptr, nullptr, nullptr, pair_part, mean_part, scale, out, rpw, cidx, batch, s);
+    default: return launch_fwd<3, true>(c, mu, sv, outs, nullptr, nullptr, nullptr, nullptr, pair_part, mean_part, scale, out, rpw, cidx, batch, s);
   }
 }
 
+// batched as gpmpc_df_mm_full_f32, each element its mu, B^-1 and Q halves
 int gpmpc_df_mm_fwd_f32(const float* mu, const float* bh, const float* bl, const float* qh, const float* ql,
                         GPMPC_DF_MM_CACHE_ARGS, float* pair_part, float* mean_part, float* out, int n, int ns,
-                        int d, int rpw, void* stream) {
-  if (!valid(n, ns, d) || !valid_rpw(rpw)) return (int)cudaErrorInvalidValue;
+                        int d, int rpw, const int* cidx, int batch, void* stream) {
+  if (!valid(n, ns, d) || !valid_rpw(rpw) || !valid_batch(batch)) return (int)cudaErrorInvalidValue;
   const Cache c{xh, xl, ilsh, ilsl, ils2h, ils2l, logoh, logol, beth, betl, ikh, ikl, n, d};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (ns) {
-    case 1: return launch_fwd<1, false>(c, mu, nullptr, nullptr, bh, bl, qh, ql, pair_part, mean_part, nullptr, out, rpw, s);
-    case 2: return launch_fwd<2, false>(c, mu, nullptr, nullptr, bh, bl, qh, ql, pair_part, mean_part, nullptr, out, rpw, s);
-    default: return launch_fwd<3, false>(c, mu, nullptr, nullptr, bh, bl, qh, ql, pair_part, mean_part, nullptr, out, rpw, s);
+    case 1: return launch_fwd<1, false>(c, mu, nullptr, nullptr, bh, bl, qh, ql, pair_part, mean_part, nullptr, out, rpw, cidx, batch, s);
+    case 2: return launch_fwd<2, false>(c, mu, nullptr, nullptr, bh, bl, qh, ql, pair_part, mean_part, nullptr, out, rpw, cidx, batch, s);
+    default: return launch_fwd<3, false>(c, mu, nullptr, nullptr, bh, bl, qh, ql, pair_part, mean_part, nullptr, out, rpw, cidx, batch, s);
   }
 }
 

@@ -83,7 +83,7 @@ import torch
 
 from . import _build
 from .df32 import df_add, df_exp, df_mul, df_mul_f32, df_sum, fast_two_sum, two_sum
-from .moment_cov import _index
+from .moment_cov import _index, element_pairs
 
 LAUNCHES = {"df_fwd": 0, "df_fwdres": 0, "df_bwd": 0}
 MAX_NS = 3  # the kernels' template instantiations (csrc/df_cov.cu)
@@ -91,13 +91,14 @@ VJP_MODE = "stacked" if os.environ.get("GPMPC_DF_COV_VJP", "residual") == "stack
 
 
 def _e_exponent_df(ah, al, ch, cl, uh, ul, xjh, xjl):
-    """The df exponent a (+) c (+) sum_e U_e Xj_e (P, Nr, Nc) of E, before the
-    cap, from a (P, Nr), c (P, Nc), U (P, Nr, ns), Xj (P, Nc, ns)."""
-    eh, el = two_sum(ah[:, :, None], ch[:, None, :])
-    el = el + (al[:, :, None] + cl[:, None, :])
+    """The df exponent a (+) c (+) sum_e U_e Xj_e (..., P, Nr, Nc) of E, before
+    the cap, from a (..., P, Nr), c (..., P, Nc), U (..., P, Nr, ns), Xj
+    (..., P, Nc, ns)."""
+    eh, el = two_sum(ah[..., :, None], ch[..., None, :])
+    el = el + (al[..., :, None] + cl[..., None, :])
     eh, el = fast_two_sum(eh, el)
     for e in range(uh.shape[-1]):
-        th, tl = df_mul(uh[:, :, None, e], ul[:, :, None, e], xjh[:, None, :, e], xjl[:, None, :, e])
+        th, tl = df_mul(uh[..., :, None, e], ul[..., :, None, e], xjh[..., None, :, e], xjl[..., None, :, e])
         eh, el = df_add(eh, el, th, tl)
     return eh, el
 
@@ -322,11 +323,12 @@ def fwd_launch_plan(p: int, n: int, diag_pos: Tuple[int, ...], ns: int, sms: int
                 threads=32 * max(rows_d if kinds else 1, rows_o if len(kinds) < p else 1))
 
 
-def df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+def df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos, batch: int = 1):
     """(S_p h, l (P,), corr h, l (n_diag,)). A CPU tensor takes the plain twin;
     a CUDA tensor launches the kernel or raises. On the card the four are
     views of the summing launch's one output: no PyTorch operation follows
-    the kernels."""
+    the kernels. ``batch``: the pairs are that many batch elements
+    (``moment_cov.element_pairs``), and the bands are planned for one."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
     if ah.device.type == "cpu":
         return df_cov_fwd_plain(*args, diag_pos)
@@ -335,12 +337,14 @@ def df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, d
     if not all(0 <= q < p for q in diag_pos):  # the summing launch reads pair diag_pos[m]'s partials
         raise ValueError(f"df_cov_fwd: diag_pos {diag_pos} outside the {p} pairs")
     lib = _build.load()
-    plan = fwd_launch_plan(p, nr, diag_pos, ns, _build.sm_count(ah.device))
+    pe, de = element_pairs(p, diag_pos, batch)
+    plan = fwd_launch_plan(pe, nr, de, ns, _build.sm_count(ah.device))
     part = torch.empty((2, p, plan["max_bands"], 2), dtype=torch.float32, device=ah.device)
     out = torch.empty((2, p + len(diag_pos)), dtype=torch.float32, device=ah.device)
     rc = lib.gpmpc_df_fwd_f32(*_ptrs(args), _index(diag_pos, ah.device, torch.int32).data_ptr(), len(diag_pos),
                               part.data_ptr(), out.data_ptr(), p, nr, nc, ns, plan["rows_diag"], plan["rows_off"],
-                              plan["max_bands"], plan["blocks"], torch.cuda.current_stream(ah.device).cuda_stream)
+                              plan["max_bands"], plan["blocks"] * batch,
+                              torch.cuda.current_stream(ah.device).cuda_stream)
     _build.check(rc, "df_cov_fwd")
     LAUNCHES["df_fwd"] += 1
     return out[0, :p], out[1, :p], out[0, p:], out[1, p:]
@@ -355,23 +359,25 @@ def fwd_launch_info(p: int, n: int, diag_pos: Tuple[int, ...], ns: int) -> dict:
                               plan["blocks"], extra=("rows_diag", "rows_off"))
 
 
-def df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+def df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos, batch: int = 1):
     """(rows, cols): the 4 + 4 ns row-side and column-side residuals as in
     ``df_cov_fwdres_plain``. A CPU tensor takes the plain twin; a CUDA tensor
-    launches the kernel or raises."""
+    launches the kernel or raises. ``batch`` as in ``df_cov_fwd`` (the C
+    side plans the bands, csrc/df_cov.cu fwdres_bands)."""
     args = (ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
     if ah.device.type == "cpu":
         return df_cov_fwdres_plain(*args, diag_pos)
     p, nr, nc, ns = _check("df_cov_fwdres", args, diag_pos)
     lib = _build.load()
     nv = 2 + 2 * ns
-    max_bands = lib.gpmpc_df_fwdres_max_bands(p, nr, len(diag_pos), ns)
+    element_pairs(p, diag_pos, batch)
+    max_bands = lib.gpmpc_df_fwdres_max_bands(p, nr, len(diag_pos), ns, batch)
     dev = ah.device
     col_part = torch.empty((2, p, max_bands, nv, nc), dtype=torch.float32, device=dev)
     row_out = torch.empty((2, p, nv, nr), dtype=torch.float32, device=dev)
     col_out = torch.empty((2, p, nv, nc), dtype=torch.float32, device=dev)
     rc = lib.gpmpc_df_fwdres_f32(*_ptrs(args), _index(diag_pos, dev, torch.int32).data_ptr(), len(diag_pos),
-                                 col_part.data_ptr(), row_out.data_ptr(), col_out.data_ptr(), p, nr, nc, ns,
+                                 col_part.data_ptr(), row_out.data_ptr(), col_out.data_ptr(), p, nr, nc, ns, batch,
                                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "df_cov_fwdres")
     LAUNCHES["df_fwdres"] += 1
@@ -380,11 +386,11 @@ def df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl
     return rows, cols
 
 
-def fwdres_launch_info(p: int, nr: int, n_diag: int, ns: int) -> dict:
+def fwdres_launch_info(p: int, nr: int, n_diag: int, ns: int, batch: int = 1) -> dict:
     """``df_fwdres``'s launch at (P, Nr, n_diag) on the current card
     (``_build.launch_info``), with the rows per band of a diagonal pair and
     of another pair."""
-    return _build.launch_info("gpmpc_df_fwdres_info", p, nr, n_diag, ns, extra=("rows_diag", "rows_off"))
+    return _build.launch_info("gpmpc_df_fwdres_info", p, nr, n_diag, ns, batch, extra=("rows_diag", "rows_off"))
 
 
 def df_cov_bwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, gs, gco, diag_pos):
@@ -438,9 +444,9 @@ class DfCovCore(torch.autograd.Function):
     factorization-cache constants while planning."""
 
     @staticmethod
-    def forward(ctx, ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    def forward(ctx, ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos, batch=1):
         diag_pos = tuple(diag_pos)
-        rows, cols = df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos)
+        rows, cols = df_cov_fwdres(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos, batch)
         a1h, a1l, a2h, a2l = rows[:4]
         sp_h, sp_l = df_sum(*df_mul(bih, bil, a1h, a1l), axis=-1)
         co_h, co_l = df_sum(a2h, a2l, axis=-1)
@@ -477,7 +483,7 @@ class DfCovCore(torch.autograd.Function):
 
         ga, gu = side(bih, bil, rows)
         gc, gxj = side(bjh, bjl, cols)
-        return (ga, None, gc, None, gu, None, gxj, None, None, None, None, None, None, None, None)
+        return (ga, None, gc, None, gu, None, gxj, None, None, None, None, None, None, None, None, None)
 
 
 class DfCovCoreStacked(torch.autograd.Function):
@@ -490,10 +496,10 @@ class DfCovCoreStacked(torch.autograd.Function):
     gradients for a, c, U and Xj."""
 
     @staticmethod
-    def forward(ctx, ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos):
+    def forward(ctx, ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, diag_pos, batch=1):
         ctx.diag_pos = tuple(diag_pos)
         ctx.save_for_backward(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl)
-        return df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, ctx.diag_pos)
+        return df_cov_fwd(ah, al, ch, cl, uh, ul, xjh, xjl, bih, bil, bjh, bjl, ikh, ikl, ctx.diag_pos, batch)
 
     @staticmethod
     def backward(ctx, ct_sh, ct_sl, ct_ch, ct_cl):
@@ -503,4 +509,4 @@ class DfCovCoreStacked(torch.autograd.Function):
         gco = torch.zeros(p, dtype=ct_ch.dtype, device=ct_ch.device).index_copy(
             0, _index(ctx.diag_pos, ct_ch.device, torch.long), ct_ch)
         ga, gc, gu, gxj = df_cov_bwd(*args, gs, gco, ctx.diag_pos)
-        return (ga, None, gc, None, gu, None, gxj, None, None, None, None, None, None, None, None)
+        return (ga, None, gc, None, gu, None, gxj, None, None, None, None, None, None, None, None, None)

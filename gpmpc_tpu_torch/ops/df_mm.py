@@ -86,6 +86,20 @@ The plain twins are batched PyTorch on tensors, with each element's f32
 operations in the kernels' order (so E and every operand agree bit for bit,
 and a kernel differs from its twin only in the order of its df sums). They
 are the CPU path and the kernels' oracle.
+
+The batch axis. The JAX package runs these kernels under vmap (restarts,
+seeds); here #12, #8 and #9 and their twins take a leading batch: mu (B, d),
+sv (B, ns, ns), B^-1, Q and the cotangents with B in front, one launch for
+the batch, grid row y the element (csrc/df_mm.cuh ``cache_of``). The cache
+is one, shared by every element (a plan's restarts), or C caches stacked on
+a leading axis with ``index`` (B,) int32, element b reading cache index[b]
+(an episode batch's seeds, restarts inner; ``models.gp.with_index``). The
+launch plan is one element's and no sum crosses elements, so each element
+is its single launch bit for bit; the twins broadcast (``per_element``),
+each element its own elementwise operations and df_sum trees, and equal the
+unbatched call bit for bit. ``LAUNCHES`` counts one launch per batched call.
+#10 and #11 (the split route past N = 128) take one element; a batched call
+there raises.
 """
 
 from __future__ import annotations
@@ -103,6 +117,7 @@ from .df_cov import df_cov_abs_terms as _df_cov_abs
 
 LAUNCHES = {"df_mm_full": 0, "df_mm_fwd": 0, "df_mm_bwd": 0, "df_mm_bwd_mean": 0, "df_mm_bwd_pair": 0}
 MAX_NS, MAX_D = 3, 8
+MAX_BATCH = 65535  # the grid's y extent (csrc/df_mm.cuh valid_batch)
 # The reference's rule for the stages 2-3 backward (pallas_df_mm._build:
 # ``single_bwd = n <= 128``): up to this N one whole VJP launch (#9), past it
 # the mean path's VJP (#10) and the pairs' (#11). A TPU scoped-VMEM limit set
@@ -191,36 +206,39 @@ def _diag_embed(v):
 
 def df_stage1(cache, sv32, ii, jj):
     """The small df32 matrices of one moment-matching step from a DFCache
-    (its ils, ils2 and outs) and the f32 state covariance sv32 (ns, ns):
-    B^-1 (ns, ns, ns) hi and lo, c (ns,), Q (P, ns, ns) hi and lo and
-    sqrt det R (P,) (ii, jj: the pairs' index tensors)."""
-    ns = sv32.shape[0]
+    (its ils, ils2 and outs) and the f32 state covariance sv32 (..., ns, ns):
+    B^-1 (..., ns, ns, ns) hi and lo, c (..., ns), Q (..., P, ns, ns) hi and
+    lo and sqrt det R (..., P) (ii, jj: the pairs' index tensors). A leading
+    batch of sv32 broadcasts against the cache's (``per_element``)."""
+    ns = sv32.shape[-1]
     device = sv32.device
+    cache = per_element(cache)
 
     # B = diag(ils) sv diag(ils) + I, per model (state block only)
-    ils_s_h, ils_s_l = cache.ils_hi[:, :ns], cache.ils_lo[:, :ns]
-    outer_h, outer_l = df_mul(ils_s_h[:, :, None], ils_s_l[:, :, None], ils_s_h[:, None, :], ils_s_l[:, None, :])
-    B_h, B_l = df_mul_f32(outer_h, outer_l, sv32[None])
+    ils_s_h, ils_s_l = cache.ils_hi[..., :ns], cache.ils_lo[..., :ns]
+    outer_h, outer_l = df_mul(ils_s_h[..., :, :, None], ils_s_l[..., :, :, None], ils_s_h[..., :, None, :],
+                              ils_s_l[..., :, None, :])
+    sv_m = sv32[..., None, :, :]
+    B_h, B_l = df_mul_f32(outer_h, outer_l, sv_m)
     eye = torch.eye(ns, dtype=torch.float32, device=device)
-    B_h, B_l = df_add_f32(B_h, B_l, eye[None])
+    B_h, B_l = df_add_f32(B_h, B_l, eye)
     B_inv_h, B_inv_l, det_B_h, det_B_l = spd_inv_det_df(B_h, B_l)
     c32 = cache.outs / torch.sqrt(det_B_h + det_B_l)  # scales M and V: f32 is enough
 
-    ils2_h, ils2_l = cache.ils2_hi[:, :ns], cache.ils2_lo[:, :ns]
-    ss_h, ss_l = df_add(ils2_h[ii], ils2_l[ii], ils2_h[jj], ils2_l[jj])  # (P, ns)
+    ils2_h, ils2_l = cache.ils2_hi[..., :ns], cache.ils2_lo[..., :ns]
+    ss_h, ss_l = df_add(ils2_h[..., ii, :], ils2_l[..., ii, :], ils2_h[..., jj, :], ils2_l[..., jj, :])  # (P, ns)
     d_inv_h, d_inv_l = df_div(torch.ones_like(ss_h), torch.zeros_like(ss_h), ss_h, ss_l)
     # A = sv + diag(d_inv): diagonal entries fold sv_ii into the df pair exactly
-    eye_p = eye[None]
-    diag_h, diag_l = df_add_f32(_diag_embed(d_inv_h), _diag_embed(d_inv_l), sv32[None] * eye_p)
-    A_h = torch.where(eye_p > 0, diag_h, sv32[None])
-    A_l = torch.where(eye_p > 0, diag_l, torch.zeros_like(diag_l))
+    diag_h, diag_l = df_add_f32(_diag_embed(d_inv_h), _diag_embed(d_inv_l), sv_m * eye)
+    A_h = torch.where(eye > 0, diag_h, sv_m)
+    A_l = torch.where(eye > 0, diag_l, torch.zeros_like(diag_l))
     A_inv_h, A_inv_l, det_A_h, det_A_l = spd_inv_det_df(A_h, A_l)
     # AinvS = A^-1 sv (sv exact f32), unrolled df dots
     cols_h, cols_l = [], []
     for m in range(ns):
-        ah, al = df_mul_f32(A_inv_h[:, :, 0], A_inv_l[:, :, 0], sv32[0, m])
+        ah, al = df_mul_f32(A_inv_h[..., 0], A_inv_l[..., 0], sv_m[..., 0, m, None])
         for l_ in range(1, ns):
-            ph, pl = df_mul_f32(A_inv_h[:, :, l_], A_inv_l[:, :, l_], sv32[l_, m])
+            ph, pl = df_mul_f32(A_inv_h[..., l_], A_inv_l[..., l_], sv_m[..., l_, m, None])
             ah, al = df_add(ah, al, ph, pl)
         cols_h.append(ah)
         cols_l.append(al)
@@ -228,9 +246,9 @@ def df_stage1(cache, sv32, ii, jj):
     AinvS_l = torch.stack(cols_l, dim=-1)
     Qh, Ql = df_mul(d_inv_h[..., :, None], d_inv_l[..., :, None], AinvS_h, AinvS_l)
     Qh, Ql = 0.5 * Qh, 0.5 * Ql  # exact halving
-    prod_ss = ss_h[:, 0] + ss_l[:, 0]
+    prod_ss = ss_h[..., 0] + ss_l[..., 0]
     for e in range(1, ns):
-        prod_ss = prod_ss * (ss_h[:, e] + ss_l[:, e])
+        prod_ss = prod_ss * (ss_h[..., e] + ss_l[..., e])
     sqrt_det_R32 = torch.sqrt((det_A_h + det_A_l) * prod_ss)  # divides S_p after the cancellation
     return B_inv_h, B_inv_l, c32, Qh, Ql, sqrt_det_R32
 
@@ -241,29 +259,32 @@ def df_stage1(cache, sv32, ii, jj):
 
 
 def _model_rows(mu, cache):
-    """Per model m and point n: inp (N, d), iN (ns, N, d), klog (ns, N) and
-    Xi (ns, N, ns), each a df (hi, lo); the sums over e run in order."""
-    ns, d = cache.ils_hi.shape
-    inp = df_add_f32(cache.x_hi, cache.x_lo, -mu[None, :])
-    iN = df_mul(inp[0][None], inp[1][None], cache.ils_hi[:, None, :], cache.ils_lo[:, None, :])
+    """Per model m and point n: inp (..., N, d), iN (..., ns, N, d), klog
+    (..., ns, N) and Xi (..., ns, N, ns), each a df (hi, lo); the sums over
+    e run in order. ``cache``: per_element's view."""
+    ns, d = cache.ils_hi.shape[-2:]
+    inp = df_add_f32(cache.x_hi, cache.x_lo, -mu[..., None, :])
+    iN = df_mul(inp[0][..., None, :, :], inp[1][..., None, :, :], cache.ils_hi[..., :, None, :],
+                cache.ils_lo[..., :, None, :])
     kh, kl = df_mul(iN[0][..., 0], iN[1][..., 0], iN[0][..., 0], iN[1][..., 0])
     for e in range(1, d):
         kh, kl = df_add(kh, kl, *df_mul(iN[0][..., e], iN[1][..., e], iN[0][..., e], iN[1][..., e]))
-    klog = df_add(-0.5 * kh, -0.5 * kl, cache.log_outs_hi[:, None].expand_as(kh),
-                  cache.log_outs_lo[:, None].expand_as(kh))
-    xi = df_mul(inp[0][None, :, :ns], inp[1][None, :, :ns], cache.ils2_hi[:, None, :ns], cache.ils2_lo[:, None, :ns])
+    klog = df_add(-0.5 * kh, -0.5 * kl, cache.log_outs_hi[..., :, None].expand_as(kh),
+                  cache.log_outs_lo[..., :, None].expand_as(kh))
+    xi = df_mul(inp[0][..., None, :, :ns], inp[1][..., None, :, :ns], cache.ils2_hi[..., :, None, :ns],
+                cache.ils2_lo[..., :, None, :ns])
     return inp, iN, klog, xi
 
 
 def _qform(xi_h, xi_l, qh, ql):
-    """xq = Xi Q (a list of ns df (P, N)) and xs = xq . Xi (df (P, N)) for
-    Xi (P, N, ns) and Q (P, ns, ns)."""
+    """xq = Xi Q (a list of ns df (..., P, N)) and xs = xq . Xi (df
+    (..., P, N)) for Xi (..., P, N, ns) and Q (..., P, ns, ns)."""
     ns = xi_h.shape[-1]
     xq = []
     for j in range(ns):
-        acc = df_mul(xi_h[..., 0], xi_l[..., 0], qh[:, None, 0, j], ql[:, None, 0, j])
+        acc = df_mul(xi_h[..., 0], xi_l[..., 0], qh[..., :, None, 0, j], ql[..., :, None, 0, j])
         for k in range(1, ns):
-            acc = df_add(*acc, *df_mul(xi_h[..., k], xi_l[..., k], qh[:, None, k, j], ql[:, None, k, j]))
+            acc = df_add(*acc, *df_mul(xi_h[..., k], xi_l[..., k], qh[..., :, None, k, j], ql[..., :, None, k, j]))
         xq.append(acc)
     xs = df_mul(*xq[0], xi_h[..., 0], xi_l[..., 0])
     for j in range(1, ns):
@@ -272,31 +293,34 @@ def _qform(xi_h, xi_l, qh, ql):
 
 
 def _pair_rows(mu, qh, ql, cache):
-    """The E exponent's operands of every pair: a, c (P, N) and U, Xj
-    (P, N, ns) as df, and what the VJP reuses (iN, Xi, xq of both sides)."""
-    ns = cache.ils_hi.shape[0]
+    """The E exponent's operands of every pair: a, c (..., P, N) and U, Xj
+    (..., P, N, ns) as df, and what the VJP reuses (iN, Xi, xq of both
+    sides)."""
+    ns = cache.ils_hi.shape[-2]
     ii, jj, _, _ = pair_indices(ns, mu.device)
     inp, iN, klog, xi = _model_rows(mu, cache)
-    xi_i = (xi[0][ii], xi[1][ii])
-    xi_j = (xi[0][jj], xi[1][jj])
+    xi_i = (xi[0][..., ii, :, :], xi[1][..., ii, :, :])
+    xi_j = (xi[0][..., jj, :, :], xi[1][..., jj, :, :])
     xq_i, xs_i = _qform(*xi_i, qh, ql)
     xq_j, xs_j = _qform(*xi_j, qh, ql)
-    a = df_add(klog[0][ii], klog[1][ii], *xs_i)
-    c = df_add(klog[0][jj], klog[1][jj], *xs_j)
+    a = df_add(klog[0][..., ii, :], klog[1][..., ii, :], *xs_i)
+    c = df_add(klog[0][..., jj, :], klog[1][..., jj, :], *xs_j)
     u = (2.0 * torch.stack([h for h, _ in xq_i], dim=-1), 2.0 * torch.stack([l for _, l in xq_i], dim=-1))
     return dict(a=a, c=c, u=u, xj=xi_j, xi_i=xi_i, xq_i=xq_i, xq_j=xq_j, iN=iN)
 
 
 def _mean_rows(mu, bh, bl, cache):
-    """The mean path per model and point: iN (ns, N, d) and t (a list of d df
-    (ns, N)), the exponent's hi before the cap, q and lb (ns, N)."""
-    ns, d = cache.ils_hi.shape
+    """The mean path per model and point: iN (..., ns, N, d) and t (a list
+    of d df (..., ns, N)), the exponent's hi before the cap, q and lb
+    (..., ns, N)."""
+    ns, d = cache.ils_hi.shape[-2:]
     _, iN, _, _ = _model_rows(mu, cache)
     t = []
     for j in range(ns):
-        acc = df_mul(iN[0][..., 0], iN[1][..., 0], bh[:, None, 0, j], bl[:, None, 0, j])
+        acc = df_mul(iN[0][..., 0], iN[1][..., 0], bh[..., :, None, 0, j], bl[..., :, None, 0, j])
         for k in range(1, ns):
-            acc = df_add(*acc, *df_mul(iN[0][..., k], iN[1][..., k], bh[:, None, k, j], bl[:, None, k, j]))
+            acc = df_add(*acc, *df_mul(iN[0][..., k], iN[1][..., k], bh[..., :, None, k, j],
+                                       bl[..., :, None, k, j]))
         t.append(acc)
     t += [(iN[0][..., e], iN[1][..., e]) for e in range(ns, d)]
     ex = df_mul(iN[0][..., 0], iN[1][..., 0], *t[0])
@@ -314,13 +338,16 @@ def _mean_rows(mu, bh, bl, cache):
 
 def stage23_plain(mu, bh, bl, qh, ql, cache):
     """What ``df_mm_fwd`` computes (``_mean_part`` and ``_pair_part`` of the
-    reference): the raw df partials (M_h, M_l (ns,), V_h, V_l (ns, d),
-    Sp_h, Sp_l (P,), corr_h, corr_l (ns,)) from mu (d,), B^-1 (ns, ns, ns)
-    and Q (P, ns, ns) as df."""
-    ns, d = cache.ils_hi.shape
+    reference): the raw df partials (M_h, M_l (..., ns), V_h, V_l (..., ns,
+    d), Sp_h, Sp_l (..., P), corr_h, corr_l (..., ns)) from mu (..., d),
+    B^-1 (..., ns, ns, ns) and Q (..., P, ns, ns) as df. Each element of the
+    leading batch is computed by elementwise operations and df_sum trees of
+    its own, so it equals the unbatched call bit for bit."""
+    cache = per_element(cache)
+    ns, d = cache.ils_hi.shape[-2:]
     _, t, _, _, lb = _mean_rows(mu, bh, bl, cache)
     M = df_sum(*lb, axis=-1)
-    v = [df_sum(*df_mul(*df_mul(*t[e], cache.ils_hi[:, e:e + 1], cache.ils_lo[:, e:e + 1]), *lb), axis=-1)
+    v = [df_sum(*df_mul(*df_mul(*t[e], cache.ils_hi[..., :, e:e + 1], cache.ils_lo[..., :, e:e + 1]), *lb), axis=-1)
          for e in range(d)]
     V = (torch.stack([h for h, _ in v], dim=-1), torch.stack([l for _, l in v], dim=-1))
 
@@ -328,30 +355,31 @@ def stage23_plain(mu, bh, bl, qh, ql, cache):
     ex_h, ex_l = _e_exponent_df(*r["a"], *r["c"], *r["u"], *r["xj"])
     eh, el = df_exp(torch.clamp(ex_h, max=60.0), ex_l)
     ii, jj, dpos, _ = pair_indices(ns, mu.device)
-    w = df_mul(eh, el, cache.beta_hi[ii][:, :, None], cache.beta_lo[ii][:, :, None])
-    w = df_mul(*w, cache.beta_hi[jj][:, None, :], cache.beta_lo[jj][:, None, :])
-    p = len(ii)
-    Sp = df_sum(w[0].reshape(p, -1), w[1].reshape(p, -1), axis=-1)
-    co = df_mul(eh[dpos], el[dpos], cache.iK_hi, cache.iK_lo)
-    corr = df_sum(co[0].reshape(ns, -1), co[1].reshape(ns, -1), axis=-1)
+    w = df_mul(eh, el, cache.beta_hi[..., ii, :, None], cache.beta_lo[..., ii, :, None])
+    w = df_mul(*w, cache.beta_hi[..., jj, None, :], cache.beta_lo[..., jj, None, :])
+    Sp = df_sum(w[0].flatten(-2), w[1].flatten(-2), axis=-1)
+    co = df_mul(eh[..., dpos, :, :], el[..., dpos, :, :], cache.iK_hi, cache.iK_lo)
+    corr = df_sum(co[0].flatten(-2), co[1].flatten(-2), axis=-1)
     return (*M, *V, *Sp, *corr)
 
 
 def finish(raw, c32, sqrt_det_r):
-    """M (ns,), V (ns, d) and S_p (P,) in f32 from the raw df partials: c
-    scales M and V, corr is subtracted from the diagonal pairs' S_p in df,
-    and S_p is divided by sqrt det R after the cancellation. Differentiable."""
+    """M (..., ns), V (..., ns, d) and S_p (..., P) in f32 from the raw df
+    partials: c scales M and V, corr is subtracted from the diagonal pairs'
+    S_p in df, and S_p is divided by sqrt det R after the cancellation.
+    Differentiable."""
     M_h, M_l, V_h, V_l, Sp_h, Sp_l, co_h, co_l = raw
-    diag = pair_indices(M_h.shape[0], M_h.device)[2]
+    diag = pair_indices(M_h.shape[-1], M_h.device)[2]
     zeros = torch.zeros_like(Sp_h)
-    sh, sl = df_add(Sp_h, Sp_l, -zeros.index_copy(0, diag, co_h), -zeros.index_copy(0, diag, co_l))
-    return c32 * (M_h + M_l), c32[:, None] * (V_h + V_l), (sh + sl) / sqrt_det_r
+    sh, sl = df_add(Sp_h, Sp_l, -zeros.index_copy(-1, diag, co_h), -zeros.index_copy(-1, diag, co_l))
+    return c32 * (M_h + M_l), c32[..., :, None] * (V_h + V_l), (sh + sl) / sqrt_det_r
 
 
 def full_step_plain(mu, sv, cache):
     """What ``df_mm_full`` computes (``_full_step`` of the reference): stage 1,
-    stages 2-3 and the finish; M (ns,), V (ns, d) and S_p (P,) in f32."""
-    ii, jj, _, _ = pair_indices(cache.ils_hi.shape[0], mu.device)
+    stages 2-3 and the finish; M (..., ns), V (..., ns, d) and S_p (..., P)
+    in f32, for mu (..., d) and sv (..., ns, ns)."""
+    ii, jj, _, _ = pair_indices(cache.ils_hi.shape[-2], mu.device)
     Bh, Bl, c32, Qh, Ql, sdr = df_stage1(cache, sv, ii, jj)
     return finish(stage23_plain(mu, Bh, Bl, Qh, Ql, cache), c32, sdr)
 
@@ -362,10 +390,11 @@ def _mf(x, coef):
 
 
 def _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v):
-    """The mean path's VJP at the hi cotangents g_m (ns,) and g_v (ns, d):
-    its contributions to the cotangent of inp[:, e], a df (ns, N) per e, and
-    g_B (ns, ns, ns) in f32 (``_mean_part``'s VJP, every cotangent a df)."""
-    ns, d = cache.ils_hi.shape
+    """The mean path's VJP at the hi cotangents g_m (..., ns) and g_v (...,
+    ns, d): its contributions to the cotangent of inp[..., e], a df (...,
+    ns, N) per e, and g_B (..., ns, ns, ns) in f32 (``_mean_part``'s VJP,
+    every cotangent a df). ``cache``: per_element's view."""
+    ns, d = cache.ils_hi.shape[-2:]
     ils_c = cache.ils_hi + cache.ils_lo
     iN, t, ex_hi, q, lb = _mean_rows(mu, bh, bl, cache)
     iN_c = [iN[0][..., e] + iN[1][..., e] for e in range(d)]
@@ -375,12 +404,12 @@ def _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v):
     b_c = bh + bl
     tiL_c = []
     for e in range(d):
-        th, tl = df_mul(*t[e], cache.ils_hi[:, e:e + 1], cache.ils_lo[:, e:e + 1])
+        th, tl = df_mul(*t[e], cache.ils_hi[..., :, e:e + 1], cache.ils_lo[..., :, e:e + 1])
         tiL_c.append(th + tl)
-    g_lb = (g_m[:, None].expand_as(lb_c), torch.zeros_like(lb_c))
+    g_lb = (g_m[..., :, None].expand_as(lb_c), torch.zeros_like(lb_c))
     for e in range(d):
-        g_lb = df_add(*g_lb, *two_prod(g_v[:, e:e + 1].expand_as(lb_c), tiL_c[e]))
-    g_t = [_mf(two_prod(g_v[:, e:e + 1].expand_as(lb_c), lb_c), ils_c[:, e:e + 1]) for e in range(d)]
+        g_lb = df_add(*g_lb, *two_prod(g_v[..., :, e:e + 1].expand_as(lb_c), tiL_c[e]))
+    g_t = [_mf(two_prod(g_v[..., :, e:e + 1].expand_as(lb_c), lb_c), ils_c[..., :, e:e + 1]) for e in range(d)]
     g_ex = _mf(_mf(g_lb, beta_c), q_c)
     live = (ex_hi < 60.0).to(torch.float32)
     g_ex = (-0.5 * g_ex[0] * live, -0.5 * g_ex[1] * live)
@@ -389,48 +418,49 @@ def _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v):
     g_b = [[None] * ns for _ in range(ns)]
     for j in range(ns):
         for k in range(ns):
-            g_iN[k] = df_add(*g_iN[k], *_mf(g_t[j], b_c[:, None, k, j]))
-            g_b[k][j] = df_sum(*_mf(g_t[j], iN_c[k]), axis=-1)  # (ns,)
+            g_iN[k] = df_add(*g_iN[k], *_mf(g_t[j], b_c[..., :, None, k, j]))
+            g_b[k][j] = df_sum(*_mf(g_t[j], iN_c[k]), axis=-1)  # (..., ns)
     for e in range(ns, d):
         g_iN[e] = df_add(*g_iN[e], *g_t[e])
-    g_inp = [_mf(g_iN[e], ils_c[:, e:e + 1]) for e in range(d)]
+    g_inp = [_mf(g_iN[e], ils_c[..., :, e:e + 1]) for e in range(d)]
     g_B = torch.stack([torch.stack([g_b[k][j][0] + g_b[k][j][1] for j in range(ns)], dim=-1)
                        for k in range(ns)], dim=-2)
     return g_inp, g_B
 
 
 def _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr):
-    """The pairs' VJP at the hi cotangents g_sp (P,) and g_corr (ns,): per
-    e, the row- and column-side contributions to the cotangent of inp[:, e]
-    (two df (P, N)), and g_Q (P, ns, ns) in f32 (``_pair_part``'s VJP for
-    every pair, every cotangent a df: the exponent's cotangent
-    G = E (gs bi bj + gco iK) and its df residuals, then the chain rule)."""
-    ns, d = cache.ils_hi.shape
+    """The pairs' VJP at the hi cotangents g_sp (..., P) and g_corr (...,
+    ns): per e, the row- and column-side contributions to the cotangent of
+    inp[..., e] (two df (..., P, N)), and g_Q (..., P, ns, ns) in f32
+    (``_pair_part``'s VJP for every pair, every cotangent a df: the
+    exponent's cotangent G = E (gs bi bj + gco iK) and its df residuals,
+    then the chain rule). ``cache``: per_element's view."""
+    ns, d = cache.ils_hi.shape[-2:]
     ils_c = cache.ils_hi + cache.ils_lo
     ils2_c = cache.ils2_hi + cache.ils2_lo
     g_inp = [[] for _ in range(d)]
     r = _pair_rows(mu, qh, ql, cache)
     ii, jj, dpos, _ = pair_indices(ns, mu.device)
-    p = len(ii)
     ex_h, ex_l = _e_exponent_df(*r["a"], *r["c"], *r["u"], *r["xj"])
     E = df_exp(torch.clamp(ex_h, max=60.0), ex_l)
-    w = df_mul_f32(*df_mul(cache.beta_hi[ii][:, :, None], cache.beta_lo[ii][:, :, None],
-                           cache.beta_hi[jj][:, None, :], cache.beta_lo[jj][:, None, :]), g_sp[:, None, None])
-    gco = torch.zeros(p, dtype=g_sp.dtype, device=g_sp.device)
-    gco[dpos] = g_corr
+    w = df_mul_f32(*df_mul(cache.beta_hi[..., ii, :, None], cache.beta_lo[..., ii, :, None],
+                           cache.beta_hi[..., jj, None, :], cache.beta_lo[..., jj, None, :]),
+                   g_sp[..., :, None, None])
+    gco = torch.zeros_like(g_sp)
+    gco[..., dpos] = g_corr
     ik_h = torch.zeros_like(w[0])
     ik_l = torch.zeros_like(w[0])
-    ik_h[dpos], ik_l[dpos] = cache.iK_hi, cache.iK_lo
-    w = df_add(*w, *df_mul_f32(ik_h, ik_l, gco[:, None, None]))
+    ik_h[..., dpos, :, :], ik_l[..., dpos, :, :] = cache.iK_hi, cache.iK_lo
+    w = df_add(*w, *df_mul_f32(ik_h, ik_l, gco[..., :, None, None]))
     G = df_mul(*E, *w)
     live = (ex_h < 60.0).to(torch.float32)
     G = (G[0] * live, G[1] * live)
     u_c = r["u"][0] + r["u"][1]
     xj_c = r["xj"][0] + r["xj"][1]
     ra = df_sum(*G, axis=-1)  # (P, N): rows, sums over k
-    ru = [df_sum(*_mf(G, xj_c[:, None, :, e]), axis=-1) for e in range(ns)]
+    ru = [df_sum(*_mf(G, xj_c[..., :, None, :, e]), axis=-1) for e in range(ns)]
     cc = df_sum(*G, axis=-2)  # (P, N): columns, sums over n
-    cx = [df_sum(*_mf(G, u_c[:, :, None, e]), axis=-2) for e in range(ns)]
+    cx = [df_sum(*_mf(G, u_c[..., :, :, None, e]), axis=-2) for e in range(ns)]
 
     q_c = qh + ql
     g_q = [[[] for _ in range(ns)] for _ in range(ns)]
@@ -450,17 +480,17 @@ def _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr):
             if side == 1:  # Xj = Xi_j
                 acc = df_add(*acc, *res_x[k])
             for e in range(ns):
-                acc = df_add(*acc, *_mf(g_xq[e], q_c[:, None, k, e]))
+                acc = df_add(*acc, *_mf(g_xq[e], q_c[..., :, None, k, e]))
             g_xi.append(acc)
         for k in range(ns):
             for e in range(ns):
                 g_q[k][e].append(_mf(g_xq[e], xi_c[..., k]))
-        iN_s = iN_c[models]  # (P, N, d)
-        ils_s, ils2_s = ils_c[models], ils2_c[models]
+        iN_s = iN_c[..., models, :, :]  # (P, N, d)
+        ils_s, ils2_s = ils_c[..., models, :], ils2_c[..., models, :]
         for e in range(d):
-            g = _mf(_mf(res, -iN_s[..., e]), ils_s[:, e:e + 1])
+            g = _mf(_mf(res, -iN_s[..., e]), ils_s[..., :, e:e + 1])
             if e < ns:
-                g = df_add(*g, *_mf(g_xi[e], ils2_s[:, e:e + 1]))
+                g = df_add(*g, *_mf(g_xi[e], ils2_s[..., :, e:e + 1]))
             g_inp[e].append(g)
     g_Q = torch.stack([torch.stack([(lambda s: s[0] + s[1])(df_sum(*_cat_pair(g_q[k][e]), axis=-1))
                                     for e in range(ns)], dim=-1) for k in range(ns)], dim=-2)
@@ -469,21 +499,22 @@ def _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr):
 
 def stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
     """What ``df_mm_bwd`` computes: the VJP of ``stage23_plain`` at the hi
-    cotangents g_m (ns,), g_v (ns, d), g_sp (P,) and g_corr (ns,), under the
-    reference's derivative rules, every cotangent carried as a df (see the
-    module docstring). Returns (g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns))
-    in f32: the gradient of each B^-1 and Q entry, the same for its hi and
-    lo half."""
-    d = cache.ils_hi.shape[1]
+    cotangents g_m (..., ns), g_v (..., ns, d), g_sp (..., P) and g_corr
+    (..., ns), under the reference's derivative rules, every cotangent
+    carried as a df (see the module docstring). Returns (g_mu (..., d), g_B
+    (..., ns, ns, ns), g_Q (..., P, ns, ns)) in f32: the gradient of each
+    B^-1 and Q entry, the same for its hi and lo half."""
+    cache = per_element(cache)
+    d = cache.ils_hi.shape[-1]
     mean_inp, g_B = _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v)
     pair_inp, g_Q = _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr)
 
     def total(parts):
-        h = torch.cat([t[0].reshape(-1) for t in parts])
-        l = torch.cat([t[1].reshape(-1) for t in parts])
+        h = torch.cat([t[0].flatten(-2) for t in parts], dim=-1)
+        l = torch.cat([t[1].flatten(-2) for t in parts], dim=-1)
         return df_sum(h, l, axis=-1)
 
-    g_mu = torch.stack([-(lambda s: s[0] + s[1])(total([mean_inp[e], *pair_inp[e]])) for e in range(d)])
+    g_mu = torch.stack([-(lambda s: s[0] + s[1])(total([mean_inp[e], *pair_inp[e]])) for e in range(d)], dim=-1)
     return g_mu, g_B, g_Q
 
 
@@ -492,9 +523,9 @@ def stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v):
     cotangents g_m (ns,) and g_v (ns, d). Returns its contribution to the
     cotangent of inp = x - mu summed over the points, as a df ((d,), (d,)),
     and g_B (ns, ns, ns) in f32."""
-    g_inp, g_B = _mean_vjp_terms(mu, bh, bl, cache, g_m, g_v)
-    sums = [df_sum(h.reshape(-1), l.reshape(-1), axis=-1) for h, l in g_inp]
-    return (torch.stack([h for h, _ in sums]), torch.stack([l for _, l in sums])), g_B
+    g_inp, g_B = _mean_vjp_terms(mu, bh, bl, per_element(cache), g_m, g_v)
+    sums = [df_sum(h.flatten(-2), l.flatten(-2), axis=-1) for h, l in g_inp]
+    return (torch.stack([h for h, _ in sums], dim=-1), torch.stack([l for _, l in sums], dim=-1)), g_B
 
 
 def stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr):
@@ -503,7 +534,7 @@ def stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr):
     g_corr[i]. Returns each pair's contribution to the cotangent of inp
     summed over the points, as a df ((P, d), (P, d)), and g_Q (P, ns, ns)
     in f32."""
-    g_inp, g_Q = _pair_vjp_terms(mu, qh, ql, cache, g_sp, g_corr)
+    g_inp, g_Q = _pair_vjp_terms(mu, qh, ql, per_element(cache), g_sp, g_corr)
     sums = [df_sum(*_cat_pair(parts), axis=-1) for parts in g_inp]  # per e, (P,)
     return (torch.stack([h for h, _ in sums], dim=-1), torch.stack([l for _, l in sums], dim=-1)), g_Q
 
@@ -513,13 +544,13 @@ def combine_split(mean_inp, pairs_inp):
     inp, as the reference's ``core_bwd`` combines them (the mean part, then
     the pairs in pair order), but added in df and collapsed once."""
     h, l = mean_inp
-    for k in range(pairs_inp[0].shape[0]):
-        h, l = df_add(h, l, pairs_inp[0][k], pairs_inp[1][k])
+    for k in range(pairs_inp[0].shape[-2]):
+        h, l = df_add(h, l, pairs_inp[0][..., k, :], pairs_inp[1][..., k, :])
     return -(h + l)
 
 
 def _cat_pair(parts):
-    """Row- and column-side (P, N) df contributions -> (P, 2N)."""
+    """Row- and column-side (..., P, N) df contributions -> (..., P, 2N)."""
     return torch.cat([t[0] for t in parts], dim=-1), torch.cat([t[1] for t in parts], dim=-1)
 
 
@@ -554,15 +585,48 @@ _CACHE_FIELDS = ("x_hi", "x_lo", "ils_hi", "ils_lo", "ils2_hi", "ils2_lo", "log_
                  "beta_hi", "beta_lo", "iK_hi", "iK_lo")
 
 
-def _check(name: str, cache, **tensors) -> Tuple[int, int, int]:
-    """Device, dtype, contiguity and shapes of the operands; (N, ns, d)."""
-    n, d = cache.x_hi.shape
-    ns = cache.ils_hi.shape[0]
+class _PerElement:
+    """The fields of caches stacked on a leading axis, each gathered by the
+    cache's ``index`` when first read: element b's row is cache index[b]'s.
+    An object with no index, as a cache shared by every element."""
+
+    index = None
+
+    def __init__(self, cache):
+        self._cache = cache
+        self._idx = cache.index.long()
+
+    def __getattr__(self, name):
+        value = getattr(self._cache, name)[self._idx]
+        setattr(self, name, value)
+        return value
+
+
+def per_element(cache):
+    """The view of a DFCache that the plain twins broadcast against: the
+    cache itself when it has no ``index`` (one cache shared by every element
+    of a batch, its fields without a batch axis), else its fields gathered
+    per element (``_PerElement``)."""
+    return cache if getattr(cache, "index", None) is None else _PerElement(cache)
+
+
+def _check(name: str, cache, batch: int, **tensors) -> Tuple[int, int, int, int]:
+    """Device, dtype, contiguity and shapes of the operands, each per-element
+    one with a leading batch axis and the cache's fields with one of C
+    caches when it has an index (batch,) of int32; (N, ns, d, the index's
+    pointer or None)."""
+    index = getattr(cache, "index", None)
+    lead = () if index is None else tuple(cache.x_hi.shape[:1])
+    n, d = cache.x_hi.shape[-2:]
+    ns = cache.ils_hi.shape[-2]
     p = ns * (ns + 1) // 2
     shapes = dict(x_hi=(n, d), x_lo=(n, d), ils_hi=(ns, d), ils_lo=(ns, d), ils2_hi=(ns, d), ils2_lo=(ns, d),
                   log_outs_hi=(ns,), log_outs_lo=(ns,), outs=(ns,), beta_hi=(ns, n), beta_lo=(ns, n),
-                  iK_hi=(ns, n, n), iK_lo=(ns, n, n), mu=(d,), sv=(ns, ns), bh=(ns, ns, ns), bl=(ns, ns, ns),
-                  qh=(p, ns, ns), ql=(p, ns, ns), g_m=(ns,), g_v=(ns, d), g_sp=(p,), g_corr=(ns,))
+                  iK_hi=(ns, n, n), iK_lo=(ns, n, n))
+    shapes = {k: lead + v for k, v in shapes.items()}
+    shapes.update({k: (batch,) + v for k, v in dict(
+        mu=(d,), sv=(ns, ns), bh=(ns, ns, ns), bl=(ns, ns, ns), qh=(p, ns, ns), ql=(p, ns, ns), g_m=(ns,),
+        g_v=(ns, d), g_sp=(p,), g_corr=(ns,)).items()})
     named = {f: getattr(cache, f) for f in _CACHE_FIELDS + ("outs",)}
     named.update(tensors)
     device = tensors["mu"].device
@@ -578,18 +642,23 @@ def _check(name: str, cache, **tensors) -> Tuple[int, int, int]:
     if not (1 <= ns <= MAX_NS and ns <= d <= MAX_D and n >= 1):
         raise NotImplementedError(f"{name}: the kernels take 1 <= ns <= {MAX_NS} and ns <= d <= {MAX_D}, "
                                   f"got ns={ns}, d={d}, N={n}")
-    return n, ns, d
+    if not 1 <= batch <= MAX_BATCH:
+        raise NotImplementedError(f"{name}: the kernels take a batch of 1 to {MAX_BATCH}, got {batch}")
+    if index is None:
+        return n, ns, d, None
+    if index.device != device or index.dtype != torch.int32 or tuple(index.shape) != (batch,):
+        raise ValueError(f"{name}: the cache index is {index.dtype} {tuple(index.shape)} on {index.device}, "
+                         f"expected int32 ({batch},) on {device}")
+    return n, ns, d, index.contiguous().data_ptr()
+
+
+def _batched(x, k: int):
+    """x (..., *trailing) with k trailing dims as (B, *trailing), contiguous."""
+    return x.reshape((-1,) + tuple(x.shape[x.dim() - k:])).contiguous()
 
 
 def _cache_ptrs(cache):
     return [getattr(cache, f).data_ptr() for f in _CACHE_FIELDS]
-
-
-def _grid(n: int, ns: int, d: int, tile: int):
-    """(row tiles, pair tiles of the (N, N) slabs of all pairs, P)."""
-    nt = -(-n // tile)
-    p = ns * (ns + 1) // 2
-    return nt, p * nt * nt, p
 
 
 def _stream(t):
@@ -625,13 +694,35 @@ def fwd_launch_plan(n: int, ns: int, sms: int) -> dict:
     return best[1]
 
 
-def _fwd_scratch(n, ns, d, device):
-    """#12's and #8's launch plan and the blocks' partial buffers: pair
-    [2][P tiles][2] (S_p, corr) and mean [2][ns][1 + d][mean blocks]."""
-    plan = fwd_launch_plan(n, ns, _build.sm_count(device))
-    pair_part = torch.empty((2, plan["pair_blocks"], 2), dtype=torch.float32, device=device)
-    mean_part = torch.empty((2, ns, 1 + d, plan["mean_blocks"]), dtype=torch.float32, device=device)
-    return plan["rows_per_warp"], pair_part, mean_part
+def fwd_buffer_shapes(n: int, ns: int, d: int, batch: int, sms: int) -> dict:
+    """The buffers of #12 and #8 on a card with ``sms`` SMs, each with the
+    batch axis in front (the kernels place element b's after element b -
+    1's, csrc/df_mm_fwd.cu): the blocks' partials, pair [2][P tiles][2] (S_p,
+    corr) and mean [2][ns][1 + d][mean blocks], #12's scale (c_m, sqrt det
+    R_p) and out (M, V, S_p), #8's out [2][M, V, S_p, corr]. The plan is one
+    element's, whatever the batch."""
+    plan = fwd_launch_plan(n, ns, sms)
+    p = ns * (ns + 1) // 2
+    return dict(rows_per_warp=plan["rows_per_warp"], pair_part=(batch, 2, plan["pair_blocks"], 2),
+                mean_part=(batch, 2, ns, 1 + d, plan["mean_blocks"]), scale=(batch, ns + p),
+                full_out=(batch, ns + ns * d + p), fwd_out=(batch, 2, ns + ns * d + p + ns))
+
+
+def bwd_buffer_shapes(n: int, ns: int, d: int, batch: int) -> dict:
+    """#9's buffers, each with the batch axis in front as ``fwd_buffer_shapes``:
+    the mean path's partials [2][ns][tiles][d + ns^2], the units' [2][2 P
+    tiles][d + ns^2] and out (g_mu, g_B, g_Q)."""
+    nt, p = -(-n // BWD_TILE), ns * (ns + 1) // 2
+    return dict(mean_part=(batch, 2, ns, nt, d + ns * ns), unit_part=(batch, 2, 2 * p * nt, d + ns * ns),
+                out=(batch, d + ns ** 3 + p * ns * ns))
+
+
+def _fwd_scratch(n, ns, d, batch, device):
+    """#12's and #8's rows per warp and the blocks' partial buffers."""
+    shapes = fwd_buffer_shapes(n, ns, d, batch, _build.sm_count(device))
+    pair_part = torch.empty(shapes["pair_part"], dtype=torch.float32, device=device)
+    mean_part = torch.empty(shapes["mean_part"], dtype=torch.float32, device=device)
+    return shapes["rows_per_warp"], pair_part, mean_part
 
 
 def full_launch_info(n: int, ns: int) -> dict:
@@ -642,44 +733,54 @@ def full_launch_info(n: int, ns: int) -> dict:
 
 
 def full_step_fwd(mu, sv, cache):
-    """M (ns,), V (ns, d), S_p (P,) of one moment-matching step (#12). A CPU
+    """M (..., ns), V (..., ns, d), S_p (..., P) of one moment-matching step
+    (#12) for mu (..., d) and sv (..., ns, ns): one launch for every element
+    of the leading batch, against the cache's index (``per_element``). A CPU
     tensor takes the plain twin; a CUDA tensor launches the kernel or raises."""
     if mu.device.type == "cpu":
         return full_step_plain(mu, sv, cache)
-    mu, sv = mu.contiguous(), sv.contiguous()
-    n, ns, d = _check("df_mm_full", cache, mu=mu, sv=sv)
+    lead = mu.shape[:-1]
+    mu, sv = _batched(mu, 1), _batched(sv, 2)
+    batch = mu.shape[0]
+    n, ns, d, cidx = _check("df_mm_full", cache, batch, mu=mu, sv=sv)
     lib = _build.load()
     p = ns * (ns + 1) // 2
-    rpw, pair_part, mean_part = _fwd_scratch(n, ns, d, mu.device)
-    scale = torch.empty(ns + p, dtype=torch.float32, device=mu.device)
-    out = torch.empty(ns + ns * d + p, dtype=torch.float32, device=mu.device)
+    rpw, pair_part, mean_part = _fwd_scratch(n, ns, d, batch, mu.device)
+    scale = torch.empty((batch, ns + p), dtype=torch.float32, device=mu.device)
+    out = torch.empty((batch, ns + ns * d + p), dtype=torch.float32, device=mu.device)
     rc = lib.gpmpc_df_mm_full_f32(mu.data_ptr(), sv.data_ptr(), *_cache_ptrs(cache), cache.outs.data_ptr(),
                                   pair_part.data_ptr(), mean_part.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                  n, ns, d, rpw, _stream(mu))
+                                  n, ns, d, rpw, cidx, batch, _stream(mu))
     _build.check(rc, "df_mm_full")
     LAUNCHES["df_mm_full"] += 1
-    return out[:ns], out[ns:ns + ns * d].view(ns, d), out[ns + ns * d:]
+    return (out[:, :ns].reshape(lead + (ns,)), out[:, ns:ns + ns * d].reshape(lead + (ns, d)),
+            out[:, ns + ns * d:].reshape(lead + (p,)))
 
 
 def stage23_fwd(mu, bh, bl, qh, ql, cache):
-    """The raw df partials of ``stage23_plain`` (#8). A CPU tensor takes the
-    plain twin; a CUDA tensor launches the kernel or raises."""
+    """The raw df partials of ``stage23_plain`` (#8), one launch for the
+    leading batch. A CPU tensor takes the plain twin; a CUDA tensor launches
+    the kernel or raises."""
     if mu.device.type == "cpu":
         return stage23_plain(mu, bh, bl, qh, ql, cache)
-    mu, bh, bl, qh, ql = (t.contiguous() for t in (mu, bh, bl, qh, ql))
-    n, ns, d = _check("df_mm_fwd", cache, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql)
+    lead = mu.shape[:-1]
+    mu, bh, bl, qh, ql = _batched(mu, 1), *(_batched(t, 3) for t in (bh, bl, qh, ql))
+    batch = mu.shape[0]
+    n, ns, d, cidx = _check("df_mm_fwd", cache, batch, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql)
     lib = _build.load()
     p = ns * (ns + 1) // 2
-    rpw, pair_part, mean_part = _fwd_scratch(n, ns, d, mu.device)
-    out = torch.empty((2, ns + ns * d + p + ns), dtype=torch.float32, device=mu.device)
+    rpw, pair_part, mean_part = _fwd_scratch(n, ns, d, batch, mu.device)
+    out = torch.empty((batch, 2, ns + ns * d + p + ns), dtype=torch.float32, device=mu.device)
     rc = lib.gpmpc_df_mm_fwd_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), qh.data_ptr(), ql.data_ptr(),
                                  *_cache_ptrs(cache), pair_part.data_ptr(), mean_part.data_ptr(), out.data_ptr(),
-                                 n, ns, d, rpw, _stream(mu))
+                                 n, ns, d, rpw, cidx, batch, _stream(mu))
     _build.check(rc, "df_mm_fwd")
     LAUNCHES["df_mm_fwd"] += 1
     o = [0, ns, ns + ns * d, ns + ns * d + p, ns + ns * d + p + ns]
-    M, V, Sp, corr = (out[:, o[i]:o[i + 1]] for i in range(4))
-    return M[0], M[1], V[0].view(ns, d), V[1].view(ns, d), Sp[0], Sp[1], corr[0], corr[1]
+    M, V, Sp, corr = (out[:, :, o[i]:o[i + 1]] for i in range(4))
+    return (M[:, 0].reshape(lead + (ns,)), M[:, 1].reshape(lead + (ns,)), V[:, 0].reshape(lead + (ns, d)),
+            V[:, 1].reshape(lead + (ns, d)), Sp[:, 0].reshape(lead + (p,)), Sp[:, 1].reshape(lead + (p,)),
+            corr[:, 0].reshape(lead + (ns,)), corr[:, 1].reshape(lead + (ns,)))
 
 
 def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
@@ -689,16 +790,20 @@ def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
     whose last launch adds #10's df contribution and its own as
     ``combine_split`` does and writes g_mu. A CPU tensor takes the plain
     twins and ``combine_split``."""
-    if cache.x_hi.shape[0] <= SINGLE_BWD_MAX_N:
+    if cache.x_hi.shape[-2] <= SINGLE_BWD_MAX_N:
         return stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr)
     if mu.device.type == "cpu":
         mean_inp, g_B = stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v)
         pairs_inp, g_Q = stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr)
         return combine_split(mean_inp, pairs_inp), g_B, g_Q
+    if mu.dim() > 1 or getattr(cache, "index", None) is not None:
+        raise NotImplementedError("df_mm_bwd_mean + df_mm_bwd_pair take one element, not a batch: the batch "
+                                  "axis of #10 and #11 is not ported yet (ROADMAP queue B)")
     mu, bh, bl, qh, ql, g_m, g_v, g_sp, g_corr = (t.contiguous() for t in (mu, bh, bl, qh, ql, g_m, g_v, g_sp,
                                                                             g_corr))
-    n, ns, d = _check("df_mm_bwd_mean + df_mm_bwd_pair", cache, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql, g_m=g_m,
-                      g_v=g_v, g_sp=g_sp, g_corr=g_corr)
+    n, ns, d, _ = _check("df_mm_bwd_mean + df_mm_bwd_pair", cache, 1, mu=mu[None], bh=bh[None], bl=bl[None],
+                         qh=qh[None], ql=ql[None], g_m=g_m[None], g_v=g_v[None], g_sp=g_sp[None],
+                         g_corr=g_corr[None])
     ct = _full_ct(cache, g_m, g_v, g_sp, g_corr)
     # every buffer of both launches exists before the first: #11's first
     # launch may run beside #10, so no scratch of one may reuse the other's
@@ -710,28 +815,34 @@ def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
 
 
 def stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
-    """The whole VJP of ``stage23_vjp_plain`` in one launch (#9), at any N. A
-    CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
-    raises."""
+    """The whole VJP of ``stage23_vjp_plain`` in one launch (#9), at any N,
+    for every element of the leading batch. A CPU tensor takes the plain
+    twin; a CUDA tensor launches the kernel or raises."""
     if mu.device.type == "cpu":
         return stage23_vjp_plain(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr)
-    mu, bh, bl, qh, ql, g_m, g_v, g_sp, g_corr = (t.contiguous() for t in (mu, bh, bl, qh, ql, g_m, g_v, g_sp,
-                                                                            g_corr))
-    n, ns, d = _check("df_mm_bwd", cache, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql, g_m=g_m, g_v=g_v, g_sp=g_sp,
-                      g_corr=g_corr)
+    lead = mu.shape[:-1]
+    mu, g_m, g_sp, g_corr = (_batched(t, 1) for t in (mu, g_m, g_sp, g_corr))
+    g_v = _batched(g_v, 2)
+    bh, bl, qh, ql = (_batched(t, 3) for t in (bh, bl, qh, ql))
+    batch = mu.shape[0]
+    n, ns, d, cidx = _check("df_mm_bwd", cache, batch, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql, g_m=g_m, g_v=g_v,
+                            g_sp=g_sp, g_corr=g_corr)
     lib = _build.load()
-    nt, nblk, p = _grid(n, ns, d, lib.gpmpc_df_mm_tile())
+    if lib.gpmpc_df_mm_tile() != BWD_TILE:
+        raise RuntimeError(f"df_mm_bwd: the kernels' tile is {lib.gpmpc_df_mm_tile()}, the wrapper's {BWD_TILE}")
+    p = ns * (ns + 1) // 2
     dev = mu.device
-    mean_part = torch.empty((2, ns, nt, d + ns * ns), dtype=torch.float32, device=dev)
-    unit_part = torch.empty((2, 2 * p * nt, d + ns * ns), dtype=torch.float32, device=dev)
-    out = torch.empty(d + ns ** 3 + p * ns * ns, dtype=torch.float32, device=dev)
+    shapes = bwd_buffer_shapes(n, ns, d, batch)
+    mean_part, unit_part, out = (torch.empty(shapes[k], dtype=torch.float32, device=dev)
+                                 for k in ("mean_part", "unit_part", "out"))
     rc = lib.gpmpc_df_mm_bwd_f32(mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), qh.data_ptr(), ql.data_ptr(),
                                  *_cache_ptrs(cache), g_m.data_ptr(), g_v.data_ptr(), g_sp.data_ptr(),
                                  g_corr.data_ptr(), mean_part.data_ptr(), unit_part.data_ptr(), out.data_ptr(), n, ns,
-                                 d, _stream(mu))
+                                 d, cidx, batch, _stream(mu))
     _build.check(rc, "df_mm_bwd")
     LAUNCHES["df_mm_bwd"] += 1
-    return out[:d], out[d:d + ns ** 3].view(ns, ns, ns), out[d + ns ** 3:].view(p, ns, ns)
+    return (out[:, :d].reshape(lead + (d,)), out[:, d:d + ns ** 3].reshape(lead + (ns, ns, ns)),
+            out[:, d + ns ** 3:].reshape(lead + (p, ns, ns)))
 
 
 def bwd_launch_info(n: int, ns: int) -> dict:
@@ -848,7 +959,8 @@ def stage23_bwd_mean(mu, bh, bl, cache, g_m, g_v):
     if mu.device.type == "cpu":
         return stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v)
     mu, bh, bl, g_m, g_v = (t.contiguous() for t in (mu, bh, bl, g_m, g_v))
-    n, ns, d = _check("df_mm_bwd_mean", cache, mu=mu, bh=bh, bl=bl, g_m=g_m, g_v=g_v)
+    n, ns, d, _ = _check("df_mm_bwd_mean", cache, 1, mu=mu[None], bh=bh[None], bl=bl[None], g_m=g_m[None],
+                         g_v=g_v[None])
     mean = _MeanLaunch(mu, n, ns, d)
     mean.launch(mu, bh, bl, cache, _full_ct(cache, g_m=g_m, g_v=g_v))
     return (mean.out[:d], mean.out[d:2 * d]), mean.g_B()
@@ -861,7 +973,8 @@ def stage23_bwd_pairs(mu, qh, ql, cache, g_sp, g_corr):
     if mu.device.type == "cpu":
         return stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr)
     mu, qh, ql, g_sp, g_corr = (t.contiguous() for t in (mu, qh, ql, g_sp, g_corr))
-    n, ns, d = _check("df_mm_bwd_pair", cache, mu=mu, qh=qh, ql=ql, g_sp=g_sp, g_corr=g_corr)
+    n, ns, d, _ = _check("df_mm_bwd_pair", cache, 1, mu=mu[None], qh=qh[None], ql=ql[None], g_sp=g_sp[None],
+                         g_corr=g_corr[None])
     pairs = _PairLaunch(mu, n, ns, d)
     pairs.launch(mu, qh, ql, cache, _full_ct(cache, g_sp=g_sp, g_corr=g_corr))
     return pairs.g_inp(), pairs.g_Q()
@@ -900,10 +1013,11 @@ class Stage23(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cts):
         mu, bh, bl, qh, ql = ctx.saved_tensors
-        ns, d = ctx.cache.ils_hi.shape
-        p = qh.shape[0]
+        ns, d = ctx.cache.ils_hi.shape[-2:]
+        p = qh.shape[-3]
+        lead = tuple(mu.shape[:-1])
         shapes = ((ns,), (ns, d), (p,), (ns,))
-        hi = [torch.zeros(s, dtype=mu.dtype, device=mu.device) if g is None else g
+        hi = [torch.zeros(lead + s, dtype=mu.dtype, device=mu.device) if g is None else g
               for g, s in zip(cts[0::2], shapes)]
         g_mu, g_b, g_q = stage23_bwd(mu, bh, bl, qh, ql, ctx.cache, *hi)
         return g_mu, g_b, g_b, g_q, g_q, None
@@ -912,7 +1026,7 @@ class Stage23(torch.autograd.Function):
 def split_path(mu, sv, cache):
     """The step by the split path, differentiable in (mu, sv): df stage 1
     (PyTorch ops), ``Stage23`` and the finish (``_reference_path``)."""
-    ii, jj, _, _ = pair_indices(cache.ils_hi.shape[0], mu.device)
+    ii, jj, _, _ = pair_indices(cache.ils_hi.shape[-2], mu.device)
     Bh, Bl, c32, Qh, Ql, sdr = df_stage1(cache, sv, ii, jj)
     return finish(Stage23.apply(mu, Bh, Bl, Qh, Ql, cache), c32, sdr)
 
@@ -941,6 +1055,8 @@ class FullStep(torch.autograd.Function):
 
 
 def full_step(mu, sv, cache):
-    """M (ns,), V (ns, d), S_p (P,) of one moment-matching step in df32,
-    differentiable in mu (d,) and sv (ns, ns)."""
+    """M (..., ns), V (..., ns, d), S_p (..., P) of one moment-matching step
+    in df32, differentiable in mu (..., d) and sv (..., ns, ns): every
+    element of the leading batch in one launch of each kernel, against the
+    cache's index when it has one (``per_element``)."""
     return FullStep.apply(mu, sv, cache)

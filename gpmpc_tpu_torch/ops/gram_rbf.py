@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .lanewise import lanewise
 from .moment_cov import _check_cuda_f32
 
 LAUNCHES = {"gram": 0}
@@ -54,12 +55,13 @@ def launch_plan(ns: int, n: int, sms: int) -> dict:
 
 def gram_ref(lengthscales, outputscales, x):
     """Plain PyTorch twin of gpmpc_tpu.models.gp.gram_ard_rbf:
-    (Ns, D), (Ns,), (N, D) -> (Ns, N, N)."""
-    xs = x[None, :, :] / lengthscales[:, None, :]
+    (..., Ns, D), (..., Ns), (..., N, D) -> (..., Ns, N, N), the leading
+    batches broadcast."""
+    xs = x[..., None, :, :] / lengthscales[..., :, None, :]
     sq = torch.sum(xs * xs, dim=-1)
-    cross = torch.einsum("mnd,mkd->mnk", xs, xs)
-    d2 = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * cross, min=0.0)
-    return outputscales[:, None, None] * torch.exp(-0.5 * d2)
+    cross = torch.einsum("...mnd,...mkd->...mnk", xs, xs)
+    d2 = torch.clamp(sq[..., :, :, None] + sq[..., :, None, :] - 2.0 * cross, min=0.0)
+    return outputscales[..., :, None, None] * lanewise(torch.exp, -0.5 * d2)
 
 
 def gram(lengthscales, outputscales, x):

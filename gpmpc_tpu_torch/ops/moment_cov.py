@@ -78,6 +78,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .lanewise import lanewise
 
 LAUNCHES = {"cov_fwd": 0, "cov_bwd_row": 0, "cov_gik": 0}
 
@@ -114,7 +115,7 @@ def _e_slab(a, c, u, xj):
     of cov_core_xla (the cap guards the f32 overflow of a misfiring
     log-domain cancellation; healthy exponents are <= ~0)."""
     expo = a[:, :, None] + c[:, None, :] + torch.einsum("pne,pke->pnk", u, xj)
-    return torch.exp(torch.clamp(expo, max=60.0))
+    return lanewise(torch.exp, torch.clamp(expo, max=60.0))
 
 
 def cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos):
@@ -149,15 +150,31 @@ def fwd_launch_plan(p: int, n: int, sms: int) -> Tuple[int, int]:
     return rows, -(-n // rows)
 
 
+def element_pairs(p: int, diag_pos, batch: int) -> Tuple[int, Tuple[int, ...]]:
+    """(pairs, diagonal pairs) of one batch element of a launch whose P pairs
+    are ``batch`` elements of P / batch pairs each, element b's diagonal
+    pairs at b P / batch + those of element 0 (``models.gp`` folds a
+    batched rollout so): the launch is planned for one element, so that an
+    element sums in the same order whatever the batch."""
+    diag_pos = tuple(diag_pos)
+    pe, de = p // max(batch, 1), len(diag_pos) // max(batch, 1)
+    if batch < 1 or p % batch or len(diag_pos) % batch or diag_pos != tuple(
+            b * pe + q for b in range(batch) for q in diag_pos[:de]):
+        raise ValueError(f"{p} pairs with diag_pos {diag_pos} are not {batch} batch elements of one pattern")
+    return pe, diag_pos[:de]
+
+
 def _check_ns(name: str, ns: int) -> None:
     """Refuse, before the launch, a state width the kernels do not take."""
     if not 1 <= ns <= MAX_NS:
         raise NotImplementedError(f"{name}: the kernels take 1 <= ns <= {MAX_NS} state dims, got {ns}")
 
 
-def cov_fwd(a, c, u, xj, bi, bj, ik, diag_pos):
+def cov_fwd(a, c, u, xj, bi, bj, ik, diag_pos, batch: int = 1):
     """(S_p (P,), corr (n_diag,)). A CPU tensor takes the plain version
-    (cov_core_ref); a CUDA tensor launches the kernel or raises."""
+    (cov_core_ref); a CUDA tensor launches the kernel or raises. ``batch``:
+    the pairs are that many batch elements (``element_pairs``), and the
+    bands are planned for one."""
     if a.device.type == "cpu":
         return cov_core_ref(a, c, u, xj, bi, bj, ik, diag_pos)
     _check_cuda_f32("cov_fwd", a=a, c=c, u=u, xj=xj, bi=bi, bj=bj, ik=ik)
@@ -171,7 +188,7 @@ def cov_fwd(a, c, u, xj, bi, bj, ik, diag_pos):
     if not all(0 <= q < p for q in diag_pos):  # the summing launch reads pair diag_pos[m]'s partials
         raise ValueError(f"cov_fwd: diag_pos {tuple(diag_pos)} outside the {p} pairs")
     lib = _build.load()
-    rows, bands = fwd_launch_plan(p, nr, _build.sm_count(a.device))
+    rows, bands = fwd_launch_plan(element_pairs(p, diag_pos, batch)[0], nr, _build.sm_count(a.device))
     part = torch.empty((2, p * bands), dtype=torch.float32, device=a.device)
     out = torch.empty(p + len(diag_pos), dtype=torch.float32, device=a.device)
     rc = lib.gpmpc_cov_fwd_f32(
@@ -404,10 +421,10 @@ class CovCore(torch.autograd.Function):
     gradient is its own launch (``cov_gik``), made only when iK needs one."""
 
     @staticmethod
-    def forward(ctx, a, c, u, xj, bi, bj, ik, diag_pos):
+    def forward(ctx, a, c, u, xj, bi, bj, ik, diag_pos, batch=1):
         ctx.diag_pos = tuple(diag_pos)
         ctx.save_for_backward(a, c, u, xj, bi, bj, ik)
-        return cov_fwd(a, c, u, xj, bi, bj, ik, ctx.diag_pos)
+        return cov_fwd(a, c, u, xj, bi, bj, ik, ctx.diag_pos, batch)
 
     @staticmethod
     def backward(ctx, g_s, g_corr):
@@ -421,4 +438,4 @@ class CovCore(torch.autograd.Function):
         gik = None
         if ctx.needs_input_grad[6]:
             gik = cov_gik(g_corr, a, c, u, xj, diag_pos)
-        return ga, gc, gu, gxj, gbi, gbj, gik, None
+        return ga, gc, gu, gxj, gbi, gbj, gik, None, None

@@ -7,7 +7,7 @@ device, every rank running the same program (SPMD by hand: PyTorch has no
 GSPMD, so each collective is written out):
 
 * optimizer restarts (``build_sharded_plan_fn``): each rank runs its
-  contiguous chunk of the restarts through the planner's restart loop; an
+  contiguous chunk of the restarts through the planner's restart batch; an
   ``all_gather`` of (x, f) and the first argmin pick the plan;
 * the stored-point axis N (``shard_cache_n``, ``build_nsharded_plan_fn``):
   each rank contracts its row slab of the (P, N, N) moment-matching kernel
@@ -160,7 +160,7 @@ def build_sharded_plan_fn(spec: PlanSpec, mesh: Mesh):
 
     The planner's ``_plan_from_cache`` with a gather in the middle: every
     rank factorizes (replicated) and runs its contiguous chunk of ``inits``
-    through the planner's restart loop (``_run_restarts``); the ranks
+    through the planner's restart batch (``_run_restarts``); the ranks
     ``all_gather`` the chunks' (x, f); the planner's ``_best_restart`` then
     keeps the first least objective, a NaN counted as +inf (JAX's argmin;
     the first restart when every one is NaN), and recomputes the info at

@@ -16,12 +16,18 @@ control flow becomes Python:
   the store flag, the memory's counters and mask and every buffer stay
   device tensors, and a step reads nothing back to the host beyond what
   L-BFGS(-B) reads once per iteration and the restart selection;
-* the seed batch is a loop of single episodes, which is what JAX's vmap
-  computes (each seed's episode does not see the others). A batch axis
-  through the planning step waits for one in the kernels (ROADMAP);
-* ``steps_per_call`` segments run every seed's next steps in turn with the
-  carry kept on the device, as JAX's host-stitched segments do; the result
-  is the unsegmented run's, bit for bit.
+* the seed batch runs in lockstep, as JAX's vmap runs it: every tensor of
+  the carry has the seed axis in front, and each step is one batched env
+  step, memory scatter and f64 factorization at ``model_cap`` for all the
+  seeds, one batched MLL training of seeds x restarts x models
+  (``train_restarts``) and one planning step of seeds x restarts, each seed
+  against its own cache (``with_index``), whose rollouts are one launch of
+  each kernel per horizon step. Each seed keeps its own generator and draws,
+  and computes what its episode alone computes, bit for bit on the CPU
+  (``build_episode_fn`` is the batch of one);
+* ``steps_per_call`` segments run the seeds' next steps with the carry kept
+  on the device, as JAX's host-stitched segments do; the result is the
+  unsegmented run's, bit for bit.
 
 Semantics are those of the JAX episode step for step (jit_episode.py:350-444):
 planning only on ``t % num_repeat_actions == 0`` with the cached action
@@ -52,12 +58,12 @@ import torch
 
 from ..config.configs import Config
 from ..controllers.controller import training_draws
-from ..controllers.planner import PlanSpec, _cast_cache, _objective_and_info, _plan_from_cache
-from ..envs.torch_dynamics import TorchEnvSpec
+from ..controllers.planner import PlanSpec, _cast_cache, _objective_and_info, _run_restarts, _select_restart
+from ..envs.torch_dynamics import TorchEnvSpec, stack_states
 from ..mappers.action import ActionMapperSpec, mpc_to_model_actions
 from ..mappers.reward import RewardSpec, reward_single
-from ..models.gp import GPBounds, GPParams, TrainConfigDevice, masked_cholesky_factorize, \
-    params_from_constrained, train_hyperparams
+from ..models.gp import GPBounds, GPParams, TrainConfigDevice, keep_best, masked_cholesky_factorize, \
+    params_from_constrained, train_restarts, with_index
 
 
 class MemoryState(NamedTuple):
@@ -98,13 +104,19 @@ def memory_init(cap: int, d: int, ns: int, dtype, model_cap: Optional[int] = Non
 
 def memory_add(mem: MemoryState, x_row, s_next, store_flag) -> MemoryState:
     """Append one raw row at ``len_mem`` (a device index: no host read). The
-    memory must have room: episodes size cap to hold every step."""
-    i = mem.len_mem.to(torch.int64).reshape(1)
-    flag = torch.as_tensor(store_flag, dtype=torch.bool, device=mem.flags.device).reshape(1)
+    memory must have room: episodes size cap to hold every step. A memory
+    with a leading seed axis appends each seed's row (x_row (S, D), s_next
+    (S, Ns), store_flag (S,)) at its own ``len_mem``."""
+    i = mem.len_mem.to(torch.int64)[..., None]
+    flag = torch.as_tensor(store_flag, dtype=torch.bool, device=mem.flags.device).expand(mem.len_mem.shape)
+
+    def put(buf, row):
+        return buf.scatter(-2, i[..., None].expand(i.shape + row.shape[-1:]), row[..., None, :])
+
     return mem._replace(
-        inputs=mem.inputs.index_copy(0, i, x_row[None]),
-        states_next=mem.states_next.index_copy(0, i, s_next[None]),
-        flags=mem.flags.index_copy(0, i, flag),
+        inputs=put(mem.inputs, x_row),
+        states_next=put(mem.states_next, s_next),
+        flags=mem.flags.scatter(-1, i, flag[..., None]),
         len_mem=mem.len_mem + 1,
     )
 
@@ -115,27 +127,28 @@ def memory_prepare(mem: MemoryState, step_model: int, ns: int) -> MemoryState:
     s_next[i+k-1] - s[i]). Positions past the model buffer are dropped, as
     JAX's ``mode="drop"`` scatter drops them: they go to one scratch row past
     its end, which is cut off."""
-    cap = mem.inputs.shape[0]
+    cap = mem.inputs.shape[-2]
     device = mem.inputs.device
     idx = torch.arange(cap, dtype=torch.int32, device=device)
-    elig = ((idx % step_model == 0) & (idx >= mem.len_last) & (idx < mem.len_mem) & mem.flags
-            & (idx + step_model - 1 < mem.len_mem))
-    mcap = mem.model_inputs.shape[0]
+    len_last, len_mem, len_model = (c[..., None] for c in (mem.len_last, mem.len_mem, mem.len_model))
+    elig = ((idx % step_model == 0) & (idx >= len_last) & (idx < len_mem) & mem.flags
+            & (idx + step_model - 1 < len_mem))
+    mcap = mem.model_inputs.shape[-2]
     elig_i = elig.to(torch.int32)
-    offs = torch.cumsum(elig_i, 0, dtype=torch.int32) - 1
-    pos = torch.where(elig, mem.len_model + offs, torch.full_like(offs, mcap))
+    offs = torch.cumsum(elig_i, -1, dtype=torch.int32) - 1
+    pos = torch.where(elig, len_model + offs, torch.full_like(offs, mcap))
     pos = torch.clamp(pos, max=mcap).to(torch.int64)  # mcap = the dropped row
     tgt_idx = torch.clamp(idx + step_model - 1, max=cap - 1).to(torch.int64)
-    targets = mem.states_next[tgt_idx] - mem.inputs[:, :ns]
+    targets = mem.states_next[..., tgt_idx, :] - mem.inputs[..., :ns]
 
     def scatter(buf, rows):
-        padded = torch.cat([buf, buf.new_zeros((1, buf.shape[1]))])
-        return padded.index_put((pos,), rows)[:mcap]
+        padded = torch.cat([buf, buf.new_zeros(buf.shape[:-2] + (1, buf.shape[-1]))], dim=-2)
+        return padded.scatter(-2, pos[..., None].expand(rows.shape), rows)[..., :mcap, :]
 
     return mem._replace(
         model_inputs=scatter(mem.model_inputs, mem.inputs),
         model_targets=scatter(mem.model_targets, targets),
-        len_model=mem.len_model + torch.sum(elig_i, dtype=torch.int32),
+        len_model=mem.len_model + torch.sum(elig_i, dim=-1, dtype=torch.int32),
         len_last=mem.len_mem.clone(),
     )
 
@@ -144,8 +157,8 @@ def memory_active_mask(mem: MemoryState) -> torch.Tensor:
     """Active GP points; an empty memory gives the single dummy zero point
     (gp_memory.py:109-111): the model buffers are zero-initialized, so row 0
     is exactly that point."""
-    mcap = mem.model_inputs.shape[0]
-    n = torch.clamp(mem.len_model, min=1)
+    mcap = mem.model_inputs.shape[-2]
+    n = torch.clamp(mem.len_model, min=1)[..., None]
     return torch.arange(mcap, dtype=torch.int32, device=mem.model_inputs.device) < n
 
 
@@ -339,8 +352,8 @@ class EpisodeDraws:
 
 
 class _Carry(NamedTuple):
-    """One episode's state between steps (the JAX scan's carry, its keys
-    replaced by the draws)."""
+    """The seeds' episode state between steps (the JAX scan's carry, its
+    keys replaced by the draws), every tensor with the seed axis in front."""
 
     env_state: object
     obs: torch.Tensor
@@ -352,15 +365,37 @@ class _Carry(NamedTuple):
     have_prev: bool
     pred_state: torch.Tensor
     pred_std: torch.Tensor
-    draws: EpisodeDraws
+    draws: list  # EpisodeDraws, one per seed
 
 
 def _cast(tree, dtype):
     return type(tree)(*(a.to(dtype) for a in tree))
 
 
+def plan_batch(spec: PlanSpec, master, state_mu, state_var, inits, action_prev, t):
+    """One planning step of S seeds in lockstep: master the seeds' caches
+    stacked on a leading axis, state_mu (S, Ns), state_var (Ns, Ns) for all,
+    inits (S, R, Nh*Na), action_prev (S, Na). All S R restarts run as one
+    L-BFGS-B batch, each seed's against its own cache; then each seed's kept
+    restart (``_select_restart``) and its info, recomputed in one batched
+    rollout. Returns (a_opt
+    (S, Nh*Na), info with the seed axis in front)."""
+    seeds, restarts = inits.shape[:2]
+    cache = _cast_cache(master, state_mu.dtype)
+    per_seed = torch.arange(seeds)
+    xs, fs = _run_restarts(spec, with_index(cache, per_seed.repeat_interleave(restarts)),
+                           state_mu.repeat_interleave(restarts, dim=0), state_var, inits.reshape(seeds * restarts, -1),
+                           action_prev.repeat_interleave(restarts, dim=0), t)
+    a_opt = torch.stack([x[_select_restart(f)] for x, f in zip(xs.reshape(seeds, restarts, -1),
+                                                                 fs.reshape(seeds, restarts))])
+    with torch.no_grad():
+        _, info = _objective_and_info(spec, with_index(cache, per_seed), a_opt, state_mu, state_var, action_prev, t)
+    return a_opt, info
+
+
 class _Episode:
-    """init_carry and step of one spec (the JAX ``_build_episode_parts``)."""
+    """init_carry and step of one spec over a batch of seeds in lockstep
+    (the JAX ``_build_episode_parts`` under vmap)."""
 
     def __init__(self, spec: EpisodeSpec):
         if spec.cap < spec.num_steps:
@@ -381,13 +416,18 @@ class _Episode:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float64).to(device=self.spec.device, dtype=self.spec.dtype)
 
+    def _draws(self, draws, what, t):
+        """Each seed's draw ``what`` at step t, stacked (in the episode's
+        dtype, on its device)."""
+        return self._tensor(torch.stack([getattr(d, what)(t) for d in draws]))
+
     def norm_obs(self, obs):
         return (obs - self.obs_low) / (self.obs_high - self.obs_low)
 
     def make_cache(self, mem: MemoryState, params, mask):
-        """The factorization the plan rolls out from: under mixed_df32 the
-        f64 master (cast as the Planner casts it, split by
-        ``_plan_from_cache``), else in the episode's dtype."""
+        """The factorizations the plan rolls out from, the seeds' stacked:
+        under mixed_df32 the f64 masters (cast as the Planner casts them,
+        split by ``plan_batch``), else in the episode's dtype."""
         spec = self.spec
         if spec.mixed_df32:
             f64 = torch.float64
@@ -397,55 +437,63 @@ class _Episode:
 
     def plan_actions(self, mem, params, state_mu, prev_mpc, have_prev, action_prev, t, draws):
         spec = self.spec
+        seeds = state_mu.shape[0]
         cache = self.make_cache(mem, params, memory_active_mask(mem))
         if spec.deterministic_inits:
-            inits = torch.full((spec.restarts_optim, self.n_flat), 0.5, dtype=spec.dtype, device=spec.device)
+            inits = torch.full((seeds, spec.restarts_optim, self.n_flat), 0.5, dtype=spec.dtype, device=spec.device)
         else:
-            inits = self._tensor(draws.inits(t))
+            inits = self._draws(draws, "inits", t)
         if spec.init_from_previous_actions and have_prev:
-            inits = torch.cat([torch.cat([prev_mpc[self.na:], prev_mpc[-self.na:]])[None], inits[1:]])
-        a_opt, _, info = _plan_from_cache(spec.plan, cache, state_mu, self.obs_var, inits, action_prev, t)
-        return a_opt, info
+            shifted = torch.cat([prev_mpc[:, self.na:], prev_mpc[:, -self.na:]], dim=-1)
+            inits = torch.cat([shifted[:, None], inits[:, 1:]], dim=1)
+        return plan_batch(spec.plan, cache, state_mu, self.obs_var, inits, action_prev, t)
 
     def eval_actions(self, mem, params, state_mu, actions_mpc, action_prev, t):
         spec = self.spec
         cache = self.make_cache(mem, params, memory_active_mask(mem))
-        _, info = _objective_and_info(spec.plan, _cast_cache(cache, spec.dtype), actions_mpc, state_mu, self.obs_var,
-                                      action_prev, t)
+        cache = with_index(_cast_cache(cache, spec.dtype), torch.arange(state_mu.shape[0]))
+        _, info = _objective_and_info(spec.plan, cache, actions_mpc, state_mu, self.obs_var, action_prev, t)
         return actions_mpc, info
 
-    def train(self, mem: MemoryState, params: GPParams, t: int, draws: EpisodeDraws) -> GPParams:
-        """The synchronous MLL training at step t on the memory as it would be
-        prepared now (the carry keeps the unprepared memory, as in JAX)."""
+    def train(self, mem: MemoryState, params: GPParams, t: int, draws) -> GPParams:
+        """The synchronous MLL training at step t of every seed on its memory
+        as it would be prepared now (the carry keeps the unprepared memory,
+        as in JAX): seeds x restarts x models as one L-BFGS batch, each seed
+        from its own draws."""
         spec = self.spec
         mem3 = memory_prepare(mem, spec.num_repeat_actions, self.ns)
         dt = torch.float64 if spec.mixed_df32 else spec.dtype
-        new_params, _ = train_hyperparams(
-            _cast(params, dt), _cast(spec.bounds, dt), mem3.model_inputs.to(dt), mem3.model_targets.to(dt),
-            memory_active_mask(mem3), None, spec.train_cfg, restarts=spec.restarts_train, draws=draws.train(t))
+        p, b = _cast(params, dt), _cast(spec.bounds, dt)
+        x, y, mask = mem3.model_inputs.to(dt), mem3.model_targets.to(dt), memory_active_mask(mem3)
+        train_draws = torch.stack([torch.as_tensor(d.train(t), dtype=dt) for d in draws]).to(x.device)
+        raws, losses = train_restarts(p, b, x, y, mask, spec.train_cfg, train_draws)
+        new_params, _ = keep_best(p, b, x, y, mask, raws, losses)
         return _cast(new_params, spec.dtype)
 
-    def init_carry(self, draws: EpisodeDraws, params0: GPParams) -> _Carry:
+    def init_carry(self, draws: list, params0: GPParams) -> _Carry:
         spec = self.spec
+        seeds = len(draws)
         kw = dict(dtype=spec.dtype, device=spec.device)
-        env_state, obs = draws.env_init()
+        env_states, obs = zip(*(d.env_init() for d in draws))
+        mem = memory_init(spec.cap, self.d, self.ns, spec.dtype, model_cap=spec.model_cap, device=spec.device)
         return _Carry(
-            env_state=env_state,
-            obs=obs.to(spec.dtype),
-            mem=memory_init(spec.cap, self.d, self.ns, spec.dtype, model_cap=spec.model_cap, device=spec.device),
-            params=params0,
-            action_raw_cached=torch.zeros(self.na, **kw),
-            action_model_prev=self._tensor(draws.action_prev()),
-            prev_mpc=torch.zeros(self.n_flat, **kw),
+            env_state=stack_states(list(env_states)),
+            obs=torch.stack(obs).to(spec.dtype),
+            mem=type(mem)(*(a.expand((seeds,) + a.shape).clone() for a in mem)),
+            params=type(params0)(*(a.expand((seeds,) + a.shape).clone() for a in params0)),
+            action_raw_cached=torch.zeros((seeds, self.na), **kw),
+            action_model_prev=self._tensor(torch.stack([d.action_prev() for d in draws])),
+            prev_mpc=torch.zeros((seeds, self.n_flat), **kw),
             have_prev=False,
-            pred_state=torch.zeros(self.ns, **kw),
-            pred_std=torch.zeros(self.ns, **kw),
-            draws=draws,
+            pred_state=torch.zeros((seeds, self.ns), **kw),
+            pred_std=torch.zeros((seeds, self.ns), **kw),
+            draws=list(draws),
         )
 
     def step(self, c: _Carry, t: int) -> Tuple[_Carry, dict]:
         spec = self.spec
-        ns, na = self.ns, self.na
+        ns = self.ns
+        seeds = c.obs.shape[0]
         state_mu = self.norm_obs(c.obs)
         mem, a_raw, a_model0 = c.mem, c.action_raw_cached, c.action_model_prev
         prev_mpc, have_prev, pred_state, pred_std = c.prev_mpc, c.have_prev, c.pred_state, c.pred_std
@@ -454,25 +502,27 @@ class _Episode:
             mem = memory_prepare(mem, spec.num_repeat_actions, ns)
             if t < spec.warmup:
                 if spec.deterministic_inits:
-                    rand_mpc = torch.full((self.n_flat,), 0.5, dtype=spec.dtype, device=spec.device)
+                    rand_mpc = torch.full((seeds, self.n_flat), 0.5, dtype=spec.dtype, device=spec.device)
                 else:
-                    rand_mpc = self._tensor(c.draws.warmup_actions(t))
+                    rand_mpc = self._draws(c.draws, "warmup_actions", t)
                 a_opt, info = self.eval_actions(mem, c.params, state_mu, rand_mpc, c.action_model_prev, t)
             else:
                 a_opt, info = self.plan_actions(mem, c.params, state_mu, c.prev_mpc, c.have_prev,
                                                 c.action_model_prev, t, c.draws)
-            a_model0 = mpc_to_model_actions(spec.plan.action, a_opt, c.action_model_prev)[0]
+            a_model0 = mpc_to_model_actions(spec.plan.action, a_opt, c.action_model_prev)[..., 0, :]
             a_raw = a_model0 * (self.act_high - self.act_low) + self.act_low
             prev_mpc, have_prev = a_opt, True
-            pred_state = info.states_mu_pred[1]
-            pred_std = torch.sqrt(torch.clamp(torch.diagonal(info.states_var_pred[1]), min=0.0))
+            pred_state = info.states_mu_pred[..., 1, :]
+            pred_std = torch.sqrt(torch.clamp(torch.diagonal(info.states_var_pred[..., 1, :, :], dim1=-2, dim2=-1),
+                                              min=0.0))
 
         # realized cost of (obs, action): compute_cost_unnormalized's
         a_model_now = (a_raw - self.act_low) / (self.act_high - self.act_low)
-        reward_now, _ = reward_single(spec.plan.reward, state_mu[None], self.obs_var[None], a_model_now[None])
-        cost_now = -reward_now[0]
+        reward_now, _ = reward_single(spec.plan.reward, state_mu[:, None], self.obs_var.expand(seeds, 1, ns, ns),
+                                      a_model_now[:, None])
+        cost_now = -reward_now[:, 0]
 
-        env_state, obs_new, env_reward = spec.env.step_fn(c.env_state, a_raw, c.draws.generator)
+        env_state, obs_new, env_reward = spec.env.step_fn(c.env_state, a_raw, [d.generator for d in c.draws])
         # under mixed mode the env runs in f64: the observation comes back
         # in the episode's dtype
         obs_new = obs_new.to(spec.dtype)
@@ -481,10 +531,11 @@ class _Episode:
         s_next = self.norm_obs(obs_new)
         parts = [state_mu, a_model_now]
         if spec.include_time_model:
-            parts.append(torch.full((1,), float(t), dtype=spec.dtype, device=spec.device))
-        x_row = torch.cat(parts)
+            parts.append(torch.full((seeds, 1), float(t), dtype=spec.dtype, device=spec.device))
+        x_row = torch.cat(parts, dim=-1)
         if spec.check_storage:
-            store = torch.any(torch.abs(pred_state - s_next) > spec.thr_err) & torch.any(pred_std > spec.thr_std)
+            store = torch.any(torch.abs(pred_state - s_next) > spec.thr_err, dim=-1) \
+                & torch.any(pred_std > spec.thr_std, dim=-1)
         else:
             store = True
         mem = memory_add(mem, x_row, s_next, store)
@@ -509,7 +560,8 @@ class _Episode:
 
 
 def _stack_steps(outs: list) -> dict:
-    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    """The steps' outputs with the step axis after the seed axis."""
+    return {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
 
 
 def _finalize_outs(outs: dict, carry: _Carry) -> dict:
@@ -519,54 +571,46 @@ def _finalize_outs(outs: dict, carry: _Carry) -> dict:
     return outs
 
 
-def _stack_seeds(results: list) -> dict:
-    """One dict per seed -> one dict with a leading seed axis (fields of
-    final_params and final_mem stacked too)."""
-    out = {}
-    for k, v in results[0].items():
-        if isinstance(v, tuple):
-            out[k] = type(v)(*(torch.stack(fields) for fields in zip(*(r[k] for r in results))))
-        else:
-            out[k] = torch.stack([r[k] for r in results])
-    return out
+def _element(tree, i: int):
+    """Seed i of a batch's outputs (fields of NamedTuples too)."""
+    if isinstance(tree, dict):
+        return {k: _element(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(f[i] for f in tree))
+    return tree[i]
 
 
-def build_episode_fn(spec: EpisodeSpec, draws=EpisodeDraws):
-    """fn(seed, params0) -> dict of per-step tensors (obs, action_raw, cost,
-    env_reward, pred_state, pred_std; leading axis the step) and
-    final_params, final_obs, final_mem. ``draws(seed, spec)`` makes each
-    episode's ``EpisodeDraws``."""
+def build_episodes_batch_fn(spec: EpisodeSpec, steps_per_call: Optional[int] = None, draws=EpisodeDraws):
+    """fn(seeds, params0): the episodes of the seeds in lockstep (the JAX
+    package's vmap over keys), every output with a leading seed axis: the
+    port's ``run_env_multiple`` kept on the device. ``draws(seed, spec)``
+    makes each seed's ``EpisodeDraws``.
+
+    ``steps_per_call`` runs the episodes in segments of that many steps,
+    the carry kept on the device between them (JAX bounds each device
+    dispatch so); the result is the unsegmented run's, bit for bit."""
     episode = _Episode(spec)
+    seg = spec.num_steps if steps_per_call is None else max(1, int(steps_per_call))
 
-    def run(seed: int, params0: GPParams) -> dict:
-        carry = episode.init_carry(draws(seed, spec), params0)
-        carry, outs = episode.run(carry, range(spec.num_steps))
+    def run(seeds, params0):
+        carry = episode.init_carry([draws(int(s), spec) for s in seeds], params0)
+        outs = []
+        for s0 in range(0, spec.num_steps, seg):
+            carry, part = episode.run(carry, range(s0, min(s0 + seg, spec.num_steps)))
+            outs.extend(part)
         return _finalize_outs(_stack_steps(outs), carry)
 
     return run
 
 
-def build_episodes_batch_fn(spec: EpisodeSpec, steps_per_call: Optional[int] = None, draws=EpisodeDraws):
-    """fn(seeds, params0): the episode of each seed (the JAX package's vmap
-    over keys; here a loop), every output with a leading seed axis: the
-    port's ``run_env_multiple`` kept on the device.
+def build_episode_fn(spec: EpisodeSpec, draws=EpisodeDraws):
+    """fn(seed, params0) -> dict of per-step tensors (obs, action_raw, cost,
+    env_reward, pred_state, pred_std; leading axis the step) and
+    final_params, final_obs, final_mem: the batch of one seed."""
+    batch = build_episodes_batch_fn(spec, draws=draws)
 
-    ``steps_per_call`` runs the episodes in segments of that many steps,
-    every seed's segment in turn, the carries kept on the device between
-    them (JAX bounds each device dispatch so); the result is the
-    unsegmented run's, bit for bit."""
-    episode = _Episode(spec)
-    seg = spec.num_steps if steps_per_call is None else max(1, int(steps_per_call))
-
-    def run(seeds, params0):
-        carries = [episode.init_carry(draws(int(s), spec), params0) for s in seeds]
-        outs = [[] for _ in carries]
-        for s0 in range(0, spec.num_steps, seg):
-            ts = range(s0, min(s0 + seg, spec.num_steps))
-            for i, carry in enumerate(carries):
-                carries[i], part = episode.run(carry, ts)
-                outs[i].extend(part)
-        return _stack_seeds([_finalize_outs(_stack_steps(o), c) for o, c in zip(outs, carries)])
+    def run(seed: int, params0: GPParams) -> dict:
+        return _element(batch([seed], params0), 0)
 
     return run
 

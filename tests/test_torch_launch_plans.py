@@ -27,7 +27,10 @@ every element exactly once.
 
 Each case mirrors the kernel's mapping from (block, warp or thread, lane,
 step) to (pair, row, column) as its source comment states it, counts the
-elements each plan reaches and requires every count to be 1. CPU only. The
+elements each plan reaches and requires every count to be 1. With a batch
+axis (#12, #8, #9: grid row y the element), each element's partials and
+outputs must fill exactly its slice of the wrapper's buffers; a batch
+folded into #5's pair axis takes one element's plan for every element. CPU only. The
 last cases hold #3's two-side plain twin (the CPU path of ``cov_bwd``) to
 its two one-side calls and to the JAX package's cov core VJP.
 """
@@ -85,6 +88,54 @@ def test_df_mm_fwd_plan_covers_every_element_once(n, sms):
         if sms == 132 and n <= 128 and ns == 3:  # the planning step: one E per lane, one wave
             assert plan["rows_per_warp"] == 1
             assert plan["pair_blocks"] + plan["mean_blocks"] <= df_mm.FWD_BLOCKS_PER_SM * sms
+
+
+def _written(extents, strides, offset=0):
+    """The flat indices a loop nest over ``extents`` writes at ``strides``."""
+    idx = np.full((), offset, dtype=np.int64)
+    for e, st in zip(extents, strides):
+        idx = idx[..., None] + st * np.arange(e)
+    return idx.ravel()
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("n", [32, 100, 128])
+def test_df_mm_batch_elements_fill_their_own_buffer_slices(n, sms):
+    """#12, #8 and #9 with a batch axis: grid row y is element y, its grid
+    row the one element's plan, and its partials and outputs at y times the
+    element's extent (csrc/df_mm_fwd.cu, csrc/df_mm_bwd.cu, as their
+    comments state the layouts). Every element's writes fill exactly its
+    slice of the wrapper's buffers (``fwd_buffer_shapes``,
+    ``bwd_buffer_shapes``), each index once: no element reads or sums
+    another's."""
+    batch = 3
+    for ns in (1, 2, 3):
+        for d in sorted({ns, 5, 8}):
+            p = ns * (ns + 1) // 2
+            plan = df_mm.fwd_launch_plan(n, ns, sms)
+            shapes = df_mm.fwd_buffer_shapes(n, ns, d, batch, sms)
+            npb, mt = plan["pair_blocks"], plan["mean_blocks"]
+            mplane, n_out = ns * (1 + d) * mt, ns + ns * d + p + ns
+            writes = {  # element, plane (hi, lo), then the kernel's own index
+                "pair_part": _written((batch, 2, npb, 2), (4 * npb, 2 * npb, 2, 1)),
+                "mean_part": _written((batch, 2, ns, 1 + d, mt), (2 * mplane, mplane, (1 + d) * mt, mt, 1)),
+                "scale": _written((batch, ns + p), (ns + p, 1)),
+                "full_out": _written((batch, ns + ns * d + p), (ns + ns * d + p, 1)),
+                "fwd_out": _written((batch, 2, n_out), (2 * n_out, n_out, 1))}
+            nt = -(-n // df_mm.BWD_TILE)
+            nv, units = d + ns * ns, 2 * p * nt
+            bshapes = df_mm.bwd_buffer_shapes(n, ns, d, batch)
+            writes_bwd = {
+                "mean_part": _written((batch, 2, ns, nt, nv), (2 * ns * nt * nv, ns * nt * nv, nt * nv, nv, 1)),
+                "unit_part": _written((batch, 2, units, nv), (2 * units * nv, units * nv, nv, 1)),
+                "out": _written((batch, d + ns ** 3 + p * ns * ns), (d + ns ** 3 + p * ns * ns, 1))}
+            for got, want in ((writes, shapes), (writes_bwd, bshapes)):
+                for name, idx in got.items():
+                    size = int(np.prod(want[name]))
+                    assert np.array_equal(np.sort(idx), np.arange(size)), (ns, d, name)
+                    assert want[name][0] == batch and size % batch == 0
+            # the grid of one element is the B = 1 launch's (the plan does not see the batch)
+            assert df_mm.fwd_buffer_shapes(n, ns, d, 1, sms)["rows_per_warp"] == plan["rows_per_warp"]
 
 
 def _cov_counts(p, n, rows, bands):
@@ -173,6 +224,15 @@ def test_df_fwd_plan_covers_every_element_once(n, sms):
         if plan["blocks"] > sms:  # more than one wave only where the longest bands cannot fit one
             assert plan["rows_diag"] == plan["rows_off"] == cap
             assert len(diag_pos) * -(-n // cap) + (p - len(diag_pos)) * -(-n // cap) > sms
+    # a batch folded into the pair axis (models.gp._batched_cov_core): the
+    # element's plan, every element's bands in one launch
+    for p, diag_pos, ns in DF_CASES:
+        batch = 3
+        fold = tuple(b * p + q for b in range(batch) for q in diag_pos)
+        plan = df_cov.fwd_launch_plan(p, n, diag_pos, ns, sms)
+        assert moment_cov.element_pairs(batch * p, fold, batch) == (p, tuple(diag_pos))
+        counts, blocks, most = _df_fwd_counts(batch * p, n, fold, plan)
+        assert np.all(counts == 1) and blocks == batch * plan["blocks"] and most == plan["max_bands"]
     if sms == 132 and n == 384:  # the flagship: 4 rows a scheduler on diagonal pairs, 5 elsewhere
         plan = df_cov.fwd_launch_plan(6, 384, (0, 3, 5), 3, 132)
         assert (plan["rows_diag"], plan["rows_off"], plan["blocks"]) == (16, 20, 132)

@@ -1,7 +1,7 @@
 """Multi-restart planning in the port against the JAX package, on the CPU in f64.
 
 The JAX planner optimizes R restarts in one vmapped program; the port runs
-them one after another (controllers/planner.py). One JAX program serves
+them as one lockstep batch (controllers/planner.py, ``lbfgs_b_minimize_batch``). One JAX program serves
 several cases here, so that its compile is paid once: the mountain-car
 example's controller (its configuration at horizon 3, two restarts) runs a
 ``run_env`` episode on both sides, and its jitted cached plan and cached
@@ -115,18 +115,18 @@ def _plan_inputs(jctrl, restarts):
 def _record_restarts(monkeypatch):
     """Each restart's (x, f) and the chosen restart of the port's plans."""
     seen = {"restarts": [], "chosen": []}
-    minimize, select = tplanner.lbfgs_b_minimize, tplanner._select_restart
+    minimize, select = tplanner.lbfgs_b_minimize_batch, tplanner._select_restart
 
-    def recorded_minimize(*args, **kwargs):
-        out = minimize(*args, **kwargs)
-        seen["restarts"].append(out)
-        return out
+    def recorded_minimize(*args, **kwargs):  # the restarts run as one lockstep batch
+        xs, fs = minimize(*args, **kwargs)
+        seen["restarts"].extend(zip(xs, fs))
+        return xs, fs
 
     def recorded_select(fs):
         seen["chosen"].append(select(fs))
         return seen["chosen"][-1]
 
-    monkeypatch.setattr(tplanner, "lbfgs_b_minimize", recorded_minimize)
+    monkeypatch.setattr(tplanner, "lbfgs_b_minimize_batch", recorded_minimize)
     monkeypatch.setattr(tplanner, "_select_restart", recorded_select)
     return seen
 
@@ -195,13 +195,14 @@ def test_plan_keeps_the_restart_of_the_nan_rule(episode, nan_restarts, chosen, m
     _, _, _, tctrl = episode
     points = []
 
-    def minimize(fun, x0, *args, **kwargs):
+    def minimize(fun, x0, *args, **kwargs):  # the restarts' lockstep batch: each kept at its init
         x = x0.detach().clone()
-        f = fun(x).detach()
-        points.append(x)
-        return x, torch.full_like(f, float("nan")) if len(points) - 1 in nan_restarts else f
+        f = fun(x, torch.arange(x.shape[0])).detach()
+        points.extend(x)
+        nan = torch.tensor([r in nan_restarts for r in range(x.shape[0])])
+        return x, torch.where(nan, torch.full_like(f, float("nan")), f)
 
-    monkeypatch.setattr(tplanner, "lbfgs_b_minimize", minimize)
+    monkeypatch.setattr(tplanner, "lbfgs_b_minimize_batch", minimize)
     p = _plan_inputs(tctrl, 2)
     inits = torch.tensor(p["inits"])
     a_opt, _, info = tplanner._plan_from_cache(tctrl.plan_spec, tctrl.planner._cache, torch.tensor(p["state_mu"]),
