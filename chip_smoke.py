@@ -58,7 +58,10 @@ holds each kernel against its plain PyTorch version at the flagship shapes
   10 and 15, one f64 training on the card at t = 19 and one planned step
   of two restarts at t = 20, every rollout step through the whole-step
   kernels at ns = 2, d = 3; each seed's plan is held to the card's f64 plan
-  of the same memory, trained parameters, state and inits;
+  of the same memory, trained parameters, state and inits; then the same
+  sweep in f32 (``--dtype float32``, the CLI's default: each refresh one
+  Gram launch for both seeds' memories, an f32 training, the rollout
+  through #2 and #3), held to the card's f64 plans by F32_SWEEP_TOL;
 * the multi-device path (phase 9): a one-rank NCCL group on the card (an
   in-process HashStore, destroyed at the end of the phase), the port's
   ``parallel.sharding.dryrun_training_step`` on it, then the N-sharded mixed
@@ -87,8 +90,11 @@ and the pairs' VJP) at N = 192 and 384, on the trained-GP problem's operands
 and random ones, each redesigned kernel also for bitwise repeats, the split
 route bit for bit against #9 and its on-card combination against
 ``combine_split``, the Gram also at a ragged N and the iK gradient on
-rectangular slabs, and #2, #3, #5, #6 and #7 on the N-sharded cores' row
-slabs (RECT_SPLITS), each slab against the plain twins and the slabs'
+rectangular slabs, the batch axis (#12, #8 and #9 at N = 32 and 128, #10
+and #11 at N = 192 and 384, at B = 2 and 4, a shared cache and per-seed
+caches, and #1 on batches of memories, each element bit for bit its single
+launch; device ms at B = 1, 2, 4 and 8 beside the bound times B), and #2,
+#3, #5, #6 and #7 on the N-sharded cores' row slabs (RECT_SPLITS), each slab against the plain twins and the slabs'
 combined outputs and gradients against the square launch's, with #3's and
 #7's rectangular backwards timed beside their square launches, and the
 process-control path's ns = 2 instances (check_ns2_kernels: #12, #8 and #9
@@ -107,8 +113,10 @@ mountain-car episode, phase 8 those of the sweep and phase 10 those of each
 process-control run and its planned step (EXPECTED_LAUNCHES). Phase 5
 times the blocked planning step of the paths and 15-step rollouts of the
 mixed routes at ROLLOUT_BUCKETS; at 384 the whole-step route's
-value-and-grad rollout runs the split backward, and its gradient is held to
-the df cov route's and to the f64 rollout's. Phase 6 times each controller
+value-and-grad rollout runs the split backward, once for one restart and
+once for two restarts in one batch (each restart's gradient bit for bit
+its single rollout's), and the gradients are held to the df cov route's and
+to the f64 rollout's. Phase 6 times each controller
 step (blocked) and the training on its thread, phase 7 the episode, its
 planned step and its random steps (blocked), phase 8 each seed's episode
 and training (blocked) and the sweep's aggregate env steps per second,
@@ -189,7 +197,11 @@ WATCHDOG_S = 175  # a little under the 180 s budget of a cold run
 # CONTROLLER_PLANNED at 2 (its second step 3.2 s and its f64 comparison
 # ~2 s on the card) that slow host is estimated at ~168 s, past the 165 s
 # the cuts aim under; with 1, at ~162 s (PERF.md, section 6). Both are
-# estimates: no run has measured the final tree on that host.
+# estimates: no run has measured the final tree on that host. The f32 sweep
+# (phase 8), the batch checks of #10, #11 and #1 (phase 3) and the
+# two-restart rollout (phase 5) added ~8 s on a fast host, so phase 5's
+# rollouts at N = 128 (timings only, no check; 6.2 s there) were cut
+# (ROLLOUT_BUCKETS).
 PLAN_STEPS = 2
 TIMED_STEPS = 2
 MIXED_STEPS = 1  # trained-GP flagship steps in mixed mode, each checked and timed
@@ -255,6 +267,19 @@ REDESIGNED_BEFORE_MS = {"df_mm_bwd": "0.0596-0.0600", "df_fwdres": "0.0688-0.069
 # step at t = 20, the seeds' two restarts each in one batch of four, as phase
 # 7's (5 x 10 df_mm_full, 4 x 10 df_mm_fwd and df_mm_bwd), counted on the
 # plain twins on the CPU with the whole-step dispatch on.
+# The f32 sweep (the same cuts, in f32): 5 refreshes of both seeds'
+# memories (the random evaluations at t = 0, 5, 10 and 15, the planned step
+# at t = 20), each one Gram launch for both seeds; the rollouts through #2
+# and #3 with the seeds folded into the pair axis, as the mixed sweep's
+# through #12, #8 and #9: 90 cov_fwd, 40 cov_bwd_row (the f32 training runs
+# the plain Gram of its MLL, no kernel), counted on the plain twins on the
+# CPU with the f32 cov core's dispatch patched on: 5 / 90 / 40. The card
+# takes one more value-and-grad batch and one more forward-only trial in
+# the planned step's line searches (110 / 50): the f32 objective after the
+# training is ill-conditioned (F32_SWEEP_TOL), so the kernels' summation
+# order moves the line search's decisions, as in phase 10's run 0. The
+# card's kernels sum in a fixed order, so the card repeats it; those are the
+# counts held here.
 # Phase 10's process-control runs, each rollout 5 steps: the random steps 0,
 # 10 and 20 one forward-only rollout each (15 df_mm_full); the planned step
 # 30 two restarts in one lockstep batch, 3 value-and-grad evaluations of the
@@ -276,6 +301,7 @@ EXPECTED_LAUNCHES = {"cov_bwd_row per f32 plan": 30, "df_fwd per residual mixed 
                      "controller planned steps": ({"df_mm_full": 135, "df_mm_fwd": 75, "df_mm_bwd": 75},),
                      "mountain-car episode": {"df_mm_full": 108, "df_mm_fwd": 48, "df_mm_bwd": 48},
                      "mountain-car sweep": {"df_mm_full": 90, "df_mm_fwd": 40, "df_mm_bwd": 40},
+                     "mountain-car f32 sweep": {"gram": 5, "cov_fwd": 110, "cov_bwd_row": 50},
                      "process-control run": {
                          "planned steps": (({"df_mm_full": 90, "df_mm_fwd": 15, "df_mm_bwd": 15},),
                                            ({"df_mm_full": 20, "df_mm_fwd": 15, "df_mm_bwd": 15},)),
@@ -386,9 +412,12 @@ LAUNCHES_PER_CALL = {"df_mm_full": 2, "df_mm_fwd": 2, "df_mm_bwd": 2, "df_mm_bwd
 # the whole-step path (phase 4): the trained-GP problem at 100 points in the
 # 128 bucket, where the card's dispatch takes it (ops.use_df_fused)
 FUSED_POINTS, FUSED_BUCKET = 100, 128
-# phase 5's 15-step rollouts of each route, for the H100 dispatch range (64
-# was dropped to keep the cold run well inside WATCHDOG_S: 139 s on a slow host)
-ROLLOUT_BUCKETS = (128, 384)
+# phase 5's 15-step rollouts of each route, at 384, where the whole-step
+# route's backward runs split (64 was dropped to keep the cold run well
+# inside WATCHDOG_S, 139 s on a slow host; 128, timings only, to make room
+# for the f32 sweep and the batch checks: 6.2 s of a ~120 s cold run on a
+# fast host)
+ROLLOUT_BUCKETS = (384,)
 
 # Mixed mode against the card's float64 plan of the same trained-GP step.
 # objective and gradient: at the initial actions on the caches after the
@@ -460,6 +489,22 @@ MC_MAXFUN = 3
 SWEEP_SEEDS = (0, 1)
 SWEEP_STEPS = 25
 SWEEP_TRAINING_FREQUENCY = 20
+# The same sweep in f32 (phase 8, f32): ``--dtype float32``, the CLI's
+# default (env, refresh, training and rollout in f32), at the same cuts.
+# Its plans against the card's f64 plans, MIXED_TOL's gaps: after the
+# training at t = 19 the f32 plan is ill-conditioned in both packages. At
+# seed 0's planned step (4 points) JAX's own f32 objective misses its f64
+# one by 3.1e-2 and its gradient by 2.8e-2 (on the CPU, the port's inputs);
+# the port's f32 cache and JAX's each miss the f64 cache by 2.6e-4 in beta,
+# and at seed 1 a change of the f32 cache at the level of its rounding
+# (3.8e-7 of iK, the port's against JAX's) moved the port's objective by
+# 2.7e-4. The port measured objective 9.5e-2, gradient 1.4e-1, info 2.4e-1
+# and plan 1.4e-3 at seed 0 on the CPU (2.7e-4, 1.4e-5, 5.6e-6, -6.7e-6 at
+# seed 1), so the card's summation order may move the first three as far
+# again: they are held to about 3x those. The plan gap (the f64 objective at
+# the f32 plan against the f64 plan's) stays well conditioned and is held as
+# MIXED_TOL holds it. The kernels themselves are held in phase 3.
+F32_SWEEP_TOL = {"objective": 0.3, "gradient": 0.5, "info": 0.75, "plan": 1e-2}
 
 # The time-varying process-control example through run_env_multiple (phase
 # 10): examples/process_control/run_process_control_multiple_torch.py's env
@@ -639,7 +684,7 @@ def df_instructions_per_element(ns: int) -> dict:
 
 def mean_vjp_instructions(ns: int, d: int) -> int:
     """f32 instructions per (model, stored point) of the mean path's VJP
-    (df_mm_bwd_mean, csrc/df_mm.cuh mean_point and df_mm_bwd.cu
+    (df_mm_bwd_mean, csrc/df_mm.cuh mean_point and df_mm_bwd.cuh
     bwd_mean_tile): the point's forward quantities, then its df cotangents
     and their warp sums; none may fuse into an FMA."""
     c = df_op_instructions()
@@ -730,7 +775,7 @@ def df_op_depths() -> SimpleNamespace:
 
 def mean_vjp_chain(ns: int, d: int, n: int) -> int:
     """The dependent chain of #10 (df_mm_bwd_mean) in f32 instructions: one
-    lane's mean_point and VJP (csrc/df_mm.cuh, df_mm_bwd.cu mean_item), the
+    lane's mean_point and VJP (csrc/df_mm.cuh, df_mm_bwd.cuh mean_item), the
     warp sums of its outputs (a shuffle and a df add per level), then block
     0's sequential sum over the ns ceil(N / 32) items. Loads count 0, so the
     chain times the instruction latency is a floor on the launch's time."""
@@ -1864,6 +1909,16 @@ BATCH_TIMES = (1, 2, 4, 8)
 BATCH_NS_D = ((3, 4), (2, 5))
 BATCH_N = (32, 128)
 FOLD_N = 192
+# The split backward past N = 128 (#10, #11) takes the same batch axis: at
+# B = BATCH_SIZES, N = SPLIT_SIZES, a shared cache and per-seed caches, each
+# element bit for bit its single launch (#10 and #11 apart and the split
+# route), the batch held to its batched plain twins by DF_GRAD_TOL of each
+# output's largest entry (check_df_mm_split's) at BATCH_TWIN; the Gram (#1)
+# at B = BATCH_SIZES of memories with their own parameters at the
+# flagship's 384 and at a ragged N, each element bit for bit its single
+# launch and the batch within GRAM_RTOL, GRAM_ATOL of gram_ref; each timed
+# at B = BATCH_TIMES beside its bound times B (#10, #11 at N = 384 on the
+# trained-GP operands, #1 at 3 x 384 x 384).
 
 
 def stacked_cache(caches, index, dev):
@@ -1990,10 +2045,13 @@ def check_folded_df_cov(dev) -> None:
 def check_batched_kernels(dev) -> dict:
     """Phase 3's batch axis: #12, #8 and #9 at B = BATCH_SIZES, a shared
     cache and per-seed caches, at N = BATCH_N and (ns, d) = BATCH_NS_D
-    (``check_batch``); the folded df cov core (``check_folded_df_cov``);
-    then device ms per call at B = BATCH_TIMES at N = 128 on the trained-GP
-    operands, each beside its bound times B. Returns each kernel's largest
-    error to its batched twin."""
+    (``check_batch``); #10 and #11 the same at N = SPLIT_SIZES
+    (``check_split_batch``); #1 on batches of memories
+    (``check_gram_batch``); the folded df cov core (``check_folded_df_cov``);
+    then device ms per call at B = BATCH_TIMES, each beside its bound times
+    B: #10, #11 and #1 (``time_split_and_gram_batches``), #12, #8 and #9 at
+    N = 128 on the trained-GP operands. Returns each kernel's largest error
+    to its batched twin."""
     errs = {}
     for n in BATCH_N:
         for ns, d in BATCH_NS_D:
@@ -2010,7 +2068,23 @@ def check_batched_kernels(dev) -> dict:
             log(f"kernel df_mm_full, df_mm_fwd, df_mm_bwd batch (N={n}, ns={ns}, d={d}): B = "
                 f"{', '.join(map(str, BATCH_SIZES))} with a shared cache and with per-seed caches, each element bit "
                 f"for bit its own single launch")
+    for n in SPLIT_SIZES:
+        caches = [random_df_mm_problem(dev, n, seed=n + 31 * c)[0] for c in range(2)]
+        for b in BATCH_SIZES:
+            mu, sv = batch_elements(dev, b, 3, 4, seed=n + b)
+            for mode in ("shared", "per-seed"):
+                index = [0] * b if mode == "shared" else [k * 2 // b for k in range(b)]
+                bcache = caches[0] if mode == "shared" else stacked_cache(caches, index, dev)
+                out = check_split_batch(f"B={b}, {mode} cache, N={n}", bcache, caches, index, mu, sv,
+                                        (b, mode) in BATCH_TWIN)
+                for name, e in zip(("df_mm_bwd_mean", "df_mm_bwd_pair"), out):
+                    errs[name] = max(errs.get(name, 0.0), e)
+        log(f"kernel df_mm_bwd_mean, df_mm_bwd_pair batch (N={n}, ns=3, d=4): B = "
+            f"{', '.join(map(str, BATCH_SIZES))} with a shared cache and with per-seed caches, each element bit for "
+            f"bit its own single launch (#10, #11 and the split route)")
+    errs["gram"] = check_gram_batch(dev)
     check_folded_df_cov(dev)
+    time_split_and_gram_batches(dev)
     cache, mu1, sv1 = trained_gp_step_inputs(dev, 128)
     ns, d = cache.ils_hi.shape
     for b in BATCH_TIMES:
@@ -2029,6 +2103,129 @@ def check_batched_kernels(dev) -> dict:
             times.append(f"{name} {ms:.4f} ms (bound x B {bound * b:.5f} ms)")
         log(f"kernel batch B={b} (N=128, trained-GP operands, one shared cache): " + ", ".join(times))
     return errs
+
+
+def check_split_batch(label, bcache, caches, index, mu, sv, twin) -> tuple[float, float]:
+    """#10 and #11 on a batch past N = 128: each element of the batched
+    wrappers (``stage23_bwd_mean``, ``stage23_bwd_pairs``) and of the split
+    route (``stage23_bwd``: #10, then #11 with the df combination) bit for
+    bit its own single call on its own cache, one launch of each kernel per
+    batched call; with ``twin``, each output within DF_GRAD_TOL of its
+    largest entry of the batched plain twins (the mean path's and the pairs'
+    df contributions collapsed in f64, g_B, g_Q, and the route's g_mu
+    against ``combine_split`` of the twins). Returns #10's and #11's max abs
+    errors to the twins (0 where not held to them)."""
+    b, d = mu.shape
+    ns = sv.shape[-1]
+    ii, jj, _, _ = df_mm.pair_indices(ns, mu.device)
+    Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(bcache, sv, ii, jj)
+    g = batch_cotangents(mu.device, b, ns, d)
+    names = ("df_mm_bwd_mean", "df_mm_bwd_pair", "df_mm_bwd")
+    before = {k: df_mm.LAUNCHES[k] for k in names}
+    m_inp, g_b = df_mm.stage23_bwd_mean(mu, Bh, Bl, bcache, g[0], g[1])
+    p_inp, g_q = df_mm.stage23_bwd_pairs(mu, Qh, Ql, bcache, g[2], g[3])
+    split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, bcache, *g)
+    launched = {k: df_mm.LAUNCHES[k] - before[k] for k in names}
+    if launched != {"df_mm_bwd_mean": 2, "df_mm_bwd_pair": 2, "df_mm_bwd": 0}:
+        raise AssertionError(f"split batch [{label}]: three batched calls launched {launched}")
+    for k in range(b):
+        c = caches[index[k]]
+        one_m = df_mm.stage23_bwd_mean(mu[k], Bh[k], Bl[k], c, g[0][k], g[1][k])
+        one_p = df_mm.stage23_bwd_pairs(mu[k], Qh[k], Ql[k], c, g[2][k], g[3][k])
+        one_s = df_mm.stage23_bwd(mu[k], Bh[k], Bl[k], Qh[k], Ql[k], c, *(t[k] for t in g))
+        for name, got, want in (("df_mm_bwd_mean", (*m_inp, g_b), (*one_m[0], one_m[1])),
+                                ("df_mm_bwd_pair", (*p_inp, g_q), (*one_p[0], one_p[1])),
+                                ("split route", split, one_s)):
+            if not all(torch.equal(x[k], y) for x, y in zip(got, want)):
+                raise AssertionError(f"{name} [{label}]: element {k} of the batch of {b} differs from its single "
+                                     f"launch")
+    if not twin:
+        return 0.0, 0.0
+
+    def v(x):
+        return x[0].double() + x[1].double()
+
+    ref_m = df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, bcache, g[0], g[1])
+    ref_p = df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, bcache, g[2], g[3])
+    ref_s = (df_mm.combine_split(ref_m[0], ref_p[0]), ref_m[1], ref_p[1])
+    errs, worst = [0.0, 0.0], 0.0
+    for k in range(b):
+        for j, pairs in enumerate(((v(m_inp), v(ref_m[0])), (g_b, ref_m[1]), (v(p_inp), v(ref_p[0])), (g_q, ref_p[1]),
+                                   *zip(split, ref_s))):
+            e, rel = max_err(pairs[0][k], pairs[1][k])
+            if j < 4:
+                errs[j // 2] = max(errs[j // 2], e)
+            worst = max(worst, rel / DF_GRAD_TOL)
+    if not worst <= 1.0:
+        raise AssertionError(f"split batch [{label}]: the batch of {b} disagrees with its batched plain twins "
+                             f"({worst:.3e} of DF_GRAD_TOL)")
+    log(f"kernel df_mm_bwd_mean, df_mm_bwd_pair batch [{label}]: max abs err to the batched plain twins "
+        f"{errs[0]:.3e}, {errs[1]:.3e}; {worst:.3e} of DF_GRAD_TOL")
+    return errs[0], errs[1]
+
+
+def check_gram_batch(dev) -> float:
+    """#1 on a batch of memories with their own parameters (an f32 episode
+    batch's refresh) at the flagship's 3 x 384 and at a ragged N: one
+    launch, each element bit for bit its single launch, the batch within
+    GRAM_RTOL and GRAM_ATOL of the batched gram_ref. Returns the max abs
+    error."""
+    ns, d, n = 3, 4, 384
+    sizes = (n, ragged_n(lambda m: gram_mod.launch_plan(ns, m, _build.sm_count(dev))["rows"]))
+    err = 0.0
+    for m in sizes:
+        for b in BATCH_SIZES:
+            rng = np.random.default_rng(m + b)
+            ls, outs, x = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (
+                rng.uniform(0.3, 2.0, (b, ns, d)), rng.uniform(0.02, 0.4, (b, ns)), rng.uniform(0, 1, (b, m, d))))
+            before = gram_mod.LAUNCHES["gram"]
+            k_out = gram_mod.gram(ls, outs, x)
+            if gram_mod.LAUNCHES["gram"] != before + 1:
+                raise AssertionError(f"gram: the batch of {b} took {gram_mod.LAUNCHES['gram'] - before} launches")
+            for e in range(b):
+                if not torch.equal(k_out[e], gram_mod.gram(ls[e], outs[e], x[e])):
+                    raise AssertionError(f"gram: element {e} of the batch of {b} (N={m}) differs from its single "
+                                         f"launch")
+            k_ref = gram_mod.gram_ref(ls, outs, x)
+            excess = float(((k_out - k_ref).abs() - (GRAM_ATOL + GRAM_RTOL * k_ref.abs())).max())
+            if not excess <= 0.0:
+                raise AssertionError(f"gram: the batch of {b} (N={m}) disagrees with the batched gram_ref")
+            err = max(err, max_err(k_out, k_ref)[0])
+    log(f"kernel gram batch ({ns} models, N = {', '.join(map(str, sizes))}): B = {', '.join(map(str, BATCH_SIZES))}, "
+        f"one launch each, each element bit for bit its single launch; max abs err to the batched gram_ref {err:.3e} "
+        f"(tol atol {GRAM_ATOL} + rtol {GRAM_RTOL})")
+    return err
+
+
+def time_split_and_gram_batches(dev) -> None:
+    """Device ms per call of #10 and #11 (N = 384, trained-GP operands, one
+    shared cache) and of #1 (3 x 384 x 384, one memory's parameters for
+    every element) at B = BATCH_TIMES, each beside its bound times B."""
+    cache, mu1, sv1 = trained_gp_step_inputs(dev, 384)
+    ns, d = cache.ils_hi.shape
+    n = cache.x_hi.shape[0]
+    ii, jj, _, _ = df_mm.pair_indices(ns, dev)
+    prob = flagship_problem(dev, torch.float32)
+    ls1, outs1, _ = constrained_params(prob.params, prob.bounds)
+    x1 = torch.as_tensor(prob.x, dtype=torch.float32, device=dev)
+    gram_bound, _ = bound_ms(4 * (ns * d + ns + n * d + ns * n * n), ns * n * n * (8 * d + 6))
+    for b in BATCH_TIMES:
+        off = torch.linspace(0.0, 2e-3, b, device=dev)
+        mu = (mu1 + off[:, None]).contiguous()
+        sv = (sv1 * (1 + off[:, None, None])).contiguous()
+        Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(cache, sv, ii, jj)
+        g = batch_cotangents(dev, b, ns, d)
+        ls, outs, x = (t.expand((b,) + t.shape).contiguous() for t in (ls1, outs1, x1))
+        times = []
+        for name, call in (("df_mm_bwd_mean", lambda: df_mm.stage23_bwd_mean(mu, Bh, Bl, cache, g[0], g[1])),
+                           ("df_mm_bwd_pair", lambda: df_mm.stage23_bwd_pairs(mu, Qh, Ql, cache, g[2], g[3]))):
+            ms, _ = cuda_ms(call)
+            bound, _, _ = df_mm_bound(name, n, ns, d)
+            times.append(f"{name} {ms:.4f} ms (bound x B {bound * b:.5f} ms)")
+        ms, _ = cuda_ms(lambda: gram_mod.gram(ls, outs, x))
+        times.append(f"gram {ms:.4f} ms (bound x B {gram_bound * b:.5f} ms)")
+        log(f"kernel batch B={b} (N={n}, trained-GP operands, one shared cache; the Gram at {ns}x{n}x{n}): "
+            + ", ".join(times))
 
 
 def check_launches(name, counts, expected) -> None:
@@ -2187,20 +2384,43 @@ def a_opt_witness(prob, ref_prob, cache, a_ref, a_mix):
         + ", ".join(f"{k} ({f:.3e}, {m:.3e})" for k, (f, m) in moves.items()))
 
 
+def elementwise_matmul(a, b):
+    """a (..., m, k) @ b (..., k, n) by scalar products of slices added in
+    the order of k, so that an element of a batch gets the bits it gets
+    alone, forward and backward (elementwise ops only; on the card a cuBLAS
+    product of (B, 3, 4) @ (B, 4, 3) rounds differently at B = 1 and 2)."""
+    rows = []
+    for i in range(a.shape[-2]):
+        cols = []
+        for c in range(b.shape[-1]):
+            acc = a[..., i, 0] * b[..., 0, c]
+            for j in range(1, a.shape[-1]):
+                acc = acc + a[..., i, j] * b[..., j, c]
+            cols.append(acc)
+        rows.append(torch.stack(cols, dim=-1))
+    return torch.stack(rows, dim=-2)
+
+
 def time_rollouts(dev, card):
-    """Phase 5's rollout timings for the H100 dispatch range of the
-    whole-step path: one 15-step rollout of the trained-GP problem at each
-    of ROLLOUT_BUCKETS (0.8 N points, 300 in 384) at the initial actions,
+    """Phase 5's rollout timings: one 15-step rollout of the trained-GP
+    problem at each of ROLLOUT_BUCKETS (0.8 N points, 300 in 384) at the initial actions,
     through ``moment_match_df_fused`` and through ``moment_match_df``, each
     called directly, forward-only and value-and-grad (the gradient in the
     actions); at 384 also ``moment_match_df`` under the stacked df32 VJP
     (value-and-grad: its forward is the df cov route's). Blocked ms (host
     clock, ended by a synchronize) of one rollout each, after one
-    forward-only warm-up rollout of each route. At 384 the whole-step
-    route's value-and-grad rollout is the split backward's driven path: its
-    launch counts are set to 0 just before it and read just after (returned),
-    and its gradient is held to the df cov route's and to the card's f64
-    rollout's by MIXED_TOL["gradient"]."""
+    forward-only warm-up rollout of each route. Every rollout runs as a
+    batch (one rollout as a batch of one, as ``predict_trajectory`` runs
+    it). At 384 the whole-step route's value-and-grad rollout of a batch of
+    two restarts (the initial actions and their mirror 1 - a, as a plan's
+    restarts roll out in lockstep) is the split backward's driven path: its
+    launch counts are set to 0 just before it and read just after
+    (returned); each restart's gradient must equal the single rollout's of
+    the same init bit for bit (these three rollouts form the covariance
+    recursion's products by ``elementwise_matmul``, so that only the port's
+    own operations could tell a batch from its elements), and the gradients
+    are held to the df cov route's and to the card's f64 rollout's by
+    MIXED_TOL["gradient"]."""
     split_launches = None
     for n in ROLLOUT_BUCKETS:
         prob = trained_gp_problem(dev, n_points=min(300, int(0.8 * n)), bucket=n)
@@ -2208,15 +2428,17 @@ def time_rollouts(dev, card):
                             .refresh_cache(prob.x, prob.y, prob.mask, prob.params, prob.bounds), torch.float32)
         ns, d = cache.ils_hi.shape
 
-        def rollout(mm, cache, prob, grad):
-            a = prob.inits[0].reshape(-1, 1).clone().requires_grad_(grad)
-            mu, var = prob.state_mu, prob.state_var
+        def rollout(mm, cache, prob, grad, inits=None, matmul=torch.matmul):
+            inits = prob.inits[:1] if inits is None else inits
+            a = inits.reshape(inits.shape[0], -1, 1).clone().requires_grad_(grad)
+            mu = prob.state_mu.expand(a.shape[0], ns)
+            var = prob.state_var.expand(a.shape[0], ns, ns)
             with torch.set_grad_enabled(grad):
-                for t in range(a.shape[0]):
+                for t in range(a.shape[1]):
                     input_var = torch.nn.functional.pad(var, (0, d - ns, 0, d - ns))
-                    dmu, dvar, v = mm(cache, torch.cat([mu, a[t]]), input_var)
-                    sv = input_var[:ns]
-                    mu, var = mu + dmu, dvar + var + sv @ v + v.T @ sv.T
+                    dmu, dvar, v = mm(cache, torch.cat([mu, a[:, t]], dim=-1), input_var)
+                    sv = input_var[..., :ns, :]
+                    mu, var = mu + dmu, dvar + var + matmul(sv, v) + matmul(v.transpose(-1, -2), sv.transpose(-1, -2))
                 out = mu.sum() + var.sum()
                 g = torch.autograd.grad(out, a)[0] if grad else None
             torch.cuda.synchronize()
@@ -2233,31 +2455,51 @@ def time_rollouts(dev, card):
                 for grad in modes:
                     if not grad:
                         rollout(mm, cache, prob, False)  # warm-up
-                    if grad and route == "fused" and n == 384:
+                    split = grad and route == "fused" and n == 384
+                    if split:
                         ops.reset_launch_counts()
                     t0 = time.perf_counter()
-                    grads[route] = rollout(mm, cache, prob, grad)
+                    grads[route] = rollout(mm, cache, prob, grad, matmul=elementwise_matmul if split else torch.matmul)
                     times[(route, grad)] = (time.perf_counter() - t0) * 1e3
-                    if grad and route == "fused" and n == 384:
-                        split_launches = ops.launch_counts()
+                    if split:
+                        single_launches = ops.launch_counts()
             finally:
                 df_cov.VJP_MODE = "residual"
+        if n == 384:  # the split backward's driven path: two restarts in one batch
+            inits2 = torch.cat([prob.inits, 1 - prob.inits])
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            g_batch = rollout(gp_mod.moment_match_df_fused, cache, prob, True, inits2, elementwise_matmul)
+            times[("fused, 2 restarts", True)] = (time.perf_counter() - t0) * 1e3
+            split_launches = ops.launch_counts()
+            g_second = rollout(gp_mod.moment_match_df_fused, cache, prob, True, inits2[1:], elementwise_matmul)
         log(f"phase 5 rollout N={n} ({prob.n_points} points), 15 steps, blocked ms: " + ", ".join(
             f"{route} {'value-and-grad' if grad else 'forward'} {ms:.2f}" for (route, grad), ms in times.items())
             + f" on {card}")
         if n == 384:
-            log(f"  launches in the whole-step value-and-grad rollout at N={n}: {split_launches}")
-            for name in ("df_mm_bwd_mean", "df_mm_bwd_pair"):
-                check_launches(name, split_launches, EXPECTED_LAUNCHES[f"{name} per split rollout"])
-            if split_launches["df_mm_bwd"] != 0:
-                raise AssertionError(f"kernel df_mm_bwd was launched at N={n}, past the reference's single-launch range")
+            log(f"  launches in the whole-step value-and-grad rollout at N={n}: one restart {single_launches}, "
+                f"two restarts in one batch {split_launches}")
+            for counts in (single_launches, split_launches):
+                for name in ("df_mm_bwd_mean", "df_mm_bwd_pair"):
+                    check_launches(name, counts, EXPECTED_LAUNCHES[f"{name} per split rollout"])
+                if counts["df_mm_bwd"] != 0:
+                    raise AssertionError(f"kernel df_mm_bwd was launched at N={n}, past the reference's "
+                                         f"single-launch range")
+            same = [torch.equal(g_batch[k], one[0]) for k, one in enumerate((grads["fused"], g_second))]
+            log(f"  two-restart whole-step rollout at N={n}: each restart's gradient bit for bit the single "
+                f"rollout's of the same init: {same}")
+            if not all(same):
+                raise AssertionError(f"the batched whole-step rollout at N={n} differs from its single rollouts")
             ref_prob = trained_gp_problem(dev, dtype=torch.float64, n_points=prob.n_points, bucket=n)
             ref_cache = Planner(ref_prob.spec, dtype=torch.float64, device=dev).refresh_cache(
                 ref_prob.x, ref_prob.y, ref_prob.mask, ref_prob.params, ref_prob.bounds)
-            g64 = rollout(gp_mod.moment_match, ref_cache, ref_prob, True).double()
+            g64s = rollout(gp_mod.moment_match, ref_cache, ref_prob, True,
+                           torch.cat([ref_prob.inits, 1 - ref_prob.inits])).double()
+            g64 = g64s[:1]
             gaps = {f"{route} vs {other}": max_err(grads[route].double(), ref)[1]
                     for route, other, ref in (("fused", "df_cov", grads["df_cov"].double()), ("fused", "f64", g64),
                                               ("df_cov", "f64", g64), ("df_cov stacked", "f64", g64))}
+            gaps.update({f"fused restart {k} of 2 vs f64": max_err(g_batch[k].double(), g64s[k])[1] for k in range(2)})
             log(f"  value-and-grad gradient gaps at N={n} (relative to the largest entry): "
                 + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
             if not all(v <= MIXED_TOL["gradient"] for v in gaps.values()):
@@ -2639,32 +2881,42 @@ def seed_master(master, i):
                                           if isinstance(v, torch.Tensor)})
 
 
-def drive_sweep(dev, card):
-    """Phase 8: the mixed mountain-car sweep of SWEEP_SEEDS through
+def drive_sweep(dev, card, dtype="mixed"):
+    """Phase 8: the mountain-car sweep of SWEEP_SEEDS through
     runner/episode.py's build_episodes_batch_fn on ``dev`` (see
-    SWEEP_SEEDS), the seeds in lockstep. Hooks installed for the phase (and
-    removed after it) record each planning step's stacked f64 masters,
-    states, inits and result (``plan_batch``: the seeds' restarts as one
-    L-BFGS-B batch) and time each training (``train_restarts``: the seeds'
-    restarts x models as one L-BFGS batch, blocked) with its inputs. Holds:
-    finite costs, seeds that differ, every output tensor on the card, the
-    sweep's launches (EXPECTED_LAUNCHES, no other kernel) and each seed's
-    planned step against the card's f64 plan of the same memory, trained
-    parameters, state and inits by MIXED_TOL. Prints the batch's seconds
-    (and per seed), the training's seconds and the gap of its parameters to
-    an f64 CPU training of the same inputs and draws, and the sweep's
-    aggregate env steps per second."""
+    SWEEP_SEEDS), the seeds in lockstep, in ``dtype``: "mixed" (f64 master
+    and training, df32 rollout through #12, #8 and #9) or "float32" (the
+    sweep CLI's default: f32 refresh through #1, one launch for both seeds'
+    memories, f32 training, f32 rollout through #2 and #3 with the seeds
+    folded into the pair axis). Hooks installed for the phase (and removed
+    after it) count each refresh (``masked_cholesky_factorize``), record
+    each planning step's stacked masters, states, inits and result
+    (``plan_batch``: the seeds' restarts as one L-BFGS-B batch) and time
+    each training (``train_restarts``: the seeds' restarts x models as one
+    L-BFGS batch, blocked) with its inputs. Holds: finite costs, seeds that
+    differ, every output tensor on the card, the sweep's launches
+    (EXPECTED_LAUNCHES, no other kernel; in f32 the Gram once per refresh)
+    and each seed's planned step against the card's f64 plan of the same
+    memory, trained parameters, state and inits by MIXED_TOL (f32:
+    F32_SWEEP_TOL). Prints the batch's seconds (and per seed), the
+    training's seconds and the gap of its parameters to a CPU training of
+    the same dtype, inputs and draws, and the sweep's aggregate env steps
+    per second."""
 
     def edit(cfg):
         cfg.training.training_frequency = SWEEP_TRAINING_FREQUENCY
         opt = cfg.controller.actions_optimizer_params
         cfg.controller.actions_optimizer_params = {**opt, "maxfun": MC_MAXFUN, "maxiter": MC_MAXFUN}
 
-    setup = sweep_setup("mountain_car", "mixed", device=dev, steps=SWEEP_STEPS, edit_config=edit)
+    mixed = dtype == "mixed"
+    what, tol = ("mixed", MIXED_TOL) if mixed else ("f32", F32_SWEEP_TOL)
+    name = "phase 8 sweep" if mixed else "phase 8 f32 sweep"
+    setup = sweep_setup("mountain_car", dtype, device=dev, steps=SWEEP_STEPS, edit_config=edit)
     spec = setup.spec
     seeds = len(SWEEP_SEEDS)
-    plans, trainings = [], []
+    plans, trainings, refreshes = [], [], []
     plan_batch, train = episode_mod.plan_batch, episode_mod.train_restarts
+    factorize = episode_mod.masked_cholesky_factorize
 
     def recorded_plan(*args):
         out = plan_batch(*args)
@@ -2679,7 +2931,12 @@ def drive_sweep(dev, card):
         trainings.append(SimpleNamespace(secs=time.perf_counter() - t0, args=args, out=out))
         return out
 
+    def counted_factorize(*args):
+        refreshes.append(args[2].shape[:-2])
+        return factorize(*args)
+
     episode_mod.plan_batch, episode_mod.train_restarts = recorded_plan, timed_train
+    episode_mod.masked_cholesky_factorize = counted_factorize
     try:
         batch = build_episodes_batch_fn(spec)
         ops.reset_launch_counts()
@@ -2691,19 +2948,25 @@ def drive_sweep(dev, card):
         launches = ops.launch_counts()
     finally:
         episode_mod.plan_batch, episode_mod.train_restarts = plan_batch, train
-    log(f"phase 8 sweep: {seeds} mixed mountain-car episodes of {SWEEP_STEPS} steps in lockstep in {sweep_s:.3f} s "
+        episode_mod.masked_cholesky_factorize = factorize
+    log(f"{name}: {seeds} {what} mountain-car episodes of {SWEEP_STEPS} steps in lockstep in {sweep_s:.3f} s "
         f"blocked ({sweep_s / seeds:.3f} s per seed), {out['final_mem'].len_model.tolist()} GP points of model_cap "
-        f"{spec.model_cap}, launches " + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+        f"{spec.model_cap}, {len(refreshes)} refreshes of the {seeds} seeds' memories, launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
     if not bool(torch.isfinite(out["cost"]).all()) or tuple(out["cost"].shape) != (seeds, SWEEP_STEPS):
-        raise AssertionError(f"the sweep's costs {tuple(out['cost'].shape)} are not all finite")
+        raise AssertionError(f"the {what} sweep's costs {tuple(out['cost'].shape)} are not all finite")
     if torch.equal(out["obs"][0], out["obs"][1]):
-        raise AssertionError("the two seeds' trajectories are equal")
-    check_tensors_on_card("the sweep's outputs", [v for k, v in out.items() if isinstance(v, torch.Tensor)]
+        raise AssertionError(f"the two seeds' {what} trajectories are equal")
+    check_tensors_on_card(f"the {what} sweep's outputs", [v for k, v in out.items() if isinstance(v, torch.Tensor)]
                           + list(out["final_params"]) + list(out["final_mem"]))
-    expected = EXPECTED_LAUNCHES["mountain-car sweep"]
+    expected = EXPECTED_LAUNCHES["mountain-car sweep" if mixed else "mountain-car f32 sweep"]
     wrong = {k: n for k, n in launches.items() if n != expected.get(k, 0)}
     if wrong:
-        raise AssertionError(f"the mountain-car sweep launched {wrong}, expected {expected} and no other kernel")
+        raise AssertionError(f"the {what} mountain-car sweep launched {wrong}, expected {expected} and no other "
+                             f"kernel")
+    if not mixed and (launches["gram"] != len(refreshes) or any(r != (seeds,) for r in refreshes)):
+        raise AssertionError(f"the f32 sweep launched the Gram {launches['gram']} times for {len(refreshes)} "
+                             f"refreshes of batches {refreshes}, expected one launch per refresh of both seeds")
     if len(plans) != 1 or len(trainings) != 1:
         raise AssertionError(f"{len(plans)} planning steps and {len(trainings)} trainings, expected one each")
 
@@ -2711,10 +2974,10 @@ def drive_sweep(dev, card):
     cpu = torch.device("cpu")
     raws_cpu, _ = train(*(_to_device(a, cpu) for a in tr.args))
     gap = float((tr.out[0].cpu() - raws_cpu).abs().max() / raws_cpu.abs().max())
-    log(f"phase 8 training: {tr.secs:.3f} s blocked in f64 on the card, {seeds} seeds x "
+    log(f"{name} training: {tr.secs:.3f} s blocked in {'f64' if mixed else 'f32'} on the card, {seeds} seeds x "
         f"{tr.args[6].shape[1]} restarts x {tr.args[6].shape[2]} models as one L-BFGS batch "
         f"({tr.args[4].sum(dim=-1).tolist()} points, {spec.train_cfg.iters} iterations at most); raw parameters "
-        f"{gap:.3e} of their largest entry from an f64 CPU training of the same inputs and draws (printed only)")
+        f"{gap:.3e} of their largest entry from a CPU training of the same dtype, inputs and draws (printed only)")
 
     (plan_spec, master, state_mu, state_var, inits, action_prev, t), (a_opt, info) = plans[0]
     gaps_all = []
@@ -2727,17 +2990,18 @@ def drive_sweep(dev, card):
         args = (cache.x_mem.cpu().numpy(), cache.y_mem.cpu().numpy(), cache.mask.cpu().numpy(), params, spec.bounds,
                 state_mu[i], state_var, inits[i], action_prev[i], t)
         result = (a_opt[i], None, type(info)(*(f[i] for f in info)))
-        gaps = mixed_plan_gaps(plan_spec, cache, (args, result), dev, label=f"sweep seed {SWEEP_SEEDS[i]}")
+        gaps = mixed_plan_gaps(plan_spec, cache, (args, result), dev, label=f"{what} sweep seed {SWEEP_SEEDS[i]}")
         gaps_all.append(gaps)
-        if not all(v <= MIXED_TOL[k] for k, v in gaps.items()):
-            raise AssertionError(f"seed {SWEEP_SEEDS[i]}'s planned step disagrees with the card's f64 plan beyond "
-                                 f"{MIXED_TOL}: {gaps}")
+        if not all(v <= tol[k] for k, v in gaps.items()):
+            raise AssertionError(f"seed {SWEEP_SEEDS[i]}'s {what} planned step disagrees with the card's f64 plan "
+                                 f"beyond {tol}: {gaps}")
     ref_s = time.perf_counter() - t0
-    log(f"phase 8 sweep accuracy: each seed's planned step (t = {t}, {inits.shape[1]} restarts, the seeds' "
-        f"{seeds * inits.shape[1]} in one batch) within {MIXED_TOL} of the card's f64 plan (made and compared in "
+    log(f"{name} accuracy: each seed's planned step (t = {t}, {inits.shape[1]} restarts, the seeds' "
+        f"{seeds * inits.shape[1]} in one batch) within {tol} of the card's f64 plan (made and compared in "
         f"{ref_s:.3f} s): " + "; ".join(", ".join(f"{k} {v:.3e}" for k, v in g.items()) for g in gaps_all))
-    log(f"phase 8 sweep: aggregate_env_steps_per_sec {seeds * SWEEP_STEPS / sweep_s:.3f}, the batch "
+    log(f"{name}: aggregate_env_steps_per_sec {seeds * SWEEP_STEPS / sweep_s:.3f}, the batch "
         f"{sweep_s:.3f} s ({sweep_s / seeds:.3f} s per seed), training {tr.secs:.3f} s on {card}")
+    return launches
 
 
 def load_example(path):
@@ -3052,6 +3316,7 @@ def _run() -> int:
     drive_controller(dev, card)
     drive_run_env(dev, card)
     drive_sweep(dev, card)
+    f32_sweep_launches = drive_sweep(dev, card, "float32")
     drive_sharding(dev, card, mprob, mplans, ref64)
     drive_process_control(dev, card)
 
@@ -3066,8 +3331,8 @@ def _run() -> int:
         "df_mm_full": ("df_mm_fwd.cu", "pallas_df_mm.py:688", fused_launches),
         "df_mm_fwd": ("df_mm_fwd.cu", "pallas_df_mm.py:451", fused_launches),
         "df_mm_bwd": ("df_mm_bwd.cu", "pallas_df_mm.py:510", fused_launches),
-        "df_mm_bwd_mean": ("df_mm_bwd.cu", "pallas_df_mm.py:483", split_launches),
-        "df_mm_bwd_pair": ("df_mm_bwd.cu", "pallas_df_mm.py:557", split_launches)}
+        "df_mm_bwd_mean": ("df_mm_split.cu", "pallas_df_mm.py:483", split_launches),
+        "df_mm_bwd_pair": ("df_mm_split.cu", "pallas_df_mm.py:557", split_launches)}
     kernels = [dict(name=name, route="cuda", source=f"gpmpc_tpu_torch/ops/csrc/{src}", replaces=f"gpmpc_tpu/ops/{rep}",
                     launches=counts[name], max_abs_err=kern[name]["err"], ms=kern[name]["ms"],
                     plain_ms=kern[name]["plain_ms"], bound_ms=kern[name]["bound_ms"],

@@ -101,17 +101,15 @@ def _gram(lengthscales, outputscales, x):
     """The Gram matrix by the JAX package's dtype rule: its Pallas kernel
     takes f32 only and f64 goes to XLA, so here f64 takes the plain form on
     every device and f32 goes to ``ops.gram`` (the CUDA kernel on the card).
-    The Gram kernel (#1) takes one memory: a leading batch of memories (the
-    seeds of an f32 episode batch) is one launch each."""
+    A leading batch of memories (the seeds of an f32 episode batch) is one
+    call: one launch of the Gram kernel (#1) on the card, one batched plain
+    form on the CPU, the parameters broadcast to the memories' batch."""
     if x.dtype == torch.float64:
         return ops.gram_ref(lengthscales, outputscales, x)
-    if x.dim() > 2:
-        lead = x.shape[:-2]
-        ls = lengthscales.expand(lead + lengthscales.shape[-2:]).reshape((-1,) + lengthscales.shape[-2:])
-        outs = outputscales.expand(lead + outputscales.shape[-1:]).reshape((-1,) + outputscales.shape[-1:])
-        k = torch.stack([ops.gram(*a) for a in zip(ls, outs, x.reshape((-1,) + x.shape[-2:]))])
-        return k.reshape(lead + k.shape[-3:])
-    return ops.gram(lengthscales, outputscales, x)
+    lead = x.shape[:-2]
+    ls = lengthscales.expand(lead + lengthscales.shape[-2:]).contiguous()
+    outs = outputscales.expand(lead + outputscales.shape[-1:]).contiguous()
+    return ops.gram(ls, outs, x.contiguous())
 
 
 def _cov_core(*args, batch=1):

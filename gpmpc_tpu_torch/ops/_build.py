@@ -41,7 +41,7 @@ _SIGNATURES = {
     "gpmpc_cov_bwd_info": (_I,) * 3 + (_P,),
     "gpmpc_cov_gik_f32": (_P,) * 6 + (_I,) + (_P,) + (_I,) * 6 + (_P,),
     "gpmpc_cov_gik_info": (_I,) * 6 + (_P,),
-    "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "gpmpc_gram_f32": (_P,) * 4 + (_I,) * 6 + (_P,),
     "gpmpc_gram_info": (_I,) * 4 + (_P,),
     "gpmpc_empty_launch": (_I,) * 3 + (_P,),
     "gpmpc_df_fwd_f32": (_P,) * 15 + (_I,) + (_P,) * 2 + (_I,) * 8 + (_P,),
@@ -57,9 +57,9 @@ _SIGNATURES = {
     "gpmpc_df_mm_full_info": (_I,) * 3 + (_P,),
     "gpmpc_df_mm_bwd_f32": (_P,) * 24 + (_I,) * 3 + (_P, _I, _P),
     "gpmpc_df_mm_bwd_info": (_I,) * 2 + (_P,),
-    "gpmpc_df_mm_bwd_mean_f32": (_P,) * 18 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_mean_f32": (_P,) * 18 + (_I,) * 3 + (_P, _I, _P),
     "gpmpc_df_mm_bwd_mean_info": (_I,) * 3 + (_P,),
-    "gpmpc_df_mm_bwd_pair_f32": (_P,) * 21 + (_I,) * 3 + (_P,),
+    "gpmpc_df_mm_bwd_pair_f32": (_P,) * 21 + (_I,) * 3 + (_P, _I, _P),
     "gpmpc_df_mm_bwd_pair_info": (_I,) * 2 + (_P,),
 }
 

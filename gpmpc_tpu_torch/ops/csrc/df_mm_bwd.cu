@@ -1,37 +1,13 @@
-// The whole-step VJP and its split. See df_mm_fwd.cu for the forward and
-// df_mm.cuh for the shared device code. Replaces gpmpc_tpu/ops/pallas_df_mm.py:
+// The whole-step VJP (#9). See df_mm_fwd.cu for the forward, df_mm_split.cu
+// for its split past N = 128 (#10 and #11), df_mm_bwd.cuh for the device
+// code the two share and df_mm.cuh for that of all whole-step kernels.
+// Replaces gpmpc_tpu/ops/pallas_df_mm.py:
 //   df_mm_bwd_kernel + df_mm_bwd_sum_kernel
 //       -> _build.bwd_all_kernel (#9): the VJP of stages 2-3 (wrapper df_mm_bwd)
-//   df_mm_bwd_mean_kernel (one cluster)
-//       -> _build.bwd_mean_kernel (#10): the mean path's VJP, with respect to
-//          mu and B^-1 (wrapper df_mm_bwd_mean)
-//   df_mm_bwd_pair_kernel + df_mm_bwd_pair_unit_kernel + df_mm_bwd_pair_sum_kernel
-//       -> _build.make_bwd_pair_kernel (#11): the VJP of each covariance pair,
-//          with respect to mu and Q_k (wrapper df_mm_bwd_pairs)
-// The reference runs #10 and one #11 launch per pair when N > 128 and #9
-// otherwise; here the pair is a grid axis of one #11 launch. All three share
-// mean_item (the mean path over 32 points) and point_chain_rule (the chain
-// rule at one point), so they compute the same df cotangents. Every
-// cotangent stays df until the outputs: #10 and #11 return their
-// contributions to the cotangent of mu as df halves; in the split route
-// #11's last launch adds #10's and its own in df (mean path first, then the
-// pairs in pair order, as combine_split does) before the collapse.
-//
-// #11 (the split route past N = 128) computes E once per element in 32 x 32
-// pair tiles and writes each tile's row and column sums; a first design then
-// summed them, applied the chain rule and summed again in one block of 16
-// warps, 9 units in series per warp at N = 384: 180 of its 240 us (NVIDIA
-// H100 80GB HBM3, 700 W, trace_split_bwd.py). Here the tile rows are summed
-// by rows_tile_sum, then the chain rule runs on each unit (one side of one
-// pair, 32 points) over the SMs (pair_plan), 1 + NS warps a unit: one long
-// df chain per point is what bounds it, so each warp takes one residual and
-// a share of the outputs. A third launch sums per pair. Each launch is a
-// programmatic dependent of the one before. #10 is a latency-bound chain per
-// point (one warp issues ~3,000 f32 instructions, its df exp ~400 in a
-// dependent row): one cluster whose blocks take a (model, tile) item per
-// warp and whose block 0 sums the items after the cluster barrier, so no
-// second launch; it releases its dependent at once, and in the split route
-// #11's pair tiles run beside it.
+// The reference runs #9 when N <= 128 and #10 and one #11 launch per pair
+// otherwise. #9, #10 and #11 share mean_item (the mean path over 32 points)
+// and the chain rule at one point, so they compute the same df cotangents.
+// Every cotangent stays df until the outputs.
 //
 // #9 on stacked rows. Its work is the pairs' exponent cotangent G = E (gs bi
 // bj (+) gco iK) at every element of the P (N, N) slabs, its row sums (G, G
@@ -63,50 +39,16 @@
 // the mean path; the split route the mean path, then per pair), which the
 // collapse to f32 hid on every operand set measured (bit for bit at N =
 // 192, 384 and 512, trace_split_bwd.py).
+//
+// The batch axis (a plan's restarts, an episode batch's seeds): with
+// BATCHED, grid row y is a batch element (the summing launch a block per
+// element), reading cache cidx[b] (df_mm.cuh cache_of) and its operands,
+// cotangents, partials and outputs after the element before's; one element
+// with its one cache launches the instance without.
 
-#include <algorithm>
-
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include "df_mm.cuh"
-#include "pdl.cuh"
+#include "df_mm_bwd.cuh"
 
 namespace {
-
-// the hi cotangents of the outputs: g_M (NS), g_V (NS d), g_S_p (P), g_corr (NS)
-struct Cot {
-  const float *m, *v, *sp, *corr;
-};
-
-// the four from one block g_M, g_V, g_S_p, g_corr
-Cot cot_block(const float* ct, int ns, int d) {
-  return {ct, ct + ns, ct + ns + ns * d, ct + ns + ns * d + ns * (ns + 1) / 2};
-}
-
-// batch element elem's four, each (batch, k) row major
-__device__ __forceinline__ Cot cot_at(Cot ct, int ns, int d, int elem) {
-  const size_t b = elem;
-  return {ct.m + b * ns, ct.v + b * ns * d, ct.sp + b * (ns * (ns + 1) / 2), ct.corr + b * ns};
-}
-
-// ct: the cotangents.
-// #11: row_part and col_part [2][P][1 + NS][nt][N] (part_at): for point n
-// of pair p, G and G Xj_e summed over column tile t (the row side), or G
-// and G U_e summed over row tile t (the column side); unit_part
-// [2][2 P nt][d + NS NS] (a unit's contributions to the cotangents of inp
-// and Q_p, unit u = (side P + p) nt + chunk; #9 too).
-// mean_part [2][NS][nt][d + NS NS] (#9, #10: the mean path's contributions
-// to the cotangent of inp, summed over its points and models later, and to
-// B^-1)
-
-__device__ __forceinline__ size_t part_at(int p, int v, int tile, int n, int nr, int nt, int nn) {
-  return (((size_t)p * nr + v) * nt + tile) * nn + n;
-}
-
-__device__ __forceinline__ df shfl_xor(df v, int mask) {
-  return {__shfl_xor_sync(0xffffffffu, v.h, mask), __shfl_xor_sync(0xffffffffu, v.l, mask)};
-}
 
 __device__ __forceinline__ df shfl_idx(df v, int src) {
   return {__shfl_sync(0xffffffffu, v.h, src), __shfl_sync(0xffffffffu, v.l, src)};
@@ -114,245 +56,6 @@ __device__ __forceinline__ df shfl_idx(df v, int src) {
 
 __device__ __forceinline__ df pick4(int k, df x0, df x1, df x2, df x3) {
   return k == 0 ? x0 : k == 1 ? x1 : k == 2 ? x2 : x3;
-}
-
-// The tile sums of up to four values x[0..3] over a warp, each value's in
-// warp_df_sum's order (offsets 16, 8, 4, 2, 1), with the values spread over
-// the lanes: at offset 16 lanes < 16 keep values 0 and 1 and the others 2
-// and 3, at offset 8 one value each, so each lane adds 6 df pairs, not 20.
-// df_add is commutative bit for bit (two_sum's error term is exact either
-// way), so a lane that holds its partner's half adds in either order. Value
-// v ends in lane 8 v.
-__device__ __forceinline__ df rows_tile_sum(const df* x) {
-  const int lane = threadIdx.x & 31;
-  const bool up = lane & 16, odd = lane & 8;
-  df k0 = up ? x[2] : x[0], k1 = up ? x[3] : x[1];
-  const df s0 = up ? x[0] : x[2], s1 = up ? x[1] : x[3];
-  k0 = df_add(k0, shfl_xor(s0, 16));
-  k1 = df_add(k1, shfl_xor(s1, 16));
-  df t = odd ? k1 : k0;
-  t = df_add(t, shfl_xor(odd ? k0 : k1, 8));
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) t = df_add(t, shfl_xor(t, off));
-  return t;
-}
-
-// The warp sums of C values x[0..C - 1] per lane from offset M down: at an
-// offset a lane keeps half of its values (the upper half where its lane bit
-// M is set) and adds its partner's copies of them; once one is left, the
-// offsets add as warp_df_sum does.
-template <int C, int M>
-__device__ __forceinline__ df warp_sum_levels(df* x, int lane) {
-  if constexpr (M == 0) {
-    return x[0];
-  } else if constexpr (C >= 2) {
-    const bool up = lane & M;
-#pragma unroll
-    for (int k = 0; k < C / 2; ++k) {
-      const df keep = up ? x[C / 2 + k] : x[k];
-      x[k] = df_add(keep, shfl_xor(up ? x[k] : x[C / 2 + k], M));
-    }
-    return warp_sum_levels<C / 2, M / 2>(x, lane);
-  } else {
-    x[0] = df_add(x[0], shfl_xor(x[0], M));
-    return warp_sum_levels<1, M / 2>(x, lane);
-  }
-}
-
-// The warp sums of K values x[0..K - 1] (K a power of two, at most 32),
-// each in warp_df_sum's order, a lane adding K - 1 df pairs where K
-// warp_df_sum calls add 5 K: every node of each value's tree is the one
-// warp_df_sum forms (df_add is commutative bit for bit). Value v ends in
-// lane v (32 / K).
-template <int K>
-__device__ __forceinline__ df warp_df_sum_many(df* x) {
-  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0, "K a power of two, at most 32");
-  return warp_sum_levels<K, 16>(x, threadIdx.x & 31);
-}
-
-// A point's warp sums of `count` values x[0..count) (count <= K), each in
-// warp_df_sum's order, stored as df at out[plane][base + idx(v)].
-template <int K, typename Idx>
-__device__ __forceinline__ void store_sums(df* x, int count, float* out, size_t plane, Idx idx) {
-  const df tot = warp_df_sum_many<K>(x);
-  const int lane = threadIdx.x & 31;
-  if (lane % (32 / K) == 0 && lane / (32 / K) < count) st(out, plane, idx(lane / (32 / K)), tot);
-}
-
-template <int NS, int K>
-__device__ __forceinline__ void store_point_sums_k(const df* g_in, df (*g_m)[NS], int d, float* out,
-                                                   size_t plane, size_t base) {
-  constexpr int Q = NS * NS;
-  static_assert(Q < K, "the matrix's values fit");
-  df x[K];
-#pragma unroll
-  for (int v = 0; v < K; ++v) x[v] = v < Q ? g_m[v / NS][v % NS] : df{0.f, 0.f};
-#pragma unroll
-  for (int e = 0; e < kMaxD; ++e)
-    if (Q + e < K && e < d) x[Q + e < K ? Q + e : 0] = g_in[e];
-  store_sums<K>(x, Q + d, out, plane, [&](int v) { return v < Q ? base + d + v : base + (v - Q); });
-}
-
-// The warp sums of a point's contributions to the cotangents of inp (g_in,
-// the first d live) and of an NS x NS matrix (g_m, row major), each in
-// warp_df_sum's order, stored as df at base + e (inp) and base + d + k NS +
-// j (the matrix) of out: spread over the lanes, 16 values when they fit,
-// else 32.
-template <int NS>
-__device__ __forceinline__ void store_point_sums(const df* g_in, df (*g_m)[NS], int d, float* out,
-                                                 size_t plane, size_t base) {
-  if (NS * NS + d <= 16) store_point_sums_k<NS, 16>(g_in, g_m, d, out, plane, base);
-  else store_point_sums_k<NS, 32>(g_in, g_m, d, out, plane, base);
-}
-
-// #11's pair block b = (p nt + rt) nt + ct: the 32 x 32 tile (rt, ct) of
-// pair p, E once per element. Warp w takes the tile's rows w + 8 r (r < 4),
-// a lane a column. Each row's G and G Xj_e over the tile's columns are summed
-// by rows_tile_sum (warp_df_sum's order); each column's G and G U_e over the
-// tile's rows by rows m, m + 8, m + 16, m + 24 in order per warp m, then
-// tree8 over the warps. A lane's iK entries are loaded before the tile's
-// operands are computed.
-template <int NS>
-__device__ void bwd_pair_tile(const Cache& c, const float* __restrict__ mu, const float* __restrict__ qh,
-                              const float* __restrict__ ql, Cot ct,
-                              float* __restrict__ row_part, float* __restrict__ col_part, int b) {
-  constexpr int P = NS * (NS + 1) / 2;
-  constexpr int NR = 1 + NS;
-  static_assert(NR <= 4, "four values per tile sum");
-  const int nt = (c.n + kTile - 1) / kTile;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  __shared__ df s_q[NS * NS];
-  __shared__ TileOperands<NS> s;
-  __shared__ df s_col[kWarps][NR][kTile];
-  const int cti = b % nt, rt = (b / nt) % nt, p = b / (nt * nt);
-  int i, j;
-  pair_ij(p, NS, i, j);
-  const int k = cti * kTile + lane;
-  const bool col_ok = k < c.n;
-  const float gs = ct.sp[p];
-  const float gco = i == j ? ct.corr[i] : 0.f;
-  df ik[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int n = rt * kTile + warp + kWarps * r;
-    ik[r] = i == j && col_ok && n < c.n ? ld(c.ikh, c.ikl, ((size_t)i * c.n + n) * c.n + k) : df{0.f, 0.f};
-  }
-  if (t < NS * NS) s_q[t] = ld(qh, ql, (size_t)p * NS * NS + t);
-  __syncthreads();
-  load_tile<NS>(c, mu, s_q, i, j, rt, cti, s);
-  __syncthreads();
-
-  float xj_c[NS];
-#pragma unroll
-  for (int e = 0; e < NS; ++e) xj_c[e] = col_ok ? df_collapse(s.xj[lane][e]) : 0.f;
-  df cacc[NR];
-#pragma unroll
-  for (int v = 0; v < NR; ++v) cacc[v] = {0.f, 0.f};
-  const size_t plane = (size_t)P * NR * nt * c.n;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int rr = warp + kWarps * r;
-    const int n = rt * kTile + rr;
-    if (n >= c.n) break;  // warp-uniform
-    df racc[4] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-    if (col_ok) {
-      const df ex = e_exponent<NS>(s.a[rr], s.u[rr], s.c[lane], s.xj[lane]);
-      df w = df_mul_f32(df_mul(s.bi[rr], s.bj[lane]), gs);
-      if (i == j) w = df_add(w, df_mul_f32(ik[r], gco));
-      const df g = ex.h < 60.f ? df_mul(e_capped_exp(ex), w) : df{0.f, 0.f};
-      racc[0] = g;
-      cacc[0] = df_add(cacc[0], g);
-#pragma unroll
-      for (int e = 0; e < NS; ++e) {
-        racc[1 + e] = df_mul_f32(g, xj_c[e]);
-        cacc[1 + e] = df_add(cacc[1 + e], df_mul_f32(g, df_collapse(s.u[rr][e])));
-      }
-    }
-    const df tot = rows_tile_sum(racc);
-    if ((lane & 7) == 0 && (lane >> 3) < NR) st(row_part, plane, part_at(p, lane >> 3, cti, n, NR, nt, c.n), tot);
-  }
-#pragma unroll
-  for (int v = 0; v < NR; ++v) s_col[warp][v][lane] = cacc[v];
-  __syncthreads();
-  if (t < NR * kTile) {
-    const int v = t / kTile, cc = t % kTile;
-    const int kk = cti * kTile + cc;
-    if (kk < c.n) {
-      df w8[kWarps];
-#pragma unroll
-      for (int m = 0; m < kWarps; ++m) w8[m] = s_col[m][v][cc];
-      st(col_part, plane, part_at(p, v, rt, kk, NR, nt, c.n), tree8(w8));
-    }
-  }
-}
-
-// The mean path's VJP over the 32 stored points of tile rt of model m, a
-// lane a point (b: B_m^-1, row major): its contributions to the cotangent
-// of inp (d) and to B_m^-1 (NS NS), each summed over the tile in
-// warp_df_sum's order (store_point_sums) into mean_part at (m, rt). #9's
-// mean blocks and #10 run it.
-template <int NS>
-__device__ void mean_item(const Cache& c, const float* __restrict__ mu, const df* b, Cot ct,
-                          float* __restrict__ mean_part, int m, int rt) {
-  const int nt = (c.n + kTile - 1) / kTile;
-  const int lane = threadIdx.x & 31;
-  const int d = c.d;
-  const int n = rt * kTile + lane;
-  df g_inp[kMaxD], g_b[NS][NS];
-#pragma unroll
-  for (int e = 0; e < kMaxD; ++e) g_inp[e] = {0.f, 0.f};
-#pragma unroll
-  for (int k = 0; k < NS; ++k)
-#pragma unroll
-    for (int j = 0; j < NS; ++j) g_b[k][j] = {0.f, 0.f};
-  if (n < c.n) {
-    MeanPoint<NS> mp;
-    mean_point<NS>(c, mu, b, m, n, mp);
-    float iN_c[kMaxD], t_c[kMaxD], ils_c[kMaxD];
-    df g_t[kMaxD], g_iN[kMaxD];
-    const float lb_c = df_collapse(mp.lb), q_c = df_collapse(mp.q);
-    const float beta_c = df_collapse(ld(c.beth, c.betl, (size_t)m * c.n + n));
-    df g_lb = {ct.m[m], 0.f};
-#pragma unroll
-    for (int e = 0; e < kMaxD; ++e) {
-      if (e >= d) break;
-      const df ils = ld(c.ilsh, c.ilsl, (size_t)m * d + e);
-      ils_c[e] = df_collapse(ils);
-      iN_c[e] = df_collapse(mp.iN[e]);
-      t_c[e] = df_collapse(mp.t[e]);
-      const float gv = ct.v[m * d + e];
-      g_lb = df_add(g_lb, two_prod(gv, df_collapse(df_mul(mp.t[e], ils))));
-      g_t[e] = df_mul_f32(two_prod(gv, lb_c), ils_c[e]);
-    }
-    df g_ex = df_mul_f32(df_mul_f32(g_lb, beta_c), q_c);
-    g_ex = mp.ex_h < 60.f ? df_scale(g_ex, -0.5f) : df{0.f, 0.f};
-#pragma unroll
-    for (int e = 0; e < kMaxD; ++e) {
-      if (e >= d) break;
-      g_iN[e] = df_mul_f32(g_ex, t_c[e]);
-      g_t[e] = df_add(g_t[e], df_mul_f32(g_ex, iN_c[e]));
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        const float b_c = df_collapse(b[k * NS + j]);
-        g_iN[k] = df_add(g_iN[k], df_mul_f32(g_t[j], b_c));
-        g_b[k][j] = df_mul_f32(g_t[j], iN_c[k]);
-      }
-#pragma unroll
-    for (int e = NS; e < kMaxD; ++e) {
-      if (e >= d) break;
-      g_iN[e] = df_add(g_iN[e], g_t[e]);
-    }
-#pragma unroll
-    for (int e = 0; e < kMaxD; ++e) {
-      if (e >= d) break;
-      g_inp[e] = df_mul_f32(g_iN[e], ils_c[e]);
-    }
-  }
-  const int nv = d + NS * NS;
-  store_point_sums<NS>(g_inp, g_b, d, mean_part, (size_t)NS * nt * nv, ((size_t)m * nt + rt) * nv);
 }
 
 // #9's mean block rt: warp m < NS takes model m
@@ -364,30 +67,6 @@ __device__ void bwd_mean_tile(const Cache& c, const float* __restrict__ mu, cons
   if (t < NS * NS * NS) s_b[t / (NS * NS)][t % (NS * NS)] = ld(bh, bl, t);
   __syncthreads();
   if (warp < NS) mean_item<NS>(c, mu, s_b[warp], ct, mean_part, warp, rt);
-}
-
-// what the chain rule needs of one stored point of model m: the collapsed
-// Xi, Xq = Xi Q and iN (from model_point and qform), and the collapsed ils
-// and ils2 of m
-template <int NS>
-struct PointTerms {
-  float xi_c[NS], xq_c[NS], iN_c[kMaxD], ils_c[kMaxD], ils2_c[NS];
-};
-
-template <int NS>
-__device__ void point_terms(const Cache& c, int m, const ModelPoint<NS>& mp, const df* xq, PointTerms<NS>& pt) {
-#pragma unroll
-  for (int e = 0; e < NS; ++e) {
-    pt.xi_c[e] = df_collapse(mp.xi[e]);
-    pt.xq_c[e] = df_collapse(xq[e]);
-    pt.ils2_c[e] = df_collapse(ld(c.ils2h, c.ils2l, (size_t)m * c.d + e));
-  }
-#pragma unroll
-  for (int e = 0; e < kMaxD; ++e) {
-    if (e >= c.d) break;
-    pt.iN_c[e] = df_collapse(mp.iN[e]);
-    pt.ils_c[e] = df_collapse(ld(c.ilsh, c.ilsl, (size_t)m * c.d + e));
-  }
 }
 
 // The chain rule at one point of a unit of side `side` (0: the rows, whose a
@@ -643,243 +322,6 @@ df_mm_bwd_kernel(Cache c, const float* __restrict__ mu, const float* __restrict_
     bwd_mean_tile<NS>(c, mu, bh, bl, ct, mean_part, blockIdx.x - nub);
 }
 
-// ---------------------------------------------------------------------------
-// #11: the pair tiles, then the chain rule on 1 + NS warps per unit, then
-// the sums per pair, each launch a programmatic dependent of the one before.
-// ---------------------------------------------------------------------------
-
-// the most units of a unit block (pair_plan; 1 + NS warps each); the tile
-// partials a lane loads at once
-constexpr int kPairUnitMaxUnits = 2;
-constexpr int kUnitLoadTiles = 8;
-
-// #11's first launch, the P nt nt pair blocks. In the split route it is a
-// programmatic dependent of #10: it reads nothing that #10 writes, so it may
-// run beside it, and it waits for #10 before it exits, so that the launches
-// after it (which read #10's output) find #10 done.
-template <int NS>
-__global__ void __launch_bounds__(kThreads)
-df_mm_bwd_pair_kernel(Cache c, const float* __restrict__ mu, const float* __restrict__ qh,
-                      const float* __restrict__ ql, Cot ct, float* __restrict__ row_part,
-                      float* __restrict__ col_part) {
-  gpmpc_pdl::release_dependents();
-  bwd_pair_tile<NS>(c, mu, qh, ql, ct, row_part, col_part, blockIdx.x);
-  gpmpc_pdl::wait_for_prerequisite();
-}
-
-// #11's second launch: unit u = (side P + p) nt + chunk (the 32 points of
-// one side of pair p) owns NR = 1 + NS warps of a block (pair_plan's
-// unit_warps units a block), a lane a point. Every warp of the unit computes
-// the point's forward quantities (before the wait: they read only the
-// inputs). Then warp v sums residual v over the tiles in tile order; warps
-// v >= 1 form g_xi[v - 1] and row v - 1 of the unit's Q cotangent, warp 0
-// the inp cotangent: #9's point_chain_rule, its outputs split over the
-// warps with each one's df operations unchanged. Each warp sums its outputs
-// over the unit's points in warp_df_sum's order into unit_part, as #9's are.
-template <int NS>
-__global__ void __launch_bounds__(32 * (1 + NS) * kPairUnitMaxUnits)
-df_mm_bwd_pair_unit_kernel(Cache c, const float* __restrict__ mu, const float* __restrict__ qh,
-                           const float* __restrict__ ql, const float* __restrict__ row_part,
-                           const float* __restrict__ col_part, float* __restrict__ unit_part) {
-  constexpr int P = NS * (NS + 1) / 2;
-  constexpr int NR = 1 + NS;
-  __shared__ df s_res[kPairUnitMaxUnits][NR][kTile];
-  __shared__ df s_gxi[kPairUnitMaxUnits][NS][kTile];
-  gpmpc_pdl::release_dependents();
-  const int d = c.d;
-  const int nt = (c.n + kTile - 1) / kTile;
-  const int nv = d + NS * NS;
-  const int units = 2 * P * nt;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = warp / NR, v = warp % NR;
-  const int u = blockIdx.x * (blockDim.x / (32 * NR)) + slot;
-  const bool live = u < units;  // the barriers below need every warp
-  const int uu = live ? u : 0;
-  const int side = uu / (P * nt), p = (uu / nt) % P, chunk = uu % nt;
-  int i, j;
-  pair_ij(p, NS, i, j);
-  const int m = side == 0 ? i : j;
-  const int n = chunk * kTile + lane;
-  const bool point = live && n < c.n;
-  df q[NS * NS];
-#pragma unroll
-  for (int k = 0; k < NS * NS; ++k) q[k] = ld(qh, ql, (size_t)p * NS * NS + k);
-  PointTerms<NS> pt = {};
-  if (point) {
-    ModelPoint<NS> mp;
-    model_point<NS>(c, mu, m, n, mp);
-    df xq[NS];
-    qform<NS>(mp.xi, q, xq);
-    point_terms<NS>(c, m, mp, xq, pt);
-  }
-  gpmpc_pdl::wait_for_prerequisite();
-
-  // residual v: the tile partials kUnitLoadTiles at a time, all issued
-  // before their additions (in tile order)
-  df res = {0.f, 0.f};
-  if (point) {
-    const float* part = side == 0 ? row_part : col_part;
-    const size_t plane = (size_t)P * NR * nt * c.n;
-    for (int t0 = 0; t0 < nt; t0 += kUnitLoadTiles) {
-      df buf[kUnitLoadTiles];
-#pragma unroll
-      for (int k = 0; k < kUnitLoadTiles; ++k)
-        buf[k] = t0 + k < nt ? ld(part, part + plane, part_at(p, v, t0 + k, n, NR, nt, c.n)) : df{0.f, 0.f};
-#pragma unroll
-      for (int k = 0; k < kUnitLoadTiles; ++k)
-        if (t0 + k < nt) res = df_add(res, buf[k]);
-    }
-  }
-  s_res[slot][v][lane] = res;
-  __syncthreads();
-  df r[NR];
-#pragma unroll
-  for (int k = 0; k < NR; ++k) r[k] = s_res[slot][k][lane];
-  // point_chain_rule, split: g_xq on every warp
-  df g_xq[NS];
-#pragma unroll
-  for (int e = 0; e < NS; ++e)
-    g_xq[e] = side == 0 ? df_add(df_scale(r[1 + e], 2.f), df_mul_f32(r[0], pt.xi_c[e])) : df_mul_f32(r[0], pt.xi_c[e]);
-  const size_t uplane = (size_t)units * nv;
-  const size_t base = (size_t)uu * nv;
-  if (v >= 1) {  // g_xi[k] and row k of the Q cotangent
-    const int k = v - 1;
-    df a = df_mul_f32(r[0], pt.xq_c[k]);
-    if (side == 1) a = df_add(a, r[1 + k]);
-#pragma unroll
-    for (int e = 0; e < NS; ++e) a = df_add(a, df_mul_f32(g_xq[e], df_collapse(q[k * NS + e])));
-    s_gxi[slot][k][lane] = a;
-    df x[4] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-    if (point) {
-#pragma unroll
-      for (int e = 0; e < NS; ++e) x[e] = df_mul_f32(g_xq[e], pt.xi_c[k]);
-    }
-    if (live) store_sums<4>(x, NS, unit_part, uplane, [&](int e) { return base + d + k * NS + e; });
-  }
-  __syncthreads();
-  if (v == 0 && live) {  // the inp cotangent
-    df x[kMaxD];
-#pragma unroll
-    for (int e = 0; e < kMaxD; ++e) {
-      x[e] = {0.f, 0.f};
-      if (!point || e >= d) continue;
-      df g = df_mul_f32(df_mul_f32(r[0], -pt.iN_c[e]), pt.ils_c[e]);
-      if (e < NS) g = df_add(g, df_mul_f32(s_gxi[slot][e][lane], pt.ils2_c[e]));
-      x[e] = g;
-    }
-    if (d <= 4) store_sums<4>(x, d, unit_part, uplane, [&](int e) { return base + e; });
-    else store_sums<8>(x, d, unit_part, uplane, [&](int e) { return base + e; });
-  }
-}
-
-// #11's third launch, one block: per pair p its contribution to the
-// cotangent of inp (df, its units summed in #9's order: side 0's chunks,
-// then side 1's) and g_Q_p; given mean_inp (#10's g_inp hi, lo), also g_mu =
-// -(mean (+) pair 0 (+) pair 1 ...), combine_split's df additions in its
-// order. The units' sums are first copied into shared memory when they fit
-// (smem_floats). out: g_inp hi (P, d), g_inp lo (P, d), g_Q (P NS^2), then
-// g_mu (d), f32.
-template <int NS>
-__global__ void __launch_bounds__(kSumThreads)
-df_mm_bwd_pair_sum_kernel(int n, int d, const float* __restrict__ unit_part, const float* __restrict__ mean_inp,
-                          float* __restrict__ out, int smem_floats) {
-  constexpr int P = NS * (NS + 1) / 2;
-  extern __shared__ float sm[];
-  __shared__ df s_pair[kMaxP][kMaxD];
-  gpmpc_pdl::wait_for_prerequisite();
-  const int nt = (n + kTile - 1) / kTile;
-  const int nv = d + NS * NS;
-  const size_t uplane = (size_t)2 * P * nt * nv;
-  const float* up = unit_part;
-  if ((size_t)smem_floats >= 2 * uplane) {
-    for (size_t k = threadIdx.x; k < 2 * uplane; k += blockDim.x) sm[k] = unit_part[k];
-    __syncthreads();
-    up = sm;
-  }
-  for (int o = threadIdx.x; o < P * nv; o += blockDim.x) {
-    const int p = o / nv, v = o % nv;
-    df acc = {0.f, 0.f};
-    for (int side = 0; side < 2; ++side)
-      for (int chunk = 0; chunk < nt; ++chunk) {
-        const int uu = (side * P + p) * nt + chunk;
-        acc = df_add(acc, ld(up, up + uplane, (size_t)uu * nv + v));
-      }
-    if (v < d) {
-      out[p * d + v] = acc.h;
-      out[P * d + p * d + v] = acc.l;
-      s_pair[p][v] = acc;
-    } else {
-      out[2 * P * d + p * NS * NS + (v - d)] = df_collapse(acc);
-    }
-  }
-  if (mean_inp == nullptr) return;
-  __syncthreads();
-  if ((int)threadIdx.x < d) {
-    const int e = threadIdx.x;
-    df acc = {mean_inp[e], mean_inp[d + e]};
-    for (int p = 0; p < P; ++p) acc = df_add(acc, s_pair[p][e]);
-    out[2 * P * d + P * NS * NS + e] = -df_collapse(acc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// #10: one cluster of mean_plan's blocks. Block r takes the tiles r, r + cl,
-// ... of every model, a warp a (model, tile) item (mean_item, into
-// mean_part); after the cluster barrier block 0 sums the items per output
-// over models and tiles in #9's order.
-// ---------------------------------------------------------------------------
-
-// the most blocks of #10's cluster (H100's non-portable cluster size) and
-// warps of each
-constexpr int kMeanMaxCluster = 16;
-constexpr int kMeanMaxWarps = 8;
-
-template <int NS>
-__global__ void __launch_bounds__(32 * kMeanMaxWarps)
-df_mm_bwd_mean_kernel(Cache c, const float* __restrict__ mu, const float* __restrict__ bh,
-                      const float* __restrict__ bl, Cot ct, float* __restrict__ mean_part, float* __restrict__ out,
-                      int smem_floats) {
-  namespace cg = cooperative_groups;
-  gpmpc_pdl::release_dependents();
-  extern __shared__ float sm[];
-  __shared__ df s_b[NS][NS * NS];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), cl = (int)cluster.num_blocks();
-  const int nt = (c.n + kTile - 1) / kTile;
-  const int t = threadIdx.x, warps = blockDim.x >> 5;
-  if (t < NS * NS * NS) s_b[t / (NS * NS)][t % (NS * NS)] = ld(bh, bl, t);
-  __syncthreads();
-  const int items = NS * ((nt - rank + cl - 1) / cl);
-  for (int it = t >> 5; it < items; it += warps)
-    mean_item<NS>(c, mu, s_b[it % NS], ct, mean_part, it % NS, rank + cl * (it / NS));
-  __threadfence();
-  cluster.sync();
-  if (rank != 0) return;
-
-  const int d = c.d;
-  const int nv = d + NS * NS;
-  const size_t mplane = (size_t)NS * nt * nv;
-  const float* mp = mean_part;
-  if ((size_t)smem_floats >= 2 * mplane) {
-    for (size_t k = t; k < 2 * mplane; k += blockDim.x) sm[k] = mean_part[k];
-    __syncthreads();
-    mp = sm;
-  }
-  for (int o = t; o < d + NS * NS * NS; o += blockDim.x) {
-    df acc = {0.f, 0.f};
-    if (o < d) {
-      for (int mm = 0; mm < NS; ++mm)
-        for (int rt = 0; rt < nt; ++rt) acc = df_add(acc, ld(mp, mp + mplane, ((size_t)mm * nt + rt) * nv + o));
-      out[o] = acc.h;
-      out[d + o] = acc.l;
-    } else {
-      const int mm = (o - d) / (NS * NS), kj = (o - d) % (NS * NS);
-      for (int rt = 0; rt < nt; ++rt) acc = df_add(acc, ld(mp, mp + mplane, ((size_t)mm * nt + rt) * nv + d + kj));
-      out[d + o] = df_collapse(acc);
-    }
-  }
-}
-
 // #9's second launch, one block per batch element (blockIdx.x; with
 // BATCHED), a programmatic dependent of the first: each
 // output a sequential df sum in a fixed order: g_mu = -(units + mean path),
@@ -1006,138 +448,6 @@ int bwd_info(int n, int* info) {
   return 0;
 }
 
-int device_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
-// the f32s of a summing launch's partials, if they fit its shared memory
-int smem_floats_for(size_t floats) { return floats * sizeof(float) <= 48 * 1024 ? (int)floats : 0; }
-
-// #10's plan at N on a card of sms SMs (df_mm.mean_launch_plan): the blocks
-// of its one cluster, and the warps of each, enough for the busiest block's
-// items (NS per tile) up to kMeanMaxWarps
-struct MeanPlan {
-  int cluster, warps;
-};
-
-template <int NS>
-MeanPlan mean_plan(int n, int sms) {
-  const int nt = (n + kTile - 1) / kTile;
-  const int cl = std::min(kMeanMaxCluster, std::min(nt, sms));
-  return {cl, std::min(kMeanMaxWarps, NS * ((nt + cl - 1) / cl))};
-}
-
-// past 8 blocks a cluster must be allowed the non-portable size
-template <int NS>
-int allow_big_cluster() {
-  return (int)cudaFuncSetAttribute(df_mm_bwd_mean_kernel<NS>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-}
-
-template <int NS>
-int launch_bwd_mean(const Cache& c, const float* mu, const float* bh, const float* bl, Cot ct,
-                    float* mean_part, float* out, cudaStream_t stream) {
-  const MeanPlan plan = mean_plan<NS>(c.n, device_sms());
-  const int nt = (c.n + kTile - 1) / kTile;
-  const int smem_floats = smem_floats_for((size_t)2 * NS * nt * (c.d + NS * NS));
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = plan.cluster;
-  cfg.blockDim = 32 * plan.warps;
-  cfg.dynamicSmemBytes = smem_floats * sizeof(float);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = plan.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int rc = allow_big_cluster<NS>();
-  if (rc != 0) return rc;
-  return (int)cudaLaunchKernelEx(&cfg, df_mm_bwd_mean_kernel<NS>, c, mu, bh, bl, ct, mean_part, out, smem_floats);
-}
-
-// #10's registers, spill bytes, threads, resident blocks per SM, grid (the
-// cluster), SMs and dynamic shared memory at (n, ns, d)
-template <int NS>
-int mean_info(int n, int d, int* info) {
-  cudaFuncAttributes a;
-  int rc = (int)cudaFuncGetAttributes(&a, df_mm_bwd_mean_kernel<NS>);
-  if (rc != 0) return rc;
-  const int sms = device_sms();
-  const MeanPlan plan = mean_plan<NS>(n, sms);
-  const int nt = (n + kTile - 1) / kTile;
-  const int dyn = smem_floats_for((size_t)2 * NS * nt * (d + NS * NS)) * (int)sizeof(float);
-  int per_sm = 0;
-  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_mm_bwd_mean_kernel<NS>, 32 * plan.warps, dyn);
-  if (rc != 0) return rc;
-  const int vals[7] = {a.numRegs, (int)a.localSizeBytes, 32 * plan.warps, per_sm, plan.cluster, sms, dyn};
-  for (int k = 0; k < 7; ++k) info[k] = vals[k];
-  return 0;
-}
-
-// #11's plan at N on a card of sms SMs (df_mm.pair_launch_plan): the pair
-// blocks, the 2 P nt units and the units per block of the second launch
-// (1 + NS warps each), spread over the SMs
-struct PairPlan {
-  int tile_blocks, units, unit_warps, unit_blocks;
-};
-
-template <int NS>
-PairPlan pair_plan(int n, int sms) {
-  constexpr int P = NS * (NS + 1) / 2;
-  const int nt = (n + kTile - 1) / kTile;
-  const int units = 2 * P * nt;
-  const int per = std::min(kPairUnitMaxUnits, std::max(1, (units + sms - 1) / sms));
-  return {P * nt * nt, units, per * (1 + NS), (units + per - 1) / per};
-}
-
-// mean_inp: #10's g_inp hi, lo (2 d) from the launch just before on the
-// stream, whose sum with the pairs' is written as g_mu; or null
-template <int NS>
-int launch_bwd_pair(const Cache& c, const float* mu, const float* qh, const float* ql, Cot ct,
-                    const float* mean_inp, float* row_part, float* col_part, float* unit_part, float* out,
-                    cudaStream_t stream) {
-  const PairPlan plan = pair_plan<NS>(c.n, device_sms());
-  int rc;
-  if (mean_inp != nullptr) {
-    rc = gpmpc_pdl::launch_dependent(df_mm_bwd_pair_kernel<NS>, plan.tile_blocks, kThreads, 0, stream, c, mu, qh,
-                                     ql, ct, row_part, col_part);
-  } else {
-    df_mm_bwd_pair_kernel<NS><<<plan.tile_blocks, kThreads, 0, stream>>>(c, mu, qh, ql, ct, row_part, col_part);
-    rc = (int)cudaGetLastError();
-  }
-  if (rc != 0) return rc;
-  rc = gpmpc_pdl::launch_dependent(df_mm_bwd_pair_unit_kernel<NS>, plan.unit_blocks, 32 * plan.unit_warps, 0,
-                                   stream, c, mu, qh, ql, (const float*)row_part, (const float*)col_part, unit_part);
-  if (rc != 0) return rc;
-  const int smem_floats = smem_floats_for((size_t)2 * plan.units * (c.d + NS * NS));
-  return gpmpc_pdl::launch_dependent(df_mm_bwd_pair_sum_kernel<NS>, 1, kSumThreads, smem_floats * sizeof(float),
-                                     stream, c.n, c.d, (const float*)unit_part, mean_inp, out, smem_floats);
-}
-
-// #11's pair-block registers, spill bytes, threads, resident blocks per SM,
-// grid, SMs and dynamic shared memory at (n, ns), then the unit launch's
-// registers, warps per block and blocks
-template <int NS>
-int pair_info(int n, int* info) {
-  cudaFuncAttributes a, au;
-  int rc = (int)cudaFuncGetAttributes(&a, df_mm_bwd_pair_kernel<NS>);
-  if (rc == 0) rc = (int)cudaFuncGetAttributes(&au, df_mm_bwd_pair_unit_kernel<NS>);
-  if (rc != 0) return rc;
-  const int sms = device_sms();
-  const PairPlan plan = pair_plan<NS>(n, sms);
-  int per_sm = 0;
-  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, df_mm_bwd_pair_kernel<NS>, kThreads, 0);
-  if (rc != 0) return rc;
-  const int vals[10] = {a.numRegs, (int)a.localSizeBytes, kThreads, per_sm, plan.tile_blocks, sms, 0,
-                        au.numRegs, plan.unit_warps, plan.unit_blocks};
-  for (int k = 0; k < 10; ++k) info[k] = vals[k];
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -1166,56 +476,6 @@ int gpmpc_df_mm_bwd_info(int n, int ns, int* info) {
     case 1: return bwd_info<1>(n, info);
     case 2: return bwd_info<2>(n, info);
     default: return bwd_info<3>(n, info);
-  }
-}
-
-// #10: out = g_inp hi (d), g_inp lo (d), g_B (ns^3)
-int gpmpc_df_mm_bwd_mean_f32(const float* mu, const float* bh, const float* bl, GPMPC_DF_MM_CACHE_ARGS,
-                             const float* ct_block, float* mean_part, float* out, int n, int ns, int d,
-                             void* stream) {
-  if (!valid(n, ns, d)) return (int)cudaErrorInvalidValue;
-  const Cache c{xh, xl, ilsh, ilsl, ils2h, ils2l, logoh, logol, beth, betl, ikh, ikl, n, d};
-  const Cot ct = cot_block(ct_block, ns, d);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (ns) {
-    case 1: return launch_bwd_mean<1>(c, mu, bh, bl, ct, mean_part, out, s);
-    case 2: return launch_bwd_mean<2>(c, mu, bh, bl, ct, mean_part, out, s);
-    default: return launch_bwd_mean<3>(c, mu, bh, bl, ct, mean_part, out, s);
-  }
-}
-
-// #10's launch report (mean_info): info[7]
-int gpmpc_df_mm_bwd_mean_info(int n, int ns, int d, int* info) {
-  switch (ns) {
-    case 1: return mean_info<1>(n, d, info);
-    case 2: return mean_info<2>(n, d, info);
-    default: return mean_info<3>(n, d, info);
-  }
-}
-
-// #11: out = g_inp hi (P, d), g_inp lo (P, d), g_Q (P ns^2), g_mu (d); g_mu
-// only given mean_inp, #10's out from the launch just before on the stream
-// (its g_inp halves), else null
-int gpmpc_df_mm_bwd_pair_f32(const float* mu, const float* qh, const float* ql, GPMPC_DF_MM_CACHE_ARGS,
-                             const float* ct_block, const float* mean_inp, float* row_part, float* col_part,
-                             float* unit_part, float* out, int n, int ns, int d, void* stream) {
-  if (!valid(n, ns, d)) return (int)cudaErrorInvalidValue;
-  const Cache c{xh, xl, ilsh, ilsl, ils2h, ils2l, logoh, logol, beth, betl, ikh, ikl, n, d};
-  const Cot ct = cot_block(ct_block, ns, d);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (ns) {
-    case 1: return launch_bwd_pair<1>(c, mu, qh, ql, ct, mean_inp, row_part, col_part, unit_part, out, s);
-    case 2: return launch_bwd_pair<2>(c, mu, qh, ql, ct, mean_inp, row_part, col_part, unit_part, out, s);
-    default: return launch_bwd_pair<3>(c, mu, qh, ql, ct, mean_inp, row_part, col_part, unit_part, out, s);
-  }
-}
-
-// #11's launch report (pair_info): info[10]
-int gpmpc_df_mm_bwd_pair_info(int n, int ns, int* info) {
-  switch (ns) {
-    case 1: return pair_info<1>(n, info);
-    case 2: return pair_info<2>(n, info);
-    default: return pair_info<3>(n, info);
   }
 }
 

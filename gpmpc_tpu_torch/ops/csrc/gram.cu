@@ -29,6 +29,10 @@
 // which takes ~1.0 us off a launch even after a plain PyTorch kernel, as
 // precedes it on the refresh path (gpmpc_tpu_torch/trace_kernels.py), and it
 // reads nothing before the kernel before it has ended.
+// The batch axis (the seeds of an episode batch, each its own memory and
+// parameters): grid z is the element, whose operands and K lie after the
+// element before's; the plan is one memory's, so each element is its
+// single launch bit for bit.
 // Every entry is the first design's f32 operations in their order: the
 // rounded quotients, the fmaf chains over the features in order, sq_i +
 // sq_j - 2 cross, max(., 0), s * expf(-0.5 d2); so the bits are the same.
@@ -63,6 +67,11 @@ gram_kernel(const float* __restrict__ ls, const float* __restrict__ s, const flo
   float* s_row = s_col + kGramQ * cw;                   // [kGramQ][rows] scaled row points
   const int m = blockIdx.x;
   const int i0 = blockIdx.y * rows;
+  const size_t elem = blockIdx.z;  // this block's batch element
+  ls += elem * gridDim.x * d;
+  s += elem * gridDim.x;
+  x += elem * n * d;
+  out += elem * gridDim.x * n * n;
   const int nrow = min(rows, n - i0);
   // this thread's item of every chunk: row threadIdx.y, quad threadIdx.x
   const int r = threadIdx.y, jq = threadIdx.x;
@@ -157,15 +166,16 @@ bool gram_plan_ok(int n, int rows, int quads) {
 
 extern "C" {
 
-// K (ns, n, n) on the grid the wrapper planned (gram_rbf.launch_plan): ns
-// bands of `rows` rows, column chunks of 4 quads columns; a programmatic
-// dependent of the launch before it
+// K (batch, ns, n, n) on the grid the wrapper planned for one memory
+// (gram_rbf.launch_plan): ns bands of `rows` rows, column chunks of 4 quads
+// columns, per batch element (ls (batch, ns, d), s (batch, ns), x (batch, n,
+// d)); a programmatic dependent of the launch before it
 int gpmpc_gram_f32(const float* ls, const float* s, const float* x, float* out, int ns, int n, int d, int rows,
-                   int quads, void* stream) {
+                   int quads, int batch, void* stream) {
   if (ns < 1 || n < 1 || d < 1 || !gram_plan_ok(n, rows, quads)) return (int)cudaErrorInvalidValue;
   const int bands = (n + rows - 1) / rows;
-  if (bands > 65535) return (int)cudaErrorInvalidValue;
-  return gpmpc_pdl::launch_dependent(gram_kernel, dim3(ns, bands), dim3(quads, rows), gram_smem(rows, quads),
+  if (bands > 65535 || batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  return gpmpc_pdl::launch_dependent(gram_kernel, dim3(ns, bands, batch), dim3(quads, rows), gram_smem(rows, quads),
                                      (cudaStream_t)stream, ls, s, x, out, n, d, rows, quads);
 }
 

@@ -18,7 +18,7 @@ N-scaling work in one kernel launch instead of thousands of small ones:
 * the finish: M = c (M), V = c (V), S_p = (S_p (-) corr) / sqrt det R, the
   subtraction in df (both are ~1e3 and cancel to ~1e-2 at cond(K) ~ 1e6).
 
-Kernels (``csrc/df_mm_fwd.cu`` and ``csrc/df_mm_bwd.cu`` on ``csrc/df_mm.cuh``
+Kernels (``csrc/df_mm_fwd.cu``, ``csrc/df_mm_bwd.cu`` and ``csrc/df_mm_split.cu`` on ``csrc/df_mm.cuh``
 and ``csrc/df32.cuh``), each replacing a Pallas TPU
 kernel of ``gpmpc_tpu/ops/pallas_df_mm.py``:
 
@@ -98,8 +98,9 @@ launch plan is one element's and no sum crosses elements, so each element
 is its single launch bit for bit; the twins broadcast (``per_element``),
 each element its own elementwise operations and df_sum trees, and equal the
 unbatched call bit for bit. ``LAUNCHES`` counts one launch per batched call.
-#10 and #11 (the split route past N = 128) take one element; a batched call
-there raises.
+#10 and #11 (the split route past N = 128) take the batch the same way: #10
+one cluster per element, #11's launches the element in a grid row, its last
+launch adding each element's #10 and pair contributions into its g_mu.
 """
 
 from __future__ import annotations
@@ -784,34 +785,36 @@ def stage23_fwd(mu, bh, bl, qh, ql, cache):
 
 
 def stage23_bwd(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
-    """(g_mu (d,), g_B (ns, ns, ns), g_Q (P, ns, ns)): the VJP of stages 2-3
-    at the hi cotangents, by the reference's rule (``SINGLE_BWD_MAX_N``): up
-    to N = 128 one #9 launch (``stage23_bwd_all``); past it #10 and then #11,
-    whose last launch adds #10's df contribution and its own as
-    ``combine_split`` does and writes g_mu. A CPU tensor takes the plain
-    twins and ``combine_split``."""
+    """(g_mu (..., d), g_B (..., ns, ns, ns), g_Q (..., P, ns, ns)): the VJP
+    of stages 2-3 at the hi cotangents, by the reference's rule
+    (``SINGLE_BWD_MAX_N``): up to N = 128 one #9 launch
+    (``stage23_bwd_all``); past it #10 and then #11, whose last launch adds
+    #10's df contribution and its own as ``combine_split`` does and writes
+    g_mu; every element of the leading batch in the same launches, against
+    the cache's index when it has one (``per_element``). A CPU tensor takes
+    the plain twins and ``combine_split``."""
     if cache.x_hi.shape[-2] <= SINGLE_BWD_MAX_N:
         return stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr)
     if mu.device.type == "cpu":
         mean_inp, g_B = stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v)
         pairs_inp, g_Q = stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr)
         return combine_split(mean_inp, pairs_inp), g_B, g_Q
-    if mu.dim() > 1 or getattr(cache, "index", None) is not None:
-        raise NotImplementedError("df_mm_bwd_mean + df_mm_bwd_pair take one element, not a batch: the batch "
-                                  "axis of #10 and #11 is not ported yet (ROADMAP queue B)")
-    mu, bh, bl, qh, ql, g_m, g_v, g_sp, g_corr = (t.contiguous() for t in (mu, bh, bl, qh, ql, g_m, g_v, g_sp,
-                                                                            g_corr))
-    n, ns, d, _ = _check("df_mm_bwd_mean + df_mm_bwd_pair", cache, 1, mu=mu[None], bh=bh[None], bl=bl[None],
-                         qh=qh[None], ql=ql[None], g_m=g_m[None], g_v=g_v[None], g_sp=g_sp[None],
-                         g_corr=g_corr[None])
-    ct = _full_ct(cache, g_m, g_v, g_sp, g_corr)
+    lead = mu.shape[:-1]
+    mu, g_m, g_sp, g_corr = (_batched(t, 1) for t in (mu, g_m, g_sp, g_corr))
+    g_v = _batched(g_v, 2)
+    bh, bl, qh, ql = (_batched(t, 3) for t in (bh, bl, qh, ql))
+    batch = mu.shape[0]
+    n, ns, d, cidx = _check("df_mm_bwd_mean + df_mm_bwd_pair", cache, batch, mu=mu, bh=bh, bl=bl, qh=qh, ql=ql,
+                            g_m=g_m, g_v=g_v, g_sp=g_sp, g_corr=g_corr)
+    ct = _ct_block(batch, ns, d, mu.device, g_m, g_v, g_sp, g_corr)
     # every buffer of both launches exists before the first: #11's first
     # launch may run beside #10, so no scratch of one may reuse the other's
-    mean = _MeanLaunch(mu, n, ns, d)
-    pairs = _PairLaunch(mu, n, ns, d)
-    mean.launch(mu, bh, bl, cache, ct)
-    pairs.launch(mu, qh, ql, cache, ct, mean_out=mean.out)
-    return pairs.g_mu(), mean.g_B(), pairs.g_Q()
+    mean = _MeanLaunch(mu, n, ns, d, batch)
+    pairs = _PairLaunch(mu, n, ns, d, batch)
+    mean.launch(mu, bh, bl, cache, ct, cidx)
+    pairs.launch(mu, qh, ql, cache, ct, cidx, mean_out=mean.out)
+    return (pairs.g_mu().reshape(lead + (d,)), mean.g_B().reshape(lead + (ns, ns, ns)),
+            pairs.g_Q().reshape(lead + pairs.g_Q().shape[1:]))
 
 
 def stage23_bwd_all(mu, bh, bl, qh, ql, cache, g_m, g_v, g_sp, g_corr):
@@ -856,17 +859,16 @@ def _zeros(k: int, device: torch.device) -> torch.Tensor:
     return torch.zeros(k, dtype=torch.float32, device=device)
 
 
-def _full_ct(cache, g_m=None, g_v=None, g_sp=None, g_corr=None):
-    """The kernels' cotangent block g_M, g_V, g_S_p, g_corr (one cat), zeros
-    where a launch reads none."""
-    ns, d = cache.ils_hi.shape
-    dev = cache.x_hi.device
-    parts = [g.reshape(-1) if g is not None else _zeros(k, dev)
+def _ct_block(batch, ns, d, device, g_m=None, g_v=None, g_sp=None, g_corr=None):
+    """#10's and #11's cotangent block g_M (B, ns), g_V (B, ns, d), g_S_p (B,
+    P), g_corr (B, ns) (one cat, csrc/df_mm_bwd.cuh cot_block), zeros where a
+    launch reads none."""
+    parts = [g.reshape(-1) if g is not None else _zeros(batch * k, device)
              for g, k in ((g_m, ns), (g_v, ns * d), (g_sp, ns * (ns + 1) // 2), (g_corr, ns))]
     return torch.cat(parts)
 
 
-# #10's and #11's plans (csrc/df_mm_bwd.cu mean_plan, pair_plan): the 32-point
+# #10's and #11's plans (csrc/df_mm_split.cu mean_plan, pair_plan): the 32-point
 # tiles, the most blocks of #10's one cluster and warps of each, the most
 # units of a block of #11's chain-rule launch (1 + ns warps each)
 BWD_TILE, MEAN_MAX_CLUSTER, MEAN_MAX_WARPS, PAIR_UNIT_MAX_UNITS = 32, 16, 8, 2
@@ -898,86 +900,110 @@ def pair_launch_plan(n: int, ns: int, sms: int) -> dict:
                 unit_blocks=-(-units // per))
 
 
+def split_buffer_shapes(n: int, ns: int, d: int, batch: int) -> dict:
+    """#10's and #11's buffers, each with the batch axis in front as
+    ``fwd_buffer_shapes`` (element b's after element b - 1's,
+    csrc/df_mm_split.cu): #10's items' partials [2][ns][tiles][d + ns^2] and
+    out (g_inp hi, lo (d), g_B); #11's tiles' row and column partials
+    [2][P][1 + ns][tiles][N], the units' sums [2][2 P tiles][d + ns^2] and
+    out (g_inp hi, lo (P, d), g_Q, g_mu (d)). The plan is one element's."""
+    nt, p = -(-n // BWD_TILE), ns * (ns + 1) // 2
+    return dict(mean_part=(batch, 2, ns, nt, d + ns * ns), mean_out=(batch, 2 * d + ns ** 3),
+                row_part=(batch, 2, p, 1 + ns, nt, n), col_part=(batch, 2, p, 1 + ns, nt, n),
+                unit_part=(batch, 2, 2 * p * nt, d + ns * ns), pair_out=(batch, 2 * p * d + p * ns * ns + d))
+
+
 class _MeanLaunch:
-    """#10's buffers: the items' partials and out (g_inp hi, lo (d), g_B)."""
+    """#10's buffers for a batch: the items' partials and out (g_inp hi, lo
+    (d), g_B) per element."""
 
-    def __init__(self, mu, n, ns, d):
-        nt = -(-n // BWD_TILE)
-        self.ns, self.d = ns, d
-        self.mean_part = torch.empty((2, ns, nt, d + ns * ns), dtype=torch.float32, device=mu.device)
-        self.out = torch.empty(2 * d + ns ** 3, dtype=torch.float32, device=mu.device)
+    def __init__(self, mu, n, ns, d, batch=1):
+        shapes = split_buffer_shapes(n, ns, d, batch)
+        self.ns, self.d, self.batch = ns, d, batch
+        self.mean_part = torch.empty(shapes["mean_part"], dtype=torch.float32, device=mu.device)
+        self.out = torch.empty(shapes["mean_out"], dtype=torch.float32, device=mu.device)
 
-    def launch(self, mu, bh, bl, cache, ct):
-        n, d = cache.x_hi.shape
+    def launch(self, mu, bh, bl, cache, ct, cidx=None):
+        n, d = cache.x_hi.shape[-2:]
         rc = _build.load().gpmpc_df_mm_bwd_mean_f32(
             mu.data_ptr(), bh.data_ptr(), bl.data_ptr(), *_cache_ptrs(cache), ct.data_ptr(),
-            self.mean_part.data_ptr(), self.out.data_ptr(), n, self.ns, d, _stream(mu))
+            self.mean_part.data_ptr(), self.out.data_ptr(), n, self.ns, d, cidx, self.batch, _stream(mu))
         _build.check(rc, "df_mm_bwd_mean")
         LAUNCHES["df_mm_bwd_mean"] += 1
 
+    def g_inp(self):
+        return self.out[:, :self.d], self.out[:, self.d:2 * self.d]
+
     def g_B(self):
-        return self.out[2 * self.d:].view(self.ns, self.ns, self.ns)
+        return self.out[:, 2 * self.d:].view(self.batch, self.ns, self.ns, self.ns)
 
 
 class _PairLaunch:
-    """#11's buffers: the tiles' row and column partials, the units' sums
-    and out (g_inp hi, lo (P, d), g_Q, then g_mu (d) when given #10's out)."""
+    """#11's buffers for a batch: the tiles' row and column partials, the
+    units' sums and out (g_inp hi, lo (P, d), g_Q, then g_mu (d) when given
+    #10's out) per element."""
 
-    def __init__(self, mu, n, ns, d):
-        nt = -(-n // BWD_TILE)
-        self.p, self.ns, self.d = ns * (ns + 1) // 2, ns, d
-        dev = mu.device
-        self.row_part = torch.empty((2, self.p, 1 + ns, nt, n), dtype=torch.float32, device=dev)
-        self.col_part = torch.empty((2, self.p, 1 + ns, nt, n), dtype=torch.float32, device=dev)
-        self.unit_part = torch.empty((2, 2 * self.p * nt, d + ns * ns), dtype=torch.float32, device=dev)
-        self.out = torch.empty(2 * self.p * d + self.p * ns * ns + d, dtype=torch.float32, device=dev)
+    def __init__(self, mu, n, ns, d, batch=1):
+        shapes = split_buffer_shapes(n, ns, d, batch)
+        self.p, self.ns, self.d, self.batch = ns * (ns + 1) // 2, ns, d, batch
+        self.row_part, self.col_part, self.unit_part, self.out = (
+            torch.empty(shapes[k], dtype=torch.float32, device=mu.device)
+            for k in ("row_part", "col_part", "unit_part", "pair_out"))
 
-    def launch(self, mu, qh, ql, cache, ct, mean_out=None):
-        n, d = cache.x_hi.shape
+    def launch(self, mu, qh, ql, cache, ct, cidx=None, mean_out=None):
+        n, d = cache.x_hi.shape[-2:]
         rc = _build.load().gpmpc_df_mm_bwd_pair_f32(
             mu.data_ptr(), qh.data_ptr(), ql.data_ptr(), *_cache_ptrs(cache), ct.data_ptr(),
             None if mean_out is None else mean_out.data_ptr(), self.row_part.data_ptr(), self.col_part.data_ptr(),
-            self.unit_part.data_ptr(), self.out.data_ptr(), n, self.ns, d, _stream(mu))
+            self.unit_part.data_ptr(), self.out.data_ptr(), n, self.ns, d, cidx, self.batch, _stream(mu))
         _build.check(rc, "df_mm_bwd_pair")
         LAUNCHES["df_mm_bwd_pair"] += 1
 
     def g_inp(self):
         pd = self.p * self.d
-        return self.out[:pd].view(self.p, self.d), self.out[pd:2 * pd].view(self.p, self.d)
+        return (self.out[:, :pd].view(self.batch, self.p, self.d),
+                self.out[:, pd:2 * pd].view(self.batch, self.p, self.d))
 
     def g_Q(self):
         pd = self.p * self.d
-        return self.out[2 * pd:2 * pd + self.p * self.ns * self.ns].view(self.p, self.ns, self.ns)
+        return self.out[:, 2 * pd:2 * pd + self.p * self.ns * self.ns].view(self.batch, self.p, self.ns, self.ns)
 
     def g_mu(self):
-        return self.out[2 * self.p * self.d + self.p * self.ns * self.ns:]
+        return self.out[:, 2 * self.p * self.d + self.p * self.ns * self.ns:]
 
 
 def stage23_bwd_mean(mu, bh, bl, cache, g_m, g_v):
-    """The mean path's VJP (#10) as in ``stage23_vjp_mean_plain``. A CPU
-    tensor takes the plain twin; a CUDA tensor launches the kernel or raises."""
+    """The mean path's VJP (#10) as in ``stage23_vjp_mean_plain``, one launch
+    for every element of the leading batch. A CPU tensor takes the plain
+    twin; a CUDA tensor launches the kernel or raises."""
     if mu.device.type == "cpu":
         return stage23_vjp_mean_plain(mu, bh, bl, cache, g_m, g_v)
-    mu, bh, bl, g_m, g_v = (t.contiguous() for t in (mu, bh, bl, g_m, g_v))
-    n, ns, d, _ = _check("df_mm_bwd_mean", cache, 1, mu=mu[None], bh=bh[None], bl=bl[None], g_m=g_m[None],
-                         g_v=g_v[None])
-    mean = _MeanLaunch(mu, n, ns, d)
-    mean.launch(mu, bh, bl, cache, _full_ct(cache, g_m=g_m, g_v=g_v))
-    return (mean.out[:d], mean.out[d:2 * d]), mean.g_B()
+    lead = mu.shape[:-1]
+    mu, g_m, g_v, bh, bl = _batched(mu, 1), _batched(g_m, 1), _batched(g_v, 2), _batched(bh, 3), _batched(bl, 3)
+    batch = mu.shape[0]
+    n, ns, d, cidx = _check("df_mm_bwd_mean", cache, batch, mu=mu, bh=bh, bl=bl, g_m=g_m, g_v=g_v)
+    mean = _MeanLaunch(mu, n, ns, d, batch)
+    mean.launch(mu, bh, bl, cache, _ct_block(batch, ns, d, mu.device, g_m=g_m, g_v=g_v), cidx)
+    h, l = mean.g_inp()
+    return (h.reshape(lead + (d,)), l.reshape(lead + (d,))), mean.g_B().reshape(lead + (ns, ns, ns))
 
 
 def stage23_bwd_pairs(mu, qh, ql, cache, g_sp, g_corr):
     """Every pair's VJP (#11; the pair is a grid axis of one launch, where the
-    reference launches once per pair) as in ``stage23_vjp_pairs_plain``. A CPU
-    tensor takes the plain twin; a CUDA tensor launches the kernel or raises."""
+    reference launches once per pair) as in ``stage23_vjp_pairs_plain``, one
+    launch for every element of the leading batch. A CPU tensor takes the
+    plain twin; a CUDA tensor launches the kernel or raises."""
     if mu.device.type == "cpu":
         return stage23_vjp_pairs_plain(mu, qh, ql, cache, g_sp, g_corr)
-    mu, qh, ql, g_sp, g_corr = (t.contiguous() for t in (mu, qh, ql, g_sp, g_corr))
-    n, ns, d, _ = _check("df_mm_bwd_pair", cache, 1, mu=mu[None], qh=qh[None], ql=ql[None], g_sp=g_sp[None],
-                         g_corr=g_corr[None])
-    pairs = _PairLaunch(mu, n, ns, d)
-    pairs.launch(mu, qh, ql, cache, _full_ct(cache, g_sp=g_sp, g_corr=g_corr))
-    return pairs.g_inp(), pairs.g_Q()
+    lead = mu.shape[:-1]
+    mu, g_sp, g_corr, qh, ql = _batched(mu, 1), _batched(g_sp, 1), _batched(g_corr, 1), _batched(qh, 3), _batched(ql, 3)
+    batch = mu.shape[0]
+    n, ns, d, cidx = _check("df_mm_bwd_pair", cache, batch, mu=mu, qh=qh, ql=ql, g_sp=g_sp, g_corr=g_corr)
+    pairs = _PairLaunch(mu, n, ns, d, batch)
+    pairs.launch(mu, qh, ql, cache, _ct_block(batch, ns, d, mu.device, g_sp=g_sp, g_corr=g_corr), cidx)
+    (h, l), g_q = pairs.g_inp(), pairs.g_Q()
+    p = pairs.p
+    return (h.reshape(lead + (p, d)), l.reshape(lead + (p, d))), g_q.reshape(lead + (p, ns, ns))
 
 
 def mean_launch_info(n: int, ns: int, d: int) -> dict:

@@ -17,10 +17,13 @@ of every entry, and each thread writing a row's 4 consecutive columns with
 one 16-byte store; launched as a programmatic dependent, which shortens
 the launch after the PyTorch op before it on the refresh path. Every entry
 keeps the first design's f32 operations in their order, so the outputs are
-the same bits.
+the same bits. A leading batch of memories (an episode batch's seeds) is
+one launch, grid z the element, planned for one memory.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,6 +35,7 @@ LAUNCHES = {"gram": 0}
 
 THREADS = 1024  # kGramThreads of csrc/gram.cu: most threads of a block, a thread a (row, 4-column) item
 MAX_QUADS = 512  # kGramMaxQuads: 4-column groups of a column chunk
+MAX_BATCH = 65535  # the grid's z extent: one element a z index
 
 
 def launch_plan(ns: int, n: int, sms: int) -> dict:
@@ -65,21 +69,29 @@ def gram_ref(lengthscales, outputscales, x):
 
 
 def gram(lengthscales, outputscales, x):
-    """K (Ns, N, N). A CPU tensor takes the plain twin; a CUDA tensor
-    launches the kernel or raises."""
+    """K (..., Ns, N, N) for lengthscales (..., Ns, D), outputscales (...,
+    Ns) and x (..., N, D) of one leading batch shape (an episode batch's
+    seeds, each its own memory and parameters): one launch for the batch,
+    planned for one memory (grid z the element), so each element is its
+    single launch bit for bit. A CPU tensor takes the plain twin; a CUDA
+    tensor launches the kernel or raises."""
     if x.device.type == "cpu":
         return gram_ref(lengthscales, outputscales, x)
     _check_cuda_f32("gram", lengthscales=lengthscales, outputscales=outputscales, x=x)
-    ns, d = lengthscales.shape
-    n = x.shape[0]
-    if outputscales.shape != (ns,) or x.shape != (n, d):
+    ns, d = lengthscales.shape[-2:]
+    n = x.shape[-2]
+    lead = tuple(x.shape[:-2])
+    if lengthscales.shape != lead + (ns, d) or outputscales.shape != lead + (ns,) or x.shape != lead + (n, d):
         raise ValueError("gram: inconsistent shapes")
+    batch = math.prod(lead)
+    if not 1 <= batch <= MAX_BATCH:
+        raise NotImplementedError(f"gram: the kernel takes a batch of 1 to {MAX_BATCH}, got {batch}")
     lib = _build.load()
     plan = launch_plan(ns, n, _build.sm_count(x.device))
-    out = torch.empty((ns, n, n), dtype=torch.float32, device=x.device)
+    out = torch.empty(lead + (ns, n, n), dtype=torch.float32, device=x.device)
     rc = lib.gpmpc_gram_f32(
         lengthscales.data_ptr(), outputscales.data_ptr(), x.data_ptr(), out.data_ptr(),
-        ns, n, d, plan["rows"], plan["quads"], torch.cuda.current_stream(x.device).cuda_stream,
+        ns, n, d, plan["rows"], plan["quads"], batch, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "gram")
     LAUNCHES["gram"] += 1

@@ -30,19 +30,20 @@ STEPS, WARMUP, NH, REPEAT, BUDGET = 8, 4, 2, 2, 3
 TOL = 1e-9
 
 
-def _uniform(key, shape):
-    return torch.tensor(np.asarray(jax.random.uniform(key, shape, jnp.float64)))
+def _uniform(key, shape, dtype=jnp.float64):
+    return torch.tensor(np.asarray(jax.random.uniform(key, shape, dtype)))
 
 
-def _jax_draws(keys, spec):
-    """A draws factory: seed i's EpisodeDraws returns what JAX's episode
-    draws from keys[i]."""
+def _jax_draws(keys, spec, dtype=jnp.float64):
+    """A draws factory: seed i's EpisodeDraws returns what JAX's episode (in
+    ``dtype``) draws from keys[i]."""
     na, n_flat = spec.plan.dim_action, spec.plan.len_horizon * spec.plan.dim_action
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.float64
 
     def make(seed, spec_):
         key = keys[seed]
         k_init, k_scan, k_prev = jax.random.split(key, 3)
-        state, _ = jd.mountain_car_spec().init_fn(k_init)
+        state, _ = jd.mountain_car_spec(dtype).init_fn(k_init)
         step_keys = []
         for _ in range(STEPS):
             k_scan, k_plan, _, k_rand = jax.random.split(k_scan, 4)
@@ -50,17 +51,17 @@ def _jax_draws(keys, spec):
 
         class Draws(te.EpisodeDraws):
             def env_init(self):
-                return td.mountain_car_spec(device=CPU, draw=lambda g, name: np.asarray(state)[:1]).init_fn(
-                    self.generator)
+                return td.mountain_car_spec(dtype=tdtype, device=CPU,
+                                            draw=lambda g, name: np.asarray(state)[:1]).init_fn(self.generator)
 
             def action_prev(self):
-                return _uniform(k_prev, (na,))
+                return _uniform(k_prev, (na,), dtype)
 
             def warmup_actions(self, t):
-                return _uniform(step_keys[t][1], (n_flat,))
+                return _uniform(step_keys[t][1], (n_flat,), dtype)
 
             def inits(self, t):
-                return _uniform(jax.random.split(step_keys[t][0])[0], (spec_.restarts_optim, n_flat))
+                return _uniform(jax.random.split(step_keys[t][0])[0], (spec_.restarts_optim, n_flat), dtype)
 
         return Draws(seed, spec_)
 

@@ -42,7 +42,8 @@ exponent's rounding in another order, see chip_smoke.py).
 The N-sharded cores' kernels on rectangular row slabs (Nr of 96, 128 and
 192 rows against Nc of 384 and 768 columns): #2, #3, #5, #6 and #7 against
 their plain twins, by the same tolerances, #3 and #7 with their launch
-counts (one and two).
+counts (one and two). The batch axis of #10, #11 and #1: one launch a
+batch, each element bit for bit its single launch.
 """
 
 import numpy as np
@@ -916,3 +917,60 @@ def test_gram_kernel_matches_plain_at_2048(dev):
     out = gram_rbf.gram(ls, outs, x)
     torch.testing.assert_close(out, gram_rbf.gram_ref(ls, outs, x), rtol=2e-5, atol=2e-6)
     assert torch.equal(gram_rbf.gram(ls, outs, x), out)
+
+
+@pytest.mark.parametrize("n", [192, 384])
+@pytest.mark.parametrize("mode", ["shared", "per-seed"])
+def test_df_mm_split_batch_elements_equal_single_launches(dev, n, mode):
+    """#10 and #11 with a batch axis (B = 3): one launch of each for the
+    batch, each element bit for bit its single launch on its own cache (a
+    shared cache, or caches stacked with an int32 index), and the batch
+    within DF_GRAD_RTOL of each output's largest entry of the batched
+    twins."""
+    from types import SimpleNamespace
+
+    from gpmpc_tpu_torch.ops import df_mm
+
+    b, ns, d = 3, 3, 4
+    caches = [_df_mm_problem(n + 7 * c, n, dev)[0] for c in range(2)]
+    index = [0] * b if mode == "shared" else [1, 0, 1]
+    fields = df_mm._CACHE_FIELDS + ("outs",)
+    bcache = caches[0] if mode == "shared" else SimpleNamespace(
+        index=torch.tensor(index, dtype=torch.int32, device=dev),
+        **{f: torch.stack([getattr(c, f) for c in caches]).contiguous() for f in fields})
+    rng = np.random.default_rng(n)
+    mu = torch.tensor(rng.uniform(0.3, 0.7, (b, d)), dtype=torch.float32, device=dev)
+    sv = torch.tensor(np.stack([np.eye(ns) * 1e-2 * (1 + 0.2 * k) + 2e-3 for k in range(b)]), dtype=torch.float32,
+                      device=dev)
+    ii, jj, _, _ = df_mm.pair_indices(ns, dev)
+    Bh, Bl, _, Qh, Ql, _ = df_mm.df_stage1(bcache, sv, ii, jj)
+    g = [torch.tensor(rng.normal(size=(b,) + s), dtype=torch.float32, device=dev)
+         for s in ((ns,), (ns, d), (Qh.shape[1],), (ns,))]
+    ops.reset_launch_counts()
+    split = df_mm.stage23_bwd(mu, Bh, Bl, Qh, Ql, bcache, *g)
+    counts = ops.launch_counts()
+    assert (counts["df_mm_bwd_mean"], counts["df_mm_bwd_pair"], counts["df_mm_bwd"]) == (1, 1, 0), counts
+    for k in range(b):
+        one = df_mm.stage23_bwd(mu[k], Bh[k], Bl[k], Qh[k], Ql[k], caches[index[k]], *(t[k] for t in g))
+        assert all(torch.equal(x[k], y) for x, y in zip(split, one)), k
+    ref_m = df_mm.stage23_vjp_mean_plain(mu, Bh, Bl, bcache, g[0], g[1])
+    ref_p = df_mm.stage23_vjp_pairs_plain(mu, Qh, Ql, bcache, g[2], g[3])
+    for o, r in zip(split, (df_mm.combine_split(ref_m[0], ref_p[0]), ref_m[1], ref_p[1])):
+        for k in range(b):
+            _within_largest(o[k], r[k])
+
+
+@pytest.mark.parametrize("n", [37, 384])
+def test_gram_batch_elements_equal_single_launches(dev, n):
+    """#1 with a batch axis (B = 3 memories, each its own parameters): one
+    launch, each element bit for bit its single launch, within the Gram
+    tolerance of the batched plain twin."""
+    rng = np.random.default_rng(n + 3)
+    ls, outs, x = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (
+        rng.uniform(0.3, 2.0, (3, 3, 4)), rng.uniform(0.02, 0.4, (3, 3)), rng.uniform(0, 1, (3, n, 4))))
+    ops.reset_launch_counts()
+    out = gram_rbf.gram(ls, outs, x)
+    assert ops.launch_counts()["gram"] == 1
+    for k in range(3):
+        assert torch.equal(out[k], gram_rbf.gram(ls[k], outs[k], x[k])), k
+    torch.testing.assert_close(out, gram_rbf.gram_ref(ls, outs, x), rtol=2e-5, atol=2e-6)

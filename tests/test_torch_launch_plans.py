@@ -15,10 +15,10 @@ every element exactly once.
   stacked rows (the row side, then the column side), a warp a row, on
   square and on rectangular (Nr != Nc) slabs. Its grid does not depend on
   the SM count.
-* ``df_mm.pair_launch_plan`` (#11 ``df_mm_bwd_pair``, csrc/df_mm_bwd.cu):
+* ``df_mm.pair_launch_plan`` (#11 ``df_mm_bwd_pair``, csrc/df_mm_split.cu):
   32 x 32 pair tiles, then the chain rule on (side, pair, 32-point) units,
   1 + ns warps a unit, spread over the SMs.
-* ``df_mm.mean_launch_plan`` (#10 ``df_mm_bwd_mean``, csrc/df_mm_bwd.cu):
+* ``df_mm.mean_launch_plan`` (#10 ``df_mm_bwd_mean``, csrc/df_mm_split.cu):
   one thread-block cluster, a warp a (model, 32-point tile) item.
 * ``gram_rbf.launch_plan`` (#1 ``gram``, csrc/gram.cu) and
   ``moment_cov.gik_launch_plan`` (#4 ``cov_gik``, csrc/cov_core.cu): row
@@ -28,8 +28,9 @@ every element exactly once.
 Each case mirrors the kernel's mapping from (block, warp or thread, lane,
 step) to (pair, row, column) as its source comment states it, counts the
 elements each plan reaches and requires every count to be 1. With a batch
-axis (#12, #8, #9: grid row y the element), each element's partials and
-outputs must fill exactly its slice of the wrapper's buffers; a batch
+axis (#12, #8, #9, #10, #11: grid row y the element, #11's summing launch
+a block per element; #1: grid z), each element's partials and outputs must
+fill exactly its slice of the wrapper's buffers; a batch
 folded into #5's pair axis takes one element's plan for every element. CPU only. The
 last cases hold #3's two-side plain twin (the CPU path of ``cov_bwd``) to
 its two one-side calls and to the JAX package's cov core VJP.
@@ -345,7 +346,7 @@ def test_cov_bwd_matches_jax_vjp(dtype, rtol):
 # ---------------------------------------------------------------------------
 # the split whole-step VJP past N = 128: #11 df_mm_bwd_pair (pair tiles, then
 # the chain rule on (side, pair, 32-point) units) and #10 df_mm_bwd_mean (one
-# thread-block cluster of (model, tile) items), csrc/df_mm_bwd.cu
+# thread-block cluster of (model, tile) items), csrc/df_mm_split.cu
 # ---------------------------------------------------------------------------
 
 SPLIT_PLAN_SIZES = [129, 192, 384, 512, 1000]
@@ -431,6 +432,42 @@ def test_df_mm_bwd_mean_cluster_covers_every_point_once(n, sms):
             assert (cl, warps) == (tiles, ns)
 
 
+@pytest.mark.parametrize("sms", SPLIT_PLAN_SMS)
+@pytest.mark.parametrize("n", [129, 192, 384])
+def test_df_mm_split_batch_elements_fill_their_own_buffer_slices(n, sms):
+    """#10 and #11 with a batch axis: #10's cluster row y and #11's grid row
+    y (its first two launches; its summing launch block y) are element y,
+    each the one element's plan, and its partials and outputs at y times the
+    element's extent (csrc/df_mm_split.cu, as its comments state the layouts:
+    #10's items' partials at (m tiles + rt) nv + v of plane (hi, lo) and its
+    out, #11's tile partials at part_at(p, v, tile, n), its units' sums at u
+    nv + v and its out). Every element's writes fill exactly its slice of
+    ``split_buffer_shapes``, each index once."""
+    batch = 3
+    for ns in (1, 2, 3):
+        for d in sorted({ns, 5, 8}):
+            p, nr = ns * (ns + 1) // 2, 1 + ns
+            nt = -(-n // df_mm.BWD_TILE)
+            nv, units = d + ns * ns, 2 * p * nt
+            mplane, tplane = ns * nt * nv, p * nr * nt * n
+            shapes = df_mm.split_buffer_shapes(n, ns, d, batch)
+            writes = {  # element, plane (hi, lo), then the kernel's own index
+                "mean_part": _written((batch, 2, ns, nt, nv), (2 * mplane, mplane, nt * nv, nv, 1)),
+                "mean_out": _written((batch, 2 * d + ns ** 3), (2 * d + ns ** 3, 1)),
+                "row_part": _written((batch, 2, p, nr, nt, n), (2 * tplane, tplane, nr * nt * n, nt * n, n, 1)),
+                "col_part": _written((batch, 2, p, nr, nt, n), (2 * tplane, tplane, nr * nt * n, nt * n, n, 1)),
+                "unit_part": _written((batch, 2, units, nv), (2 * units * nv, units * nv, nv, 1)),
+                "pair_out": _written((batch, 2 * p * d + p * ns * ns + d), (2 * p * d + p * ns * ns + d, 1))}
+            for name, idx in writes.items():
+                size = int(np.prod(shapes[name]))
+                assert np.array_equal(np.sort(idx), np.arange(size)), (ns, d, name)
+                assert shapes[name][0] == batch and size % batch == 0
+            # the plans do not see the batch: each element's grid is the B = 1 launch's
+            one = df_mm.split_buffer_shapes(n, ns, d, 1)
+            assert all(one[k][1:] == shapes[k][1:] for k in shapes)
+            assert df_mm.pair_launch_plan(n, ns, sms)["tiles"] == nt == df_mm.mean_launch_plan(n, ns, sms)["tiles"]
+
+
 # ---------------------------------------------------------------------------
 # the elementwise O(N^2) outputs: #1 gram (csrc/gram.cu) and #4 cov_gik
 # (csrc/cov_core.cu), row bands against all columns in chunks of 4-column items
@@ -484,6 +521,22 @@ def test_gram_plan_covers_every_entry_once(n, sms):
         assert np.all(counts == 1), (ns, int(counts.min()), int(counts.max()))
     if (n, sms) == (384, 132):  # the flagship refresh: 129 blocks of 9 rows, all 96 quads of a row in one chunk
         assert gram_rbf.launch_plan(3, 384, 132) == dict(rows=9, bands=43, quads=96, blocks=129, chunks=1)
+
+
+@pytest.mark.parametrize("sms", BAND_SMS)
+@pytest.mark.parametrize("n", [37, 384])
+def test_gram_batch_elements_fill_their_own_slices(n, sms):
+    """#1 with a batch axis: grid z is element z, each the one memory's plan,
+    its K at z Ns N^2 (csrc/gram.cu): every (element, model, row, column) of
+    the (B, Ns, N, N) output once."""
+    batch, ns = 3, 3
+    plan = gram_rbf.launch_plan(ns, n, sms)
+    one = _band_counts(ns, n, n, plan, gram_rbf.THREADS, 1)
+    counts = np.zeros(batch * ns * n * n, dtype=np.int64)
+    for z in range(batch):
+        idx = np.repeat(np.arange(one.size), one)
+        np.add.at(counts, z * ns * n * n + idx, 1)
+    assert np.all(counts == 1), (int(counts.min()), int(counts.max()))
 
 
 GIK_SHAPES = [(1, 5), (24, 37), (37, 24), (100, 301), (203, 301), (384, 101), (384, 384), (60, 1500), (2000, 9),
